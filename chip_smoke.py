@@ -6,7 +6,8 @@
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``dragonfly2_tpu_torch/csrc`` with nvcc;
 3. holds each kernel against its plain PyTorch version on the card, bit
-   for bit, at the main path's shapes and at odd shapes, and times both;
+   for bit, at the main path's shapes, at the feed's shape (K2: 64 token
+   records into 64 slots) and at odd shapes, and times both;
 4. lands one checkpoint shard the size of Llama-3.1-8B's
    ``model-00001-of-00004.safetensors`` (~4.98 GB: the embedding and
    layers 0-8 at the published widths, random bf16 from ``--seed``)
@@ -16,7 +17,19 @@
    path launched both kernels; splits the landing's host time and the
    verify gate's time into their parts; then checks that a corrupt piece
    fails verification by name;
-5. prints one ``{"kernels": [...]}`` line and, last, one
+5. hot-swaps the landed shard to a second generation (the last two
+   layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
+   through ``swap_generation``, the device half of ``download_delta``:
+   reused 1.25 MiB chunks copy out of the live buffer, the changed ones
+   stage from the host, the verify gate checks the spare buffer, and a
+   ``DoubleBuffer`` flips while a reader thread takes snapshots; checks
+   every byte and tensor, the byte accounting against the plan, and that
+   a wrong host checksum fails the gate by piece and does not flip;
+6. feeds 64 batches of 64 token records (8192 int32 ids each) and a
+   short batch of 17 through ``DeviceFeed``, some records zero-padded,
+   and checks every batch against the host records;
+7. prints one ``{"kernels": [...]}`` line, with each kernel's launches
+   on each path (main, hot_swap, feed), and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
@@ -27,23 +40,31 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import hashlib
 import json
+import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from dragonfly2_tpu_torch.client.device import swap_generation
 from dragonfly2_tpu_torch.daemon.peer.device_sink import (
     DeviceSinkError,
     DeviceSinkManager,
     TaskDeviceSink,
 )
+from dragonfly2_tpu_torch.dataset.device_feed import DEVICE_BATCHES, DeviceFeed
+from dragonfly2_tpu_torch.delta.manifest import CDCParams, Chunk, DeltaManifest
 from dragonfly2_tpu_torch.ops import _build, checksum
-from dragonfly2_tpu_torch.ops.hbm_sink import verify_u8_against_host
+from dragonfly2_tpu_torch.ops.hbm_sink import DoubleBuffer, verify_u8_against_host
 from dragonfly2_tpu_torch.ops.safetensors import load_from_sink
+from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import compute_piece_count, compute_piece_size
 
 # Llama-3.1-8B (meta-llama/Llama-3.1-8B config.json): hidden 4096,
@@ -52,6 +73,15 @@ LLAMA_8B = {"hidden": 4096, "kv": 1024, "inter": 14336, "vocab": 128256}
 SHARD_LAYERS = 9          # shard 1 of 4 holds the embedding and layers 0-8
 BATCH_PIECES = 8
 ITERS = 20                # timed runs of each kernel
+# The delta chunk: the default CDC geometry's expected size (CDCParams,
+# ~1.25 MiB), cut at fixed offsets here.
+CHUNK = 1280 << 10
+# Dataset feed: sequences of 8192 int32 token ids (the pre-training
+# context of "The Llama 3 Herd of Models", section 3.4), 64 per batch.
+SEQ_TOKENS = 8192
+FEED_BATCH = 64
+FEED_BATCHES = 64
+FEED_TAIL = 17            # the short final batch
 
 
 def card_bandwidth(name: str) -> float:
@@ -248,12 +278,13 @@ class _StoreMeta:
     def __init__(self, content_length: int, piece_size: int, pieces: dict):
         self.content_length = content_length
         self.piece_size = piece_size
+        self.total_piece_count = len(pieces)
         self.pieces = pieces
 
 
 class ShardStore:
-    """The surface of the daemon's task store that the device sink
-    manager uses, over bytes held in host memory."""
+    """The surface of the daemon's completed task store that the device
+    sink manager and the hot-swap use, over bytes held in host memory."""
 
     def __init__(self, content: np.ndarray, piece_size: int):
         self._content = content
@@ -261,12 +292,40 @@ class ShardStore:
         self.metadata = _StoreMeta(content.size, piece_size,
                                    {i: _PieceRec(i) for i in range(n)})
 
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        pass
+
     def read_piece(self, num: int):
         ps = self.metadata.piece_size
         return memoryview(self._content[num * ps:(num + 1) * ps])
 
+    def read_into(self, offset: int, length: int, buf) -> None:
+        memoryview(buf)[:length] = memoryview(
+            self._content[offset:offset + length])
+
     def get_pieces(self):
         return list(self.metadata.pieces.values())
+
+
+class CorruptPiece(ShardStore):
+    """A store whose piece ``bad`` reads with one bit flipped, so its host
+    checksum disagrees with the landed bytes."""
+
+    def __init__(self, store: ShardStore, bad: int):
+        self._content = store._content
+        self.metadata = store.metadata
+        self.bad = bad
+
+    def read_piece(self, num: int):
+        data = super().read_piece(num)
+        if num != self.bad:
+            return data
+        out = bytearray(data)
+        out[0] ^= 1
+        return out
 
 
 def gate_breakdown(u8: torch.Tensor, piece_size: int, host_checksums) -> dict:
@@ -299,8 +358,9 @@ def gate_breakdown(u8: torch.Tensor, piece_size: int, host_checksums) -> dict:
 
 
 def drive_main_path(content: np.ndarray, spans: dict, layout, piece_size: int,
-                    seed: int, device: torch.device) -> dict:
-    """Land ``content`` through the port's entry points and check it."""
+                    seed: int, device: torch.device):
+    """Land ``content`` through the port's entry points and check it.
+    Returns the report and the verified sink the caller took."""
     store = ShardStore(content, piece_size)
     n_pieces = len(store.metadata.pieces)
     order = list(range(n_pieces))
@@ -375,7 +435,7 @@ def drive_main_path(content: np.ndarray, spans: dict, layout, piece_size: int,
     gate = gate_breakdown(u8, taken.sink.piece_size, taken.sink.host_checksums)
     return {"pieces": n_pieces, "piece_size": piece_size, "times": times,
             "verify_gate_warm": gate, "launches": launches,
-            "peak_device_bytes": peak, "tensors": len(tensors)}
+            "peak_device_bytes": peak, "tensors": len(tensors)}, taken
 
 
 def phase_corruption(device: torch.device) -> str:
@@ -395,6 +455,277 @@ def phase_corruption(device: torch.device) -> str:
             raise AssertionError(f"corruption reported without its piece: {e}")
         return str(e)
     raise AssertionError("a corrupt piece passed verification")
+
+
+# --------------------------------------------------------------------- #
+# Hot swap: the landed shard to its next generation, through the device
+# half of download_delta
+# --------------------------------------------------------------------- #
+
+def _on_card(device: torch.device) -> bool:
+    return device.type == "cuda"
+
+
+def make_generation2(content: np.ndarray, spans: dict, layout, gen,
+                     device) -> tuple[np.ndarray, list, dict]:
+    """The same layout after a fine-tune of the last two blocks plus
+    every RMSNorm: the last two layers redrawn (one contiguous run) and
+    both norm weights of every other layer redrawn (small, scattered).
+    Returns (content, changed byte spans, counts)."""
+    out = content.copy()
+    layers = sorted({int(n.split(".")[2]) for n, _ in layout
+                     if n.startswith("model.layers.")})
+    last_two = {f"model.layers.{i}." for i in layers[-2:]}
+    redrawn = [(n, s) for n, s in layout
+               if any(n.startswith(p) for p in last_two)]
+    norms = [(n, s) for n, s in layout if n.endswith("layernorm.weight")
+             and not any(n.startswith(p) for p in last_two)]
+    for name, shape in redrawn + norms:
+        b, e = spans[name]
+        t = torch.randn(shape, dtype=torch.bfloat16, device=device,
+                        generator=gen)
+        out[b:e] = t.view(-1).view(torch.uint8).cpu().numpy()
+        if np.array_equal(out[b:e], content[b:e]):
+            raise AssertionError(f"{name}: redraw left the bytes unchanged")
+    run = (spans[redrawn[0][0]][0], spans[redrawn[-1][0]][1])
+    if run[1] - run[0] != sum(spans[n][1] - spans[n][0] for n, _ in redrawn):
+        raise AssertionError("the redrawn layers are not one contiguous run")
+    changed = [run] + [spans[n] for n, _ in norms]
+    return out, changed, {
+        "redrawn_tensors": len(redrawn), "redrawn_bytes": run[1] - run[0],
+        "perturbed_tensors": len(norms),
+        "perturbed_bytes": sum(spans[n][1] - spans[n][0] for n, _ in norms)}
+
+
+def fixed_manifest(content: np.ndarray, name: str,
+                   chunk: int = CHUNK) -> DeltaManifest:
+    """A manifest of fixed-size chunks, hashed with sha256 over the host
+    bytes in parallel threads (hashlib releases the interpreter lock)."""
+    mv = memoryview(content)
+    offsets = range(0, content.size, chunk)
+    with ThreadPoolExecutor(max_workers=os.cpu_count() or 4,
+                            thread_name_prefix="df-chip-sha") as ex:
+        digests = list(ex.map(
+            lambda o: hashlib.sha256(mv[o:o + chunk]).hexdigest(), offsets))
+    m = DeltaManifest(name=name, content_length=content.size, params=CDCParams(),
+                      chunks=[Chunk(o, min(chunk, content.size - o), d)
+                              for o, d in zip(offsets, digests)])
+    m.validate()
+    return m
+
+
+def planned_bytes(total: int, changed, chunk: int = CHUNK) -> tuple[int, int]:
+    """(reused, staged) bytes the delta must come to: every chunk that
+    holds a changed byte is staged, every other chunk reused."""
+    hit = set()
+    for b, e in changed:
+        hit.update(range(b // chunk, (e - 1) // chunk + 1))
+    staged = sum(min(chunk, total - i * chunk) for i in hit)
+    return total - staged, staged
+
+
+def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
+                   piece_size: int, gen, device: torch.device,
+                   chunk: int = CHUNK) -> dict:
+    """Generation 1 (the main path's verified sink) goes live in a
+    DoubleBuffer; generation 2 swaps in through swap_generation while a
+    reader thread takes snapshots across the flip."""
+    live = taken.as_bytes_array()
+    hot = DoubleBuffer()
+    hot.flip(live, load_from_sink(taken))
+    t0 = time.perf_counter()
+    gen2, changed, counts = make_generation2(content, spans, layout, gen,
+                                             device)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base_m = fixed_manifest(content, "generation-1", chunk)
+    new_m = fixed_manifest(gen2, "generation-2", chunk)
+    manifest_s = time.perf_counter() - t0
+    store = ShardStore(gen2, piece_size)
+    want_reused, want_staged = planned_bytes(content.size, changed, chunk)
+
+    mixed: list = []
+    seen: dict = {}
+    stop = threading.Event()
+
+    def reader():
+        while not stop.is_set():
+            g, buf, tensors = hot.snapshot()
+            ptr = buf.untyped_storage().data_ptr()
+            if any(t.untyped_storage().data_ptr() != ptr
+                   for t in tensors.values()):
+                mixed.append(g)
+            seen[g] = seen.get(g, 0) + 1
+            time.sleep(50e-6)
+
+    if _on_card(device):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    checksum.chunk_checksums.launches = 0
+    checksum.land_and_checksum.launches = 0
+    thread = threading.Thread(target=reader, name="df-chip-reader")
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        result = swap_generation(store, live_u8=live, new_m=new_m,
+                                 base_m=base_m, hot=hot, device=device,
+                                 task_id="chip-smoke-generation-2")
+        if _on_card(device):
+            torch.cuda.synchronize()
+        swap_s = time.perf_counter() - t0
+        launches = {"chunk_checksums": checksum.chunk_checksums.launches,
+                    "land_and_checksum": checksum.land_and_checksum.launches}
+        peak = torch.cuda.max_memory_allocated() if _on_card(device) else 0
+        time.sleep(0.05)               # snapshots of the new generation
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+    if thread.is_alive():
+        raise AssertionError("snapshot reader did not stop")
+
+    # What came out: the flip, every byte, every tensor, the accounting.
+    buf = hot.buffer()
+    if not (result.flipped and result.on_device and hot.generation == 2
+            and buf is result.buffer):
+        raise AssertionError(f"no flip to generation 2: {result.generation}")
+    if mixed:
+        raise AssertionError(f"mixed-generation snapshots: {mixed[:3]}")
+    if set(seen) != {1, 2}:
+        raise AssertionError(f"reader saw generations {sorted(seen)}")
+    step = 256 << 20
+    for o in range(0, content.size, step):
+        host = torch.from_numpy(gen2[o:o + step]).to(device)
+        if not torch.equal(buf[o:o + step], host):
+            raise AssertionError(f"flipped buffer differs at [{o}, {o + step})")
+    tensors = hot.tensors()
+    if set(tensors) != {name for name, _ in layout}:
+        raise AssertionError("tensor names differ from the header")
+    for name, shape in layout:
+        t = tensors[name]
+        b, e = spans[name]
+        if t.dtype != torch.bfloat16 or tuple(t.shape) != tuple(shape):
+            raise AssertionError(f"{name}: {t.dtype} {tuple(t.shape)}")
+        if not torch.equal(t.reshape(-1).view(torch.uint8), buf[b:e]):
+            raise AssertionError(f"{name}: bytes differ from generation 2")
+        if not bool(torch.isfinite(t).all()):
+            raise AssertionError(f"{name}: non-finite values")
+    got = (result.reused_device_bytes, result.staged_bytes)
+    if got != (want_reused, want_staged):
+        raise AssertionError(f"reused/staged {got} != plan "
+                             f"{(want_reused, want_staged)}")
+    if _on_card(device) and launches["chunk_checksums"] < 1:
+        raise AssertionError("chunk_checksums never launched on the swap")
+
+    # Warm gate, on the flipped buffer.
+    checks = {rec.num: checksum.checksum_numpy(store.read_piece(rec.num))
+              for rec in store.get_pieces()}
+    gate_warm_ms = host_ms(
+        lambda: verify_u8_against_host(buf, piece_size, checks), 5)
+
+    # A generation 2 whose host checksum of one piece is wrong fails the
+    # gate by piece number, and the live generation stays.
+    bad = store.metadata.total_piece_count // 2
+    try:
+        swap_generation(CorruptPiece(store, bad), live_u8=live, new_m=new_m,
+                        base_m=base_m, hot=hot, device=device)
+    except DfError as e:
+        if e.code != Code.ClientPieceDownloadFail or f"piece {bad} " not in str(e):
+            raise AssertionError(f"wrong gate failure: {e!r}")
+        refused = str(e)
+    else:
+        raise AssertionError("a wrong host checksum passed the gate")
+    if hot.generation != 2 or hot.buffer() is not buf:
+        raise AssertionError("the refused generation flipped")
+    return {"content_bytes": content.size, "chunk": chunk,
+            "chunks": new_m.num_chunks, **counts,
+            "reused_device_bytes": result.reused_device_bytes,
+            "staged_bytes": result.staged_bytes, "copies": result.copies,
+            "timings": result.timings, "swap_s": swap_s,
+            "gate_warm_ms": gate_warm_ms, "made_s": made_s,
+            "manifest_s": manifest_s, "peak_device_bytes": peak,
+            "snapshots": seen, "launches": launches, "refused": refused}
+
+
+# --------------------------------------------------------------------- #
+# Dataset feed: token records into device batches
+# --------------------------------------------------------------------- #
+
+def token_records(seed: int, vocab: int, tokens: int = SEQ_TOKENS,
+                  batches: int = FEED_BATCHES, batch: int = FEED_BATCH,
+                  tail: int = FEED_TAIL) -> tuple[list, np.ndarray]:
+    """``batches`` full batches and a ``tail`` of int32 token sequences;
+    every seventh is cut short (a document end) and must be zero-padded.
+    Returns (sample dicts, the padded records as uint8 rows)."""
+    rng = np.random.default_rng(seed)
+    n = batches * batch + tail
+    ids = rng.integers(0, vocab, (n, tokens), dtype=np.int32)
+    lengths = np.full(n, tokens)
+    lengths[::7] = rng.integers(1, tokens, lengths[::7].size)
+    for i in np.flatnonzero(lengths < tokens):
+        ids[i, lengths[i]:] = 0
+    samples = [{"__key__": f"seq-{i:06d}",
+                "tokens": ids[i, :lengths[i]].tobytes()} for i in range(n)]
+    return samples, ids.view(np.uint8)
+
+
+def phase_feed(seed: int, vocab: int, device: torch.device, **shape) -> dict:
+    """The records through DeviceFeed (pad=True), every batch checked
+    against the host records."""
+    samples, want = token_records(seed, vocab, **shape)
+    record_bytes = want.shape[1]
+    batch = shape.get("batch", FEED_BATCH)
+
+    async def stream():
+        for s in samples:
+            yield s
+
+    async def collect(feed):
+        return [b async for b in feed.batches(stream())]
+
+    feed = DeviceFeed("tokens", record_bytes, batch, pad=True, device=device)
+    hbm, numpy_ = DEVICE_BATCHES.value("hbm"), DEVICE_BATCHES.value("numpy")
+    if _on_card(device):
+        torch.cuda.synchronize()
+    checksum.chunk_checksums.launches = 0
+    checksum.land_and_checksum.launches = 0
+    t0 = time.perf_counter()
+    batches = asyncio.run(collect(feed))
+    if _on_card(device):
+        torch.cuda.synchronize()
+    feed_s = time.perf_counter() - t0
+    launches = {"chunk_checksums": checksum.chunk_checksums.launches,
+                "land_and_checksum": checksum.land_and_checksum.launches}
+    paths = {"hbm": DEVICE_BATCHES.value("hbm") - hbm,
+             "numpy": DEVICE_BATCHES.value("numpy") - numpy_}
+
+    sizes = [len(b.keys) for b in batches]
+    want_sizes = [batch] * (len(samples) // batch) + (
+        [len(samples) % batch] if len(samples) % batch else [])
+    if sizes != want_sizes:
+        raise AssertionError(f"batch sizes {sizes} != {want_sizes}")
+    row = 0
+    for b in batches:
+        if not b.on_device or b.array.device.type != device.type:
+            raise AssertionError("a batch did not land on the device")
+        got = b.array.cpu().numpy()
+        if not np.array_equal(got, want[row:row + len(b.keys)]):
+            raise AssertionError(f"batch at record {row} differs from the "
+                                 "host records")
+        row += len(b.keys)
+    if _on_card(device) and launches["land_and_checksum"] != len(batches):
+        raise AssertionError(f"land_and_checksum launched "
+                             f"{launches['land_and_checksum']} times for "
+                             f"{len(batches)} batches")
+    if paths != {"hbm": len(batches), "numpy": 0}:
+        raise AssertionError(f"batches by path {paths}")
+    nbytes = len(samples) * record_bytes
+    return {"batches": len(batches), "records": len(samples),
+            "record_bytes": record_bytes,
+            "padded_records": int(sum(len(s["tokens"]) < record_bytes
+                                      for s in samples)),
+            "feed_s": feed_s, "batches_per_s": len(batches) / feed_s,
+            "gb_per_s": nbytes / feed_s / 1e9, "paths": paths,
+            "launches": launches}
 
 
 def smi_line() -> str:
@@ -441,6 +772,12 @@ def main(argv=None) -> int:
     k2 = phase_land_and_checksum(BATCH_PIECES, n_pieces, pw, gen, device, bw)
     print("kernel land_and_checksum:", json.dumps(k2))
     torch.cuda.empty_cache()
+    # K2 at the feed's shape: one batch of FEED_BATCH token records, one
+    # record (SEQ_TOKENS int32 ids) per slot, every slot landed.
+    k2_feed = phase_land_and_checksum(FEED_BATCH, FEED_BATCH, SEQ_TOKENS, gen,
+                                      device, bw)
+    print("kernel land_and_checksum at the feed's shape:",
+          json.dumps(k2_feed))
     phase_odd_shapes(gen, device)
     print("odd shapes: both kernels match their plain versions")
 
@@ -450,8 +787,8 @@ def main(argv=None) -> int:
           f"{n_pieces} pieces of {piece_size}, made in "
           f"{time.perf_counter() - t0:.1f} s")
     torch.cuda.empty_cache()
-    main_path = drive_main_path(content, spans, layout, piece_size, args.seed,
-                                device)
+    main_path, taken = drive_main_path(content, spans, layout, piece_size,
+                                       args.seed, device)
     t = main_path["times"]
     landed_s = t["land_s"] + t["finalize_s"]
     print("main path:", json.dumps(main_path))
@@ -469,19 +806,47 @@ def main(argv=None) -> int:
           f"K2) = {device_s:.4f} s")
     print("corruption:", phase_corruption(device))
 
+    swap = phase_hot_swap(content, spans, layout, taken, piece_size, gen,
+                          device)
+    del taken, content
+    torch.cuda.empty_cache()
+    tm = swap["timings"]
+    print("hot swap:", json.dumps(swap))
+    print(f"hot swap: {swap['content_bytes'] / 1e9:.3f} GB in "
+          f"{swap['chunks']} chunks; reused {swap['reused_device_bytes']} B "
+          f"device to device, staged {swap['staged_bytes']} B, "
+          f"{swap['copies']} copies; assemble {tm['assemble_s']:.4f} s on "
+          f"the host, its copies {tm['assemble_device_ms']:.4f} ms on the "
+          f"card; gate cold "
+          f"{tm['gate_s']:.4f} s, warm {swap['gate_warm_ms'] / 1e3:.4f} s; "
+          f"flip-to-readable {tm['flip_s']:.4f} s; peak device memory "
+          f"{swap['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+    feed = phase_feed(args.seed, LLAMA_8B["vocab"], device)
+    print("feed:", json.dumps(feed))
+    print(f"feed: {feed['batches']} batches of up to {FEED_BATCH} x "
+          f"{feed['record_bytes']} B in {feed['feed_s']:.4f} s: "
+          f"{feed['batches_per_s']:.1f} batches/s, {feed['gb_per_s']:.3f} GB/s "
+          f"on {smi}")
+
+    paths = {"main": main_path["launches"], "hot_swap": swap["launches"],
+             "feed": feed["launches"]}
     kernels = []
-    for kname, res, replaces in (
-            ("chunk_checksums", k1, "dragonfly2_tpu/ops/checksum.py:67"),
-            ("land_and_checksum", k2, "dragonfly2_tpu/ops/checksum.py:133")):
+    timed_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shape")
+    for kname, res, replaces, also in (
+            ("chunk_checksums", k1, "dragonfly2_tpu/ops/checksum.py:67", {}),
+            ("land_and_checksum", k2, "dragonfly2_tpu/ops/checksum.py:133",
+             {"at_feed_shape": {key: k2_feed[key] for key in timed_keys}})):
+        by_path = {p: counts[kname] for p, counts in paths.items()}
         kernels.append({
             "name": kname, "route": "cuda",
             "source": "dragonfly2_tpu_torch/csrc/checksum.cu",
             "replaces": replaces,
-            "launches": main_path["launches"][kname],
+            "launches": sum(by_path.values()),
+            "launches_by_path": by_path,
             **{key: res[key] for key in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by", "library_ms",
                                          "copy_ms", "shape")},
-            "match": True})
+            **also, "match": True})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -5,13 +5,21 @@ through two Pallas kernels. This package does the same on an NVIDIA
 Hopper card with two hand-written CUDA C++ kernels, and imports nothing
 from the JAX package (nor JAX itself):
 
-- ``pkg/``     own copies of the logger, a stdlib counter registry and the
-               piece-size math.
+- ``pkg/``     own copies of the logger, a stdlib counter registry, the
+               piece-size math and ``Range``, task ids and coded errors.
+- ``proto/``   ``UrlMeta``, the request metadata the daemon reads.
 - ``csrc/``    the CUDA C++ kernels (``sm_90a``), built by nvcc at first use.
-- ``ops/``     checksum wrappers, the device sink (``HBMSink``), safetensors
-               views over the landed bytes, and JAX-state conversion.
+- ``ops/``     checksum wrappers, the device sink (``HBMSink``), the
+               hot-swap's ``assemble_delta_u8`` and ``DoubleBuffer``,
+               safetensors views over the landed bytes, and JAX-state
+               conversion.
 - ``daemon/``  ``DeviceSinkManager``, the terminal store the reference
-               daemon's task manager drives through a duck-typed surface.
+               daemon's task manager drives through a duck-typed surface,
+               and ``FileTaskRequest``, the request it accepts.
+- ``delta/``   chunk manifests and the delta plan of a hot-swap.
+- ``client/``  the user's entry points: ``download_to_device``,
+               ``download_sharded``, ``download_delta``.
+- ``dataset/`` ``DeviceFeed``: loader samples into record batches on the card.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``), which is what the CPU tests do.
@@ -27,11 +35,17 @@ __version__ = "0.1.0"
 def default_device(device=None) -> torch.device:
     """The device a port entry point runs on. ``None`` means the current
     CUDA device; with no CUDA device this raises instead of quietly
-    running on the CPU (a caller who wants the CPU says ``device="cpu"``)."""
+    running on the CPU (a caller who wants the CPU says ``device="cpu"``).
+    A CUDA device always carries its index, so devices compare equal to
+    a tensor's ``.device``."""
     if device is not None:
         dev = torch.device(device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device {dev} requested but CUDA is not available")
+        if dev.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError(
+                    f"device {dev} requested but CUDA is not available")
+            if dev.index is None:
+                dev = torch.device("cuda", torch.cuda.current_device())
         return dev
     if not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,7 +1,8 @@
 """Device sink: land verified pieces directly in the card's memory.
 
-The port of ``dragonfly2_tpu/ops/hbm_sink.py`` (``HBMSink`` and
-``verify_u8_against_host``). The daemon hands pieces to an ``HBMSink``,
+The port of ``dragonfly2_tpu/ops/hbm_sink.py`` (``HBMSink``,
+``verify_u8_against_host``, and the hot-swap's ``assemble_delta_u8`` and
+``DoubleBuffer`` at the end). The daemon hands pieces to an ``HBMSink``,
 which stages them in host batches, lands each batch in one flat device
 buffer and checks on-device checksums against the host's values. The
 result is a device byte tensor, a record batch or a typed tensor, each a
@@ -28,7 +29,6 @@ becomes the buffer. Slots never landed stay zero, with zero checksums.
 from __future__ import annotations
 
 import time
-
 import numpy as np
 import torch
 
@@ -282,3 +282,184 @@ def verify_u8_against_host(u8: torch.Tensor, piece_size: int,
                 f"piece {num} corrupt in spare buffer: "
                 f"sum {have[0]:#x}!={want_s:#x} "
                 f"xor {have[1]:#x}!={want_x:#x}")
+
+
+# ---------------------------------------------------------------------- #
+# Double-buffer hot-swap (the port of ``assemble_delta_u8`` and
+# ``DoubleBuffer``, dragonfly2_tpu/ops/hbm_sink.py): the next checkpoint
+# generation assembles in a spare buffer while the live one serves, and
+# the verified result replaces the live generation in one reference
+# assignment.
+# ---------------------------------------------------------------------- #
+
+def coalesce_parts(parts) -> list[list]:
+    """The copies ``assemble_delta_u8`` queues for ``parts``, in order:
+    a run of reused parts that is contiguous in the live buffer becomes
+    one ``["r", dst, src, length]`` device-to-device copy, and a run of
+    adjacent fetched parts (``"f"`` or ``"s"``) one
+    ``["f", dst, [part, ...], length]`` host-to-device copy. (A
+    checkpoint shard at the default chunk size has thousands of chunks;
+    one copy each would put thousands of launches on the swap.)"""
+    runs: list[list] = []
+    dst = 0
+    for part in parts:
+        kind = part[0]
+        last = runs[-1] if runs else None
+        if kind == "r":
+            _, src, n = part
+            if src < 0 or n < 0:
+                raise ValueError(f"bad reused part {part!r}")
+            if last is not None and last[0] == "r" and last[2] + last[3] == src:
+                last[3] += n
+            else:
+                runs.append(["r", dst, src, n])
+        elif kind in ("f", "s"):
+            if kind == "f":
+                n = memoryview(part[1]).nbytes
+            else:
+                _, off, n = part
+                if off < 0 or n < 0:
+                    raise ValueError(f"bad store part {part!r}")
+            if last is not None and last[0] == "f":
+                last[2].append(part)
+                last[3] += n
+            else:
+                runs.append(["f", dst, [part], n])
+        else:
+            raise ValueError(f"unknown part kind {kind!r}")
+        dst += n
+    return runs
+
+
+def _stage_fetched(runs, store, pin: bool) -> torch.Tensor | None:
+    """Every fetched byte of ``runs``, in order, in one host buffer
+    (pinned for the card): store spans are read straight into it."""
+    fetched = sum(r[3] for r in runs if r[0] == "f")
+    if not fetched:
+        return None
+    staging = torch.empty(fetched, dtype=torch.uint8, pin_memory=pin)
+    host = staging.numpy()
+    at = 0
+    for kind, _, items, _ in runs:
+        if kind != "f":
+            continue
+        for part in items:
+            if part[0] == "s":
+                _, off, n = part
+                if store is None:
+                    raise ValueError("store parts need a store")
+                store.read_into(off, n, memoryview(host[at:at + n]))
+            else:
+                view = np.frombuffer(part[1], np.uint8)
+                n = view.size
+                host[at:at + n] = view
+            at += n
+    return staging
+
+
+def assemble_delta_u8(live_u8: torch.Tensor | None, parts, *, device=None,
+                      store=None, stats: dict | None = None) -> torch.Tensor:
+    """The next generation's uint8 content buffer.
+
+    ``parts`` is the new content in offset order, each one of
+    ``("r", src_offset, length)``, a reused chunk at its offset in the
+    live buffer ``live_u8``; ``("f", data)``, a fetched chunk's host
+    bytes; or ``("s", offset, length)``, fetched bytes at ``offset`` of
+    ``store`` (anything with ``read_into(offset, length, buf)``), read
+    straight into the staging buffer with no copy of their own.
+
+    The buffer is allocated once at its final length on ``device`` (by
+    default the live buffer's; without one, ``default_device``). Reused
+    bytes are copied device to device and fetched bytes through one host
+    staging buffer, pinned on CUDA, after coalescing (``coalesce_parts``).
+    The copies are queued on the caller's current stream and the call
+    does not wait for them. ``stats``, when given, receives ``copies``,
+    the number queued, and on CUDA ``start`` and ``done``: events
+    recorded on that stream just before and after the copies (the host
+    staging is not inside that window)."""
+    if device is None and live_u8 is not None:
+        dev = live_u8.device
+    else:
+        dev = default_device(device)
+    runs = coalesce_parts(parts)
+    for kind, _, src, n in runs:
+        if kind != "r":
+            continue
+        if live_u8 is None:
+            raise ValueError("reused parts need a live buffer")
+        if live_u8.device != dev:
+            raise ValueError(f"live buffer on {live_u8.device}, assembly on "
+                             f"{dev}")
+        if src + n > live_u8.numel():
+            raise ValueError(
+                f"reused span [{src}, {src + n}) outside the "
+                f"{live_u8.numel()}-byte live buffer")
+    cuda = dev.type == "cuda"
+    out = torch.empty(sum(r[3] for r in runs), dtype=torch.uint8, device=dev)
+    staging = _stage_fetched(runs, store, pin=cuda)
+    timed = cuda and stats is not None
+    if timed:
+        stream = torch.cuda.current_stream(dev)
+        start = torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+    pos = 0
+    for kind, dst, src, n in runs:
+        if kind == "r":
+            out[dst:dst + n].copy_(live_u8[src:src + n])
+        else:
+            out[dst:dst + n].copy_(staging[pos:pos + n], non_blocking=True)
+            pos += n
+    if stats is not None:
+        stats["copies"] = len(runs)
+    if timed:
+        done = torch.cuda.Event(enable_timing=True)
+        done.record(stream)
+        stats["start"], stats["done"] = start, done
+    return out
+
+
+class DoubleBuffer:
+    """Atomic generation holder for hot-swapped device checkpoints.
+
+    Readers call ``snapshot()`` (or ``tensors()``) and get one complete
+    generation: the state is one tuple, replaced in one reference
+    assignment, so a flipping writer never exposes a half-updated tensor
+    set. Writers assemble and verify the next generation to the side and
+    ``flip()`` only after the gate passed; the gate's read-back of its
+    checksums to the host orders the flip after the assembly's copies.
+
+    The previous generation's buffer is freed when its last reference
+    goes (ordinary refcounting) and its memory returns to PyTorch's
+    caching allocator. That is safe for a reader whose work runs on the
+    stream the buffer was allocated on (every thread's default stream,
+    unless it set another): later reuse of the memory queues behind that
+    work. A reader that runs the tensors on a side stream must call
+    ``t.record_stream(side_stream)`` on each tensor it uses (or hold its
+    snapshot until that stream's work is done), or the allocator may
+    hand the memory out again while the side stream still reads it."""
+
+    __slots__ = ("_state",)
+
+    def __init__(self):
+        self._state: tuple = (0, None, {})
+
+    @property
+    def generation(self) -> int:
+        return self._state[0]
+
+    def snapshot(self) -> tuple:
+        """(generation, buffer_u8, tensors): one consistent triple."""
+        return self._state
+
+    def tensors(self) -> dict:
+        return self._state[2]
+
+    def buffer(self):
+        return self._state[1]
+
+    def flip(self, buffer, tensors: dict) -> int:
+        """Install the next generation. Callers flip only verified
+        buffers (``verify_u8_against_host`` or ``HBMSink.verify``)."""
+        gen = self._state[0] + 1
+        self._state = (gen, buffer, dict(tensors))
+        return gen

@@ -137,16 +137,23 @@ def tensor_views(u8: torch.Tensor, header: dict, data_start: int,
     return out
 
 
+def read_header(u8: torch.Tensor) -> tuple[dict, int]:
+    """(header dict, data_start_offset) of a landed uint8 buffer: the
+    length prefix, then exactly the header, as two tiny device-to-host
+    copies instead of a guessed prefix size."""
+    prefix = u8[:8].cpu().numpy().tobytes()
+    if len(prefix) < 8:
+        raise SafetensorsError("content shorter than the length prefix")
+    n = int.from_bytes(prefix, "little")
+    if 8 + n > u8.shape[0]:
+        raise SafetensorsError("header length exceeds content")
+    return parse_header(u8[: 8 + n].cpu().numpy().tobytes())
+
+
 def load_from_sink(sink, *, names: list[str] | None = None
                    ) -> dict[str, torch.Tensor]:
     """Named tensors from a completed, verified sink (anything with
     ``as_bytes_array()`` returning a device uint8 tensor)."""
     u8 = sink.as_bytes_array()
-    # The length prefix, then exactly the header: two tiny device-to-host
-    # copies instead of guessing a prefix size.
-    n = int.from_bytes(u8[:8].cpu().numpy().tobytes(), "little")
-    if 8 + n > u8.shape[0]:
-        raise SafetensorsError("header length exceeds content")
-    head = u8[: 8 + n].cpu().numpy().tobytes()
-    header, data_start = parse_header(head)
+    header, data_start = read_header(u8)
     return tensor_views(u8, header, data_start, names)

@@ -1,10 +1,13 @@
-"""Piece-size math: the port's own copy of ``compute_piece_size`` and
-``compute_piece_count`` (``dragonfly2_tpu/pkg/piece.py``), which size the
-device sink's slots exactly as the daemon sizes its pieces."""
+"""Piece-size math and byte ranges: the port's own copy of
+``compute_piece_size``, ``compute_piece_count`` and ``Range``
+(``dragonfly2_tpu/pkg/piece.py``). The piece math sizes the device sink's
+slots exactly as the daemon sizes its pieces; the reference daemon reads
+a port request's ``Range`` directly (``start``, ``length``)."""
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
 
 _MB = 1024 * 1024
 DEFAULT_PIECE_SIZE = 4 * _MB
@@ -29,3 +32,56 @@ def compute_piece_size(length: int) -> int:
 def compute_piece_count(length: int, piece_size: int) -> int:
     """ceil(length / piece_size)."""
     return math.ceil(length / piece_size)
+
+
+@dataclass
+class Range:
+    """HTTP byte range [start, start+length); ``length`` is -1 for an
+    open end (``bytes=N-``) whose content length is not known yet."""
+
+    start: int
+    length: int
+
+    @staticmethod
+    def normalize_header(value: str) -> str:
+        """Canonical ``bytes=a-b`` form, validated. The string is task
+        identity (``task_id_v1`` hashes it verbatim), so a ranged request
+        normalizes through here or its task id stops matching the other
+        producers'. Raises ValueError on malformed or suffix spans."""
+        if not value:
+            return ""
+        v = value if value.strip().startswith("bytes=") else f"bytes={value}"
+        return Range.parse_http(v).to_http()
+
+    @classmethod
+    def parse_http(cls, header: str, content_length: int = -1) -> "Range | None":
+        """Parse a single ``bytes=a-b`` / ``bytes=a-`` / ``bytes=-n``."""
+        if not header:
+            return None
+        value = header.strip()
+        if value.startswith("bytes="):
+            value = value[len("bytes="):]
+        if "," in value:
+            raise ValueError("multi-range not supported")
+        start_s, sep, end_s = value.partition("-")
+        if not sep:
+            raise ValueError(f"invalid range {header!r}")
+        if not start_s:  # suffix range: the last N bytes
+            if content_length < 0:
+                raise ValueError("suffix range needs content length")
+            n = int(end_s)
+            return cls(max(0, content_length - n), min(n, content_length))
+        start = int(start_s)
+        if not end_s:
+            if content_length < 0:
+                return cls(start, -1)
+            return cls(start, max(0, content_length - start))
+        end = int(end_s)
+        if end < start:
+            raise ValueError(f"inverted range {header!r}")
+        return cls(start, end - start + 1)
+
+    def to_http(self) -> str:
+        if self.length < 0:
+            return f"bytes={self.start}-"
+        return f"bytes={self.start}-{self.start + self.length - 1}"

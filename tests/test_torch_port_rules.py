@@ -25,9 +25,11 @@ import torch
 
 from dragonfly2_tpu.pkg import piece as jax_piece
 from dragonfly2_tpu_torch import default_device
+from dragonfly2_tpu_torch.client.device import swap_generation
 from dragonfly2_tpu_torch.daemon.peer.device_sink import DeviceSinkManager
+from dragonfly2_tpu_torch.dataset.device_feed import DeviceFeed
 from dragonfly2_tpu_torch.ops import _build
-from dragonfly2_tpu_torch.ops.hbm_sink import HBMSink
+from dragonfly2_tpu_torch.ops.hbm_sink import HBMSink, assemble_delta_u8
 from dragonfly2_tpu_torch.pkg import metrics, piece
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -90,6 +92,26 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
         HBMSink(4096, 1024)
     with pytest.raises(RuntimeError, match="CUDA"):
         DeviceSinkManager()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DeviceFeed("bin", 32768, 64)           # HBMSink-backed batches
+    with pytest.raises(RuntimeError, match="CUDA"):
+        assemble_delta_u8(None, [("f", b"1234")])
+
+    class Store:
+        metadata = type("M", (), {"content_length": 4, "piece_size": 4,
+                                  "total_piece_count": 1})()
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            pass
+
+        def read_into(self, offset, length, buf):
+            buf[:length] = b"1234"
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        swap_generation(Store())               # client/device.py hot-swap
     assert default_device("cpu") == torch.device("cpu")
 
 
