@@ -1,13 +1,24 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's device-sink path on one NVIDIA card.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent DIR]
 
 1. prints the card's name and power limit (nvidia-smi);
-2. builds the CUDA kernels from ``dragonfly2_tpu_torch/csrc`` with nvcc;
+2. builds the CUDA kernels from ``dragonfly2_tpu_torch/csrc`` with nvcc
+   and prints each kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, at the feed's shape (K2: 64 token
-   records into 64 slots) and at odd shapes, and times both;
+   records into 64 slots) and at odd shapes (K2 also: one piece, a piece
+   count that is not a multiple of its cluster, pieces smaller than one
+   stage, source and slot at different 16-byte phases, the sink's
+   per-slot outputs, a slot out of range), and times each kernel by its
+   device time (``device_time``: events around many back-to-back calls
+   with the host running ahead, over their count; at the feed's shape
+   over 16 input sets in turn, more than the L2 holds) beside the host's
+   microseconds per call, the plain version, a ``copy_`` of the same
+   bytes and, for K2, its register path alone and its other launch
+   plans; with ``--parent DIR`` also times the kernels of the checkout in
+   DIR against this tree's, in turns;
 4. lands one checkpoint shard the size of Llama-3.1-8B's
    ``model-00001-of-00004.safetensors`` (~4.98 GB: the embedding and
    layers 0-8 at the published widths, random bf16 from ``--seed``)
@@ -27,9 +38,11 @@
    a wrong host checksum fails the gate by piece and does not flip;
 6. feeds 64 batches of 64 token records (8192 int32 ids each) and a
    short batch of 17 through ``DeviceFeed``, some records zero-padded,
-   and checks every batch against the host records;
-7. prints one ``{"kernels": [...]}`` line, with each kernel's launches
-   on each path (main, hot_swap, feed), and, last, one
+   and checks every batch against the host records; then runs a short
+   feed window under ``torch.profiler`` and prints the device operations
+   it queued and K2's kernel time by name;
+7. checks each kernel's launches on each path (main, hot_swap, feed),
+   prints one ``{"kernels": [...]}`` line with them and, last, one
    ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
@@ -40,6 +53,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import ctypes
 import hashlib
 import json
 import os
@@ -72,7 +86,6 @@ from dragonfly2_tpu_torch.pkg.piece import compute_piece_count, compute_piece_si
 LLAMA_8B = {"hidden": 4096, "kv": 1024, "inter": 14336, "vocab": 128256}
 SHARD_LAYERS = 9          # shard 1 of 4 holds the embedding and layers 0-8
 BATCH_PIECES = 8
-ITERS = 20                # timed runs of each kernel
 # The delta chunk: the default CDC geometry's expected size (CDCParams,
 # ~1.25 MiB), cut at fixed offsets here.
 CHUNK = 1280 << 10
@@ -96,20 +109,43 @@ def bound_ms(nbytes: int, bandwidth: float) -> float:
     return nbytes / bandwidth * 1e3
 
 
-def time_ms(fn, iters: int) -> float:
-    """Median CUDA-event milliseconds of ``fn`` over ``iters`` runs after
-    one warm-up."""
-    fn()
-    times = []
-    for _ in range(iters):
+# Clock of the card's spin (torch.cuda._sleep counts SM cycles; an H100's
+# SM clock is at most 1.98 GHz, so this overstates the spin's length).
+SPIN_HZ = 2.0e9
+
+
+def device_time(fn, n: int, windows: int = 3) -> tuple[float, float]:
+    """(ms, call_us) of ``fn(j)``, j = 0 .. n-1, called back to back.
+
+    ``ms`` is the device time per call: CUDA events around all n calls,
+    over n. A spin of the card (``torch.cuda._sleep``) is queued first,
+    longer than the host takes to queue the n calls, so the host runs
+    ahead and the card never waits on it inside the window. ``call_us``
+    is the host's microseconds per call over the same n calls, taken
+    without a sync. A first untimed pass warms up and sizes the spin;
+    both numbers are the median of ``windows`` timed passes."""
+    fn(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for j in range(n):
+        fn(j)
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    ms, us = [], []
+    for _ in range(windows):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(int((3 * host_s + 1e-3) * SPIN_HZ))
         start.record()
-        fn()
+        t0 = time.perf_counter()
+        for j in range(n):
+            fn(j)
+        call_s = time.perf_counter() - t0
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        ms.append(start.elapsed_time(end) / n)
+        us.append(call_s / n * 1e6)
+    return statistics.median(ms), statistics.median(us)
 
 
 def host_ms(fn, iters: int) -> float:
@@ -151,49 +187,117 @@ def phase_chunk_checksums(n: int, pw: int, gen, device, bw: float) -> dict:
     want = checksum.chunk_checksums_torch(words, pw)
     check_equal("chunk_checksums", zip(got, want))
     err = max_abs_err(zip(got, want))
-    ms = time_ms(lambda: checksum.chunk_checksums(words, pw), ITERS)
-    plain = time_ms(lambda: checksum.chunk_checksums_torch(words, pw), 2)
+    ms, call_us = device_time(
+        lambda j: checksum.chunk_checksums(words, pw), 10)
+    plain, _ = device_time(
+        lambda j: checksum.chunk_checksums_torch(words, pw), 2, windows=1)
     dst = torch.empty_like(words)
-    copy = time_ms(lambda: dst.copy_(words), ITERS)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+    copy, _ = device_time(lambda j: dst.copy_(words), 10)
+    return {"max_abs_err": err, "ms": ms, "call_us": call_us,
+            "plain_ms": plain,
             "bound_ms": bound_ms(n * pw * 4 + 8 * n, bw), "bound_by": "bytes",
             "library_ms": None, "copy_ms": copy, "shape": f"n={n} pw={pw}"}
 
 
+def land_sets(k: int, n_slots: int, pw: int, sets: int, gen, device):
+    """``sets`` distinct (buffer, pieces, slots) triples: k random pieces
+    for shuffled slots of a random n_slots-slot buffer."""
+    out = []
+    for r in range(sets):
+        buf = random_words(n_slots * pw, gen, device)
+        pieces = random_words(k * pw, gen, device).view(k, pw)
+        perm = torch.randperm(n_slots,
+                              generator=torch.Generator().manual_seed(k + r))
+        out.append((buf, pieces, perm[:k].to(torch.int32).to(device)))
+    return out
+
+
 def phase_land_and_checksum(k: int, n_slots: int, pw: int, gen, device,
-                            bw: float) -> dict:
+                            bw: float, sets: int = 1, n: int = 40) -> dict:
     """K2 against its plain version: k pieces into shuffled slots of a
-    n_slots-slot buffer whose other slots must keep their bytes, timed;
-    and the pinned host-to-device copy of one such batch, the landing's
-    other device work."""
-    buf_a = random_words(n_slots * pw, gen, device)
+    n_slots-slot buffer whose other slots must keep their bytes. Then
+    timed over ``sets`` distinct inputs taken in turn (enough that the
+    card's 50 MB L2 holds none of them from one call to its next), beside
+    the same launch with the register path only, a ``copy_`` of the same
+    bytes, the plain version, and the pinned host-to-device copy of one
+    batch, the landing's other device work."""
+    data = land_sets(k, n_slots, pw, sets, gen, device)
+    buf_a, pieces, slots = data[0]
     buf_b = buf_a.clone()
-    pieces = random_words(k * pw, gen, device).view(k, pw)
-    perm = torch.randperm(n_slots, generator=torch.Generator().manual_seed(k))
-    slots = perm[:k].to(torch.int32).to(device)
     _, s_a, x_a = checksum.land_and_checksum(buf_a, pieces, slots)
     _, s_b, x_b = checksum.land_and_checksum_torch(buf_b, pieces, slots)
     check_equal("land_and_checksum", [(buf_a, buf_b), (s_a, s_b), (x_a, x_b)])
     err = max_abs_err([(s_a, s_b), (x_a, x_b)])
     del buf_b
-    ms = time_ms(lambda: checksum.land_and_checksum(buf_a, pieces, slots),
-                 ITERS * 5)
-    plain = time_ms(
-        lambda: checksum.land_and_checksum_torch(buf_a, pieces, slots), 10)
-    dst = torch.empty_like(pieces)
-    copy = time_ms(lambda: dst.copy_(pieces), ITERS * 5)
+    plan = checksum._land_plan(k, pw, checksum._phase(pieces),
+                               checksum._phase(buf_a))
+    registers = plan._replace(stage_words=0, stages=0, threads=1024)
+
+    def land(j, p=None):
+        checksum.land_and_checksum(*data[j % sets], plan=p)
+
+    ms, call_us = device_time(land, n)
+    reg_ms, _ = device_time(lambda j: land(j, registers), n)
+    dsts = [torch.empty_like(p) for _, p, _ in data]
+    copy, _ = device_time(lambda j: dsts[j % sets].copy_(data[j % sets][1]), n)
+    plain, _ = device_time(
+        lambda j: checksum.land_and_checksum_torch(*data[j % sets]),
+        max(2, n // 20), windows=1)
     pinned = torch.empty((k, pw), dtype=torch.int32, pin_memory=True)
-    h2d = time_ms(lambda: dst.copy_(pinned, non_blocking=True), ITERS)
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+    h2d, _ = device_time(lambda j: dsts[0].copy_(pinned, non_blocking=True),
+                         10)
+    return {"max_abs_err": err, "ms": ms, "call_us": call_us,
+            "plain_ms": plain,
             "bound_ms": bound_ms(2 * k * pw * 4 + 12 * k, bw),
             "bound_by": "bytes", "library_ms": None, "copy_ms": copy,
-            "h2d_batch_ms": h2d, "shape": f"k={k} slots={n_slots} pw={pw}"}
+            "register_path_ms": reg_ms, "plan": plan._asdict(),
+            "l2_rotation_sets": sets, "h2d_batch_ms": h2d,
+            "shape": f"k={k} slots={n_slots} pw={pw}"}
+
+
+def land_case(gen, device, k: int, n_slots: int, pw: int, src_off: int = 0,
+              dst_off: int = 0, per_slot: bool = False,
+              out_of_range: bool = False) -> None:
+    """K2 against its plain version at one shape: pieces and buffer
+    starting ``src_off`` and ``dst_off`` words past a random word buffer's
+    start; with ``per_slot``, the sink's per-slot output arrays; with
+    ``out_of_range``, piece 0 aimed past the last slot, which must leave
+    the buffer untouched and (without per-slot arrays) give 0, 0."""
+    buf = random_words(n_slots * pw + dst_off, gen, device)[dst_off:]
+    pieces = random_words(k * pw + src_off, gen, device)[src_off:].view(k, pw)
+    perm = torch.randperm(n_slots, generator=torch.Generator().manual_seed(pw))
+    slots = perm[:k].to(torch.int32).to(device)
+    if out_of_range:
+        slots[0] = n_slots
+    ref = buf.clone()
+    keep = slice(1 if out_of_range else 0, k)
+    what = (f"land_and_checksum k={k} slots={n_slots} pw={pw} offsets "
+            f"{src_off}/{dst_off} per_slot={per_slot} "
+            f"out_of_range={out_of_range}")
+    if per_slot:
+        outs = [random_words(n_slots, gen, device) for _ in range(2)]
+        want = [t.clone() for t in outs]
+        checksum.land_and_checksum(buf, pieces, slots, *outs)
+        checksum.land_and_checksum_torch(ref, pieces[keep],
+                                         slots[keep].clone(), *want)
+        check_equal(what, [(buf, ref), *zip(outs, want)])
+        return
+    _, s_a, x_a = checksum.land_and_checksum(buf, pieces, slots)
+    _, s_b, x_b = checksum.land_and_checksum_torch(ref, pieces[keep],
+                                                   slots[keep].clone())
+    zero = torch.zeros(k - s_b.numel(), dtype=torch.int32, device=device)
+    check_equal(what, [(buf, ref), (s_a, torch.cat([zero, s_b])),
+                       (x_a, torch.cat([zero, x_b]))])
 
 
 def phase_odd_shapes(gen, device) -> None:
     """Both kernels at shapes the TPU kernels refused: odd piece sizes,
     piece counts that are not multiples of 8, a word buffer that does not
-    start on a 16-byte boundary, and all-ones words that wrap the sum."""
+    start on a 16-byte boundary, and all-ones words that wrap the sum; K2
+    also at one piece (a sink's last flush), a piece count that is not a
+    multiple of its cluster, pieces smaller than one stage of its ring,
+    pieces whose source and slot differ in 16-byte phase, the sink's
+    per-slot outputs, and a slot out of range."""
     for n, pw in ((13, 1001), (9, 7), (3, 1)):
         words = random_words(n * pw + 1, gen, device)
         for w in (words[:-1], words[1:]):   # aligned and 4-byte offset start
@@ -206,16 +310,20 @@ def phase_odd_shapes(gen, device) -> None:
         raise AssertionError("all-ones sum does not wrap mod 2^32")
     if not (checksum.to_u32(x).cpu().numpy() == 0xFFFFFFFF).all():
         raise AssertionError("all-ones xor wrong")
-    for k, n_slots, pw in ((13, 29, 1001), (3, 5, 7)):
-        buf = random_words(n_slots * pw, gen, device)
-        ref = buf.clone()
-        pieces = random_words(k * pw, gen, device).view(k, pw)
-        slots = torch.randperm(n_slots, generator=torch.Generator().manual_seed(pw))
-        slots = slots[:k].to(torch.int32).to(device)
-        _, s_a, x_a = checksum.land_and_checksum(buf, pieces, slots)
-        _, s_b, x_b = checksum.land_and_checksum_torch(ref, pieces, slots)
-        check_equal(f"land_and_checksum k={k} pw={pw}",
-                    [(buf, ref), (s_a, s_b), (x_a, x_b)])
+    for k, n_slots, pw, src_off, dst_off in (
+            (13, 29, 1001, 0, 0), (3, 5, 7, 0, 0),
+            (1, 4, 1 << 20, 0, 0),       # one piece of 4 MiB
+            (13, 40, 70_000, 0, 0),      # 13 pieces, clusters of 8
+            (4, 8, 2048, 0, 0),          # pieces smaller than one stage
+            (8, 16, 65536, 1, 0),        # 16-byte phases differ
+            (8, 16, 65536, 2, 2),        # both off a 16-byte boundary
+            (9, 20, 3001, 1, 3)):
+        for per_slot in (False, True):
+            land_case(gen, device, k, n_slots, pw, src_off, dst_off, per_slot)
+    if _on_card(device):   # the plain version refuses a slot out of range
+        for per_slot in (False, True):
+            land_case(gen, device, 6, 12, 65536, per_slot=per_slot,
+                      out_of_range=True)
 
 
 # --------------------------------------------------------------------- #
@@ -351,9 +459,9 @@ def gate_breakdown(u8: torch.Tensor, piece_size: int, host_checksums) -> dict:
 
     return {"warm_ms": host_ms(lambda: verify_u8_against_host(
                 u8, piece_size, host_checksums), 5),
-            "k1_pieces_ms": time_ms(
-                lambda: checksum.chunk_checksums(head, pw), 5),
-            "last_piece_ms": time_ms(last_piece, 5),
+            "k1_pieces_ms": device_time(
+                lambda j: checksum.chunk_checksums(head, pw), 5)[0],
+            "last_piece_ms": device_time(lambda j: last_piece(), 5)[0],
             "readback_ms": host_ms(readback, 5)}
 
 
@@ -728,6 +836,177 @@ def phase_feed(seed: int, vocab: int, device: torch.device, **shape) -> dict:
             "launches": launches}
 
 
+def profile_feed(seed: int, vocab: int, device: torch.device,
+                 batches: int = 4) -> dict:
+    """A short feed window under ``torch.profiler``: the device
+    operations the window queued, by name and count (each batch is one
+    sink flush), and K2's kernel time by name, a cross-check of
+    ``device_time`` at the feed's shape."""
+    from torch.profiler import ProfilerActivity, profile
+
+    samples, _ = token_records(seed, vocab, batches=batches, tail=0)
+    feed = DeviceFeed("tokens", SEQ_TOKENS * 4, FEED_BATCH, pad=True,
+                      device=device)
+
+    async def run():
+        async def stream():
+            for s in samples:
+                yield s
+        return [b async for b in feed.batches(stream())]
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        asyncio.run(run())
+        torch.cuda.synchronize()
+    ops: dict = {}
+    for e in prof.events():
+        if str(e.device_type).endswith("CUDA"):
+            name = e.name[:60]
+            ops[name] = ops.get(name, 0) + 1
+    k2 = [e for e in prof.key_averages() if "land_checksum_kernel" in e.key]
+    launches = sum(e.count for e in k2)
+    device_us = sum(getattr(e, "device_time_total", 0) for e in k2)
+    return {"batches": batches, "device_ops": ops, "k2_launches": launches,
+            "k2_kernel_us": device_us / launches if launches else None}
+
+
+def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int) -> None:
+    """Each path's launches, counted from 0 just before it: K2 once per
+    flushed batch of the main path and once per feed batch, never on the
+    hot swap; K1 twice in each verify gate (whole pieces, then the short
+    last piece), never in the feed."""
+    want = {"main": {"chunk_checksums": 2, "land_and_checksum": want_k2_main},
+            "hot_swap": {"chunk_checksums": 2, "land_and_checksum": 0},
+            "feed": {"chunk_checksums": 0, "land_and_checksum": want_k2_feed}}
+    if paths != want:
+        raise AssertionError(f"launches by path {paths}, want {want}")
+
+
+def compare_parent(root: str, n_pieces: int, pw: int, gen, device) -> dict:
+    """The kernels of another checkout (``root``, the parent commit)
+    against this tree's, timed by ``device_time`` in turns (parent, this,
+    this, parent): K1 over the shard's pieces, K2 at the main path's
+    shape and at the feed's (16 input sets in turn). The parent's
+    wrappers zeroed both outputs before each launch, so its times hold
+    those two memsets, as its calls did. Each pair's results are checked
+    equal first."""
+    src = os.path.join(root, "dragonfly2_tpu_torch", "csrc", "checksum.cu")
+    path = _build.library_path(src)
+    log = _build.compile_source(path, src) if not os.path.exists(path) else ""
+    lib = ctypes.CDLL(path)
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    lib.df_chunk_checksums.argtypes = [p, i64, i64, p, p, p]
+    lib.df_land_and_checksum.argtypes = [p, i64, p, p, i64, i64, p, p, p]
+
+    def zeros(k):
+        return (torch.zeros(k, dtype=torch.int32, device=device),
+                torch.zeros(k, dtype=torch.int32, device=device))
+
+    def old_k1(words):
+        sums, xors = zeros(n_pieces)
+        code = lib.df_chunk_checksums(
+            words.data_ptr(), n_pieces, pw, sums.data_ptr(), xors.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise AssertionError(f"parent chunk_checksums: CUDA error {code}")
+        return sums, xors
+
+    def old_k2(buf, pieces, slots):
+        k, piece_words = pieces.shape
+        sums, xors = zeros(k)
+        code = lib.df_land_and_checksum(
+            buf.data_ptr(), buf.numel() // piece_words, pieces.data_ptr(),
+            slots.data_ptr(), k, piece_words, sums.data_ptr(), xors.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+        if code:
+            raise AssertionError(
+                f"parent land_and_checksum: CUDA error {code}")
+        return buf, sums, xors
+
+    def turns(old, new, n):
+        a1, b1 = device_time(old, n)[0], device_time(new, n)[0]
+        b2, a2 = device_time(new, n)[0], device_time(old, n)[0]
+        return {"parent_ms": (a1 + a2) / 2, "this_ms": (b1 + b2) / 2,
+                "turns_ms": [a1, b1, b2, a2]}
+
+    out = {"parent": root, "built": bool(log)}
+    main = land_sets(BATCH_PIECES, n_pieces, pw, 1, gen, device)
+    words = main[0][0]
+    check_equal("parent chunk_checksums",
+                zip(old_k1(words), checksum.chunk_checksums(words, pw)))
+    out["chunk_checksums"] = turns(
+        lambda j: old_k1(words),
+        lambda j: checksum.chunk_checksums(words, pw), 10)
+    for name, data, n in (
+            ("land_and_checksum", main, 40),
+            ("land_and_checksum_feed",
+             land_sets(FEED_BATCH, FEED_BATCH, SEQ_TOKENS, 16, gen, device),
+             320)):
+        a = [t.clone() for t in data[0]]
+        check_equal(f"parent {name}",
+                    zip(old_k2(*a), checksum.land_and_checksum(*data[0])))
+        out[name] = turns(lambda j: old_k2(*data[j % len(data)]),
+                          lambda j: checksum.land_and_checksum(
+                              *data[j % len(data)]), n)
+        del a
+    return out
+
+
+# K2's launch plans timed at the main path's shape: (name,
+# cluster, stage words, stages, threads); stages 0 is the register path.
+SWEEP_PLANS = (("ring 16 KiB x 2 (the plan)", 16, 4096, 2, 256),
+               ("ring 8 KiB x 4", 16, 2048, 4, 256),
+               ("ring 16 KiB x 4", 16, 4096, 4, 256),
+               ("ring 32 KiB x 2", 16, 8192, 2, 256),
+               ("ring 32 KiB x 4", 16, 8192, 4, 256),
+               ("ring 32 KiB x 6", 16, 8192, 6, 256),
+               ("ring 16 KiB x 2, clusters of 8", 8, 4096, 2, 256),
+               ("registers, 1024 threads", 16, 0, 0, 1024),
+               ("registers, 512 threads", 16, 0, 0, 512),
+               ("registers, clusters of 8", 8, 0, 0, 1024))
+
+
+def sweep_plans(n_pieces: int, pw: int, gen, device) -> dict:
+    """K2 at the main path's shape under each of ``SWEEP_PLANS``, by
+    ``device_time``, between two timings of a ``copy_`` of the same
+    bytes, each with the number of its clusters the card holds at once;
+    each plan's result is checked against the first's."""
+    (buf, pieces, slots), = land_sets(BATCH_PIECES, n_pieces, pw, 1, gen,
+                                      device)
+    dst = torch.empty_like(pieces)
+    out = {"copy_ms_before": device_time(lambda j: dst.copy_(pieces), 40)[0]}
+    lib = _build.library()
+    first = None
+    for name, cluster, stage_words, stages, threads in SWEEP_PLANS:
+        plan = checksum.LandPlan(cluster, BATCH_PIECES, stage_words, stages,
+                                 threads)
+        got = checksum.land_and_checksum(buf, pieces, slots, plan=plan)[1:]
+        first = first or [t.clone() for t in got]
+        check_equal(f"land_and_checksum plan {name}", zip(got, first))
+        out[name] = {
+            "ms": device_time(lambda j: checksum.land_and_checksum(
+                buf, pieces, slots, plan=plan), 40)[0],
+            "clusters_at_once": lib.df_land_max_active_clusters(
+                cluster, threads, stages * stage_words * 4)}
+    out["copy_ms_after"] = device_time(lambda j: dst.copy_(pieces), 40)[0]
+    return out
+
+
+def ptxas_lines(log: str) -> list[str]:
+    """Each kernel's registers, shared memory and spills from nvcc's
+    ``-Xptxas -v`` output."""
+    out, kernel = [], ""
+    for line in log.splitlines():
+        if "Function properties for" in line:
+            kernel = next((k for k in ("chunk_checksums_kernel",
+                                       "land_checksum_kernel") if k in line),
+                          line.split()[-1])
+        elif kernel and ("spill" in line or "Used" in line):
+            out.append(f"{kernel}: {line.split(' : ')[-1].strip()}")
+    return out
+
+
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -739,6 +1018,9 @@ def smi_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--parent", metavar="DIR",
+                    help="also time this checkout's kernels against those "
+                    "of the checkout in DIR (the parent commit), in turns")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing run", file=sys.stderr)
@@ -758,6 +1040,8 @@ def main(argv=None) -> int:
           f"({_build.library_path()})")
     if _build.build_log:
         print(_build.build_log)
+    for line in ptxas_lines(_build.build_log):
+        print("ptxas", line)
 
     gen = torch.Generator(device=device).manual_seed(args.seed)
     layout = shard_layout(LLAMA_8B, SHARD_LAYERS)
@@ -774,12 +1058,20 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     # K2 at the feed's shape: one batch of FEED_BATCH token records, one
     # record (SEQ_TOKENS int32 ids) per slot, every slot landed.
+    # 16 input sets of 4 MiB in turn: more than the 50 MB L2 holds.
     k2_feed = phase_land_and_checksum(FEED_BATCH, FEED_BATCH, SEQ_TOKENS, gen,
-                                      device, bw)
+                                      device, bw, sets=16, n=320)
     print("kernel land_and_checksum at the feed's shape:",
           json.dumps(k2_feed))
     phase_odd_shapes(gen, device)
     print("odd shapes: both kernels match their plain versions")
+    if args.parent:
+        print("against the parent:", json.dumps(compare_parent(
+            args.parent, n_pieces, pw, gen, device)))
+        torch.cuda.empty_cache()
+    print("land_and_checksum plans:", json.dumps(sweep_plans(
+        n_pieces, pw, gen, device)))
+    torch.cuda.empty_cache()
 
     t0 = time.perf_counter()
     content, spans = make_shard(layout, gen, device)
@@ -827,11 +1119,16 @@ def main(argv=None) -> int:
           f"{feed['record_bytes']} B in {feed['feed_s']:.4f} s: "
           f"{feed['batches_per_s']:.1f} batches/s, {feed['gb_per_s']:.3f} GB/s "
           f"on {smi}")
+    print("feed window under the profiler:",
+          json.dumps(profile_feed(args.seed, LLAMA_8B["vocab"], device)))
 
     paths = {"main": main_path["launches"], "hot_swap": swap["launches"],
              "feed": feed["launches"]}
+    check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"])
     kernels = []
-    timed_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "shape")
+    timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
+                  "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",
+                  "shape")
     for kname, res, replaces, also in (
             ("chunk_checksums", k1, "dragonfly2_tpu/ops/checksum.py:67", {}),
             ("land_and_checksum", k2, "dragonfly2_tpu/ops/checksum.py:133",
@@ -843,9 +1140,10 @@ def main(argv=None) -> int:
             "replaces": replaces,
             "launches": sum(by_path.values()),
             "launches_by_path": by_path,
-            **{key: res[key] for key in ("max_abs_err", "ms", "plain_ms",
-                                         "bound_ms", "bound_by", "library_ms",
-                                         "copy_ms", "shape")},
+            **{key: res[key] for key in (
+                "max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "copy_ms", "register_path_ms",
+                "plan", "shape") if key in res},
             **also, "match": True})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)

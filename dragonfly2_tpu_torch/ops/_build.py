@@ -57,13 +57,14 @@ def nvcc_path() -> str | None:
     return cand if os.access(cand, os.X_OK) else None
 
 
-def library_path() -> str:
-    with open(SOURCE, "rb") as f:
+def library_path(source: str = SOURCE) -> str:
+    with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
     return os.path.join(BUILD_DIR, f"checksum-{digest.hexdigest()[:16]}.so")
 
 
-def _compile(out: str) -> str:
+def compile_source(out: str, source: str = SOURCE) -> str:
+    """Build ``source`` into the shared library ``out``; nvcc's output."""
     nvcc = nvcc_path()
     if nvcc is None:
         raise KernelBuildError(
@@ -73,7 +74,7 @@ def _compile(out: str) -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, SOURCE],
+        proc = subprocess.run([nvcc, *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         log = (proc.stdout + proc.stderr).strip()
         if proc.returncode != 0:
@@ -96,16 +97,21 @@ def library() -> ctypes.CDLL:
 
         t0 = time.perf_counter()
         path = library_path()
-        build_log = _compile(path) if not os.path.exists(path) else ""
+        build_log = compile_source(path) if not os.path.exists(path) else ""
         try:
             lib = ctypes.CDLL(path)
         except OSError as e:
             raise KernelBuildError(f"cannot load {path}: {e}") from e
-        p, i64 = ctypes.c_void_p, ctypes.c_int64
+        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
         lib.df_chunk_checksums.argtypes = [p, i64, i64, p, p, p]
-        lib.df_chunk_checksums.restype = ctypes.c_int
-        lib.df_land_and_checksum.argtypes = [p, i64, p, p, i64, i64, p, p, p]
-        lib.df_land_and_checksum.restype = ctypes.c_int
+        lib.df_chunk_checksums.restype = i32
+        # buffer, n_slots, pieces, slots, k, pw, the LandPlan's five fields,
+        # sums, xors, scatter, stream
+        lib.df_land_and_checksum.argtypes = [
+            p, i64, p, p, i64, i64, i32, i32, i32, i32, i32, p, p, i32, p]
+        lib.df_land_and_checksum.restype = i32
+        lib.df_land_max_active_clusters.argtypes = [i32, i32, i32]
+        lib.df_land_max_active_clusters.restype = i32
         lib.df_error_string.argtypes = [ctypes.c_int]
         lib.df_error_string.restype = ctypes.c_char_p
         build_seconds = time.perf_counter() - t0

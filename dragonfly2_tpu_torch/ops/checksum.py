@@ -29,6 +29,8 @@ sums come back as int32 tensors; ``to_u32`` shows them as uint32.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -135,6 +137,67 @@ chunk_checksums.launches = 0
 # K2: land_and_checksum
 # --------------------------------------------------------------------- #
 
+# The launch geometry of K2 is planned here, for an H100: 132 SMs, at
+# most 16 blocks in a thread block cluster. One cluster lands one piece.
+_SMS = 132
+_MAX_CLUSTER = 16
+_MAX_GRID_Y = 65535          # gridDim.y
+_MIN_BLOCK_WORDS = 1024      # 4 KiB: a smaller share is all latency
+# A 32 KiB ring of two 16 KiB stages a block: the fastest of the rings
+# from 4 KiB x 4 to 48 KiB x 2 tried on an H100 at k=8 x 32 MiB (PERF.md).
+_STAGE_WORDS = 4096
+_STAGES = 2
+_BULK_THREADS = 256
+_REG_THREADS = 1024
+
+
+class LandPlan(NamedTuple):
+    """How one K2 launch cuts its work. Each of the k pieces goes to one
+    cluster of ``cluster`` blocks of ``threads`` threads; ``grid_y``
+    clusters run side by side and each takes every ``grid_y``-th piece.
+    With ``stages`` > 0, a piece's 16-byte-aligned middle is cut into
+    chunks of ``stage_words`` words, dealt round the cluster's blocks
+    (chunk m to block m mod ``cluster``), and each block moves its chunks
+    through a ring of ``stages`` stages by bulk copies; the rest, and
+    every word when ``stages`` is 0, goes through registers, the cluster's
+    threads side by side over the piece."""
+
+    cluster: int
+    grid_y: int
+    stage_words: int
+    stages: int
+    threads: int
+
+
+def _land_plan(k: int, pw: int, src_phase: int, dst_phase: int) -> LandPlan:
+    """The plan for k pieces of ``pw`` words, from a piece buffer and a
+    slot buffer that start ``src_phase`` and ``dst_phase`` words past a
+    16-byte boundary. About one block per SM: the cluster doubles while
+    k clusters still fit on the card and each block keeps at least
+    ``_MIN_BLOCK_WORDS``. The bulk ring needs every piece and its slot at
+    one 16-byte phase (``pw`` a multiple of 4, equal phases); otherwise
+    every word goes through registers."""
+    if k <= 0 or pw <= 0:
+        raise ValueError(f"no plan for k={k}, pw={pw}")
+    cluster = 1
+    while (cluster < _MAX_CLUSTER and k * cluster * 2 <= _SMS
+           and pw >= cluster * 2 * _MIN_BLOCK_WORDS):
+        cluster *= 2
+    grid_y = min(k, _MAX_GRID_Y)
+    share = -(-pw // cluster)
+    if pw % 4 or src_phase != dst_phase or share < _MIN_BLOCK_WORDS:
+        # No more threads than a block's share has 16-byte words.
+        threads = min(_REG_THREADS, -(-share // 128) * 32)
+        return LandPlan(cluster, grid_y, 0, 0, threads)
+    stage_words = min(_STAGE_WORDS, share + -share % 4)
+    return LandPlan(cluster, grid_y, stage_words, _STAGES, _BULK_THREADS)
+
+
+def _phase(t: torch.Tensor) -> int:
+    """Words past a 16-byte boundary at which ``t`` starts."""
+    return (t.data_ptr() >> 2) & 3
+
+
 def _land_args(buffer, pieces, slots):
     buffer = _as_words(buffer, "buffer")
     pieces = _as_words(pieces, "pieces")
@@ -152,41 +215,79 @@ def _land_args(buffer, pieces, slots):
     return buffer, pieces, k, pw
 
 
-def land_and_checksum_torch(buffer, pieces, slots):
+def _land_outs(buffer, pw, out_sums, out_xors):
+    """The per-slot output arrays as int32 words, or None for neither."""
+    if out_sums is None and out_xors is None:
+        return None
+    if out_sums is None or out_xors is None:
+        raise ValueError("pass both out_sums and out_xors, or neither")
+    n_slots = buffer.numel() // pw
+    outs = (_as_words(out_sums, "out_sums"), _as_words(out_xors, "out_xors"))
+    for t in outs:
+        if t.shape != (n_slots,) or t.device != buffer.device:
+            raise ValueError(f"out_sums and out_xors must be ({n_slots},) on "
+                             f"{buffer.device}")
+    return outs
+
+
+def land_and_checksum_torch(buffer, pieces, slots, out_sums=None,
+                            out_xors=None):
     """Plain version of K2: ``buffer[slot*pw:(slot+1)*pw] = piece`` for each
-    piece, in place, and the pieces' (sums[k], xors[k])."""
+    piece, in place, and the pieces' (sums[k], xors[k]); or, given the
+    per-slot ``out_sums``/``out_xors``, each piece's result stored at its
+    slot there and those arrays returned."""
     buffer, pieces, k, pw = _land_args(buffer, pieces, slots)
-    buffer.view(-1, pw).index_copy_(0, slots.long(), pieces)
+    outs = _land_outs(buffer, pw, out_sums, out_xors)
+    idx = slots.long()
+    buffer.view(-1, pw).index_copy_(0, idx, pieces)
     sums, xors = chunk_checksums_torch(pieces.reshape(-1), pw)
-    return buffer, sums, xors
+    if outs is None:
+        return buffer, sums, xors
+    outs[0].index_copy_(0, idx, sums)
+    outs[1].index_copy_(0, idx, xors)
+    return buffer, out_sums, out_xors
 
 
-def land_and_checksum(buffer, pieces, slots):
+def land_and_checksum(buffer, pieces, slots, out_sums=None, out_xors=None, *,
+                      plan: LandPlan | None = None):
     """Store ``pieces`` (k, piece_words) into their ``slots`` (int32[k]) of
     the flat word ``buffer`` and return ``(buffer, sums[k], xors[k])``, the
-    checksums folded from the same pass that stores the bytes.
+    checksums folded from the same pass that stores the bytes. Given
+    ``out_sums`` and ``out_xors`` (int32 or uint32, one per slot), each
+    piece's checksums go to its slot there instead, and the call returns
+    ``(buffer, out_sums, out_xors)``.
 
     ``buffer`` is updated IN PLACE, where the TPU kernel donated and aliased
     it: untouched slots keep their bytes. The slots must be distinct and in
-    range; the caller checks that (the kernel skips, and never writes, a
-    slot out of range)."""
+    range; the caller checks that (the kernel never writes a slot out of
+    range, and its sums and xors come back 0). On the card this is one
+    launch; ``plan`` overrides ``_land_plan``'s geometry."""
     buffer, pieces, k, pw = _land_args(buffer, pieces, slots)
+    outs = _land_outs(buffer, pw, out_sums, out_xors)
     if buffer.device.type == "cpu":
-        return land_and_checksum_torch(buffer, pieces, slots)
+        return land_and_checksum_torch(buffer, pieces, slots, out_sums,
+                                       out_xors)
     if buffer.device.type != "cuda":
         raise ValueError(f"no kernel for device {buffer.device}")
-    sums = torch.zeros(k, dtype=torch.int32, device=buffer.device)
-    xors = torch.zeros(k, dtype=torch.int32, device=buffer.device)
+    if outs is None:
+        outs = (torch.empty(k, dtype=torch.int32, device=buffer.device),
+                torch.empty(k, dtype=torch.int32, device=buffer.device))
+        result = (buffer, *outs)
+    else:
+        result = (buffer, out_sums, out_xors)
     if k == 0:
-        return buffer, sums, xors
+        return result
+    if plan is None:
+        plan = _land_plan(k, pw, _phase(pieces), _phase(buffer))
     lib, stream = _device_call(buffer)
     with torch.cuda.device(buffer.device):
         code = lib.df_land_and_checksum(
             buffer.data_ptr(), buffer.numel() // pw, pieces.data_ptr(),
-            slots.data_ptr(), k, pw, sums.data_ptr(), xors.data_ptr(), stream)
+            slots.data_ptr(), k, pw, *plan, outs[0].data_ptr(),
+            outs[1].data_ptr(), int(out_sums is not None), stream)
     _build.check(lib, code, "land_and_checksum")
     land_and_checksum.launches += 1
-    return buffer, sums, xors
+    return result
 
 
 land_and_checksum.launches = 0

@@ -16,9 +16,9 @@ them once, because XLA copied a donated buffer on every in-place update):
   * ``flush`` copies the sorted batch into one of two pinned host
     buffers, sends it to the card with ``non_blocking=True`` and launches
     ``land_and_checksum`` (K2) once: the batch is stored into its slots in
-    place and folded in the same pass, and the checksums go into the
-    per-slot vectors. A pinned buffer is refilled only after the event of
-    its previous copy has completed.
+    place and folded in the same pass, and the kernel stores the checksums
+    into the per-slot vectors itself. A pinned buffer is refilled only
+    after the event of its previous copy has completed.
 
 One read and one write per landed byte on the card, and a peak of about
 one content plus one batch (the TPU sink peaked at twice the content).
@@ -142,7 +142,8 @@ class HBMSink:
 
     def flush(self) -> None:
         """Land the pending pieces: one host-to-device copy of the sorted
-        batch and one K2 launch."""
+        batch, one of its slot numbers, and one K2 launch, which also
+        stores the checksums at their slots."""
         if not self._pending:
             return
         pending = sorted(self._pending, key=lambda p: p[0])
@@ -161,11 +162,8 @@ class HBMSink:
         if self._cuda:
             self._copied[i] = torch.cuda.Event()
             self._copied[i].record(torch.cuda.current_stream(self.device))
-        slots_dev = slots.to(self.device)
-        _, sums, xors = land_and_checksum(self._buffer, batch, slots_dev)
-        idx = slots_dev.long()
-        self._dev_sums.index_copy_(0, idx, sums)
-        self._dev_xors.index_copy_(0, idx, xors)
+        land_and_checksum(self._buffer, batch, slots.to(self.device),
+                          self._dev_sums, self._dev_xors)
         self._mark_ready()
 
     def _mark_ready(self) -> None:
