@@ -36,14 +36,25 @@
    ``DoubleBuffer`` flips while a reader thread takes snapshots; checks
    every byte and tensor, the byte accounting against the plan, and that
    a wrong host checksum fails the gate by piece and does not flip;
-6. feeds 64 batches of 64 token records (8192 int32 ids each) and a
+6. spreads the main path's verified sink over a device mesh (the
+   ``mesh`` path, a world of one rank over NCCL: the card holds one
+   GPU): ``initialize_distributed`` with explicit arguments,
+   ``make_mesh`` and a manager's ``default_mesh``; ``shard_to_mesh``
+   (its shard the sink's own buffer), ``ici_broadcast`` (bytes equal,
+   device time beside a ``copy_``), ``all_gather_shards``,
+   ``replicate_to_mesh``, ``load_from_sink(shardings=...)`` on a
+   ``("dp", "tp")`` mesh, ``global_replicated`` and
+   ``global_from_local_shards`` (no copy), and a ``StripedBroadcast``
+   fed in 32 MiB host chunks; prints the phase's peak device memory and
+   its ``torch.distributed`` calls per function;
+7. feeds 64 batches of 64 token records (8192 int32 ids each) and a
    short batch of 17 through ``DeviceFeed``, some records zero-padded,
    and checks every batch against the host records; then runs a short
    feed window under ``torch.profiler`` and prints the device operations
    it queued and K2's kernel time by name;
-7. checks each kernel's launches on each path (main, hot_swap, feed),
-   prints one ``{"kernels": [...]}`` line with them and, last, one
-   ``{"ok": true, "device": {...}}`` line.
+8. checks each kernel's launches on each path (main, hot_swap, mesh,
+   feed), prints one ``{"kernels": [...]}`` line with them and, last,
+   one ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. It imports nothing of JAX or of the JAX package.
@@ -57,6 +68,7 @@ import ctypes
 import hashlib
 import json
 import os
+import socket
 import statistics
 import subprocess
 import sys
@@ -66,6 +78,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from dragonfly2_tpu_torch.client.device import swap_generation
 from dragonfly2_tpu_torch.daemon.peer.device_sink import (
@@ -76,8 +89,10 @@ from dragonfly2_tpu_torch.daemon.peer.device_sink import (
 from dragonfly2_tpu_torch.dataset.device_feed import DEVICE_BATCHES, DeviceFeed
 from dragonfly2_tpu_torch.delta.manifest import CDCParams, Chunk, DeltaManifest
 from dragonfly2_tpu_torch.ops import _build, checksum
+from dragonfly2_tpu_torch.ops.convert import placements_from_spec
 from dragonfly2_tpu_torch.ops.hbm_sink import DoubleBuffer, verify_u8_against_host
 from dragonfly2_tpu_torch.ops.safetensors import load_from_sink
+from dragonfly2_tpu_torch.parallel import ici, multihost
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import compute_piece_count, compute_piece_size
 
@@ -700,11 +715,8 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
         raise AssertionError(f"mixed-generation snapshots: {mixed[:3]}")
     if set(seen) != {1, 2}:
         raise AssertionError(f"reader saw generations {sorted(seen)}")
-    step = 256 << 20
-    for o in range(0, content.size, step):
-        host = torch.from_numpy(gen2[o:o + step]).to(device)
-        if not torch.equal(buf[o:o + step], host):
-            raise AssertionError(f"flipped buffer differs at [{o}, {o + step})")
+    if not equal_in_steps(buf, gen2):
+        raise AssertionError("flipped buffer differs from generation 2")
     tensors = hot.tensors()
     if set(tensors) != {name for name, _ in layout}:
         raise AssertionError("tensor names differ from the header")
@@ -752,6 +764,137 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
             "gate_warm_ms": gate_warm_ms, "made_s": made_s,
             "manifest_s": manifest_s, "peak_device_bytes": peak,
             "snapshots": seen, "launches": launches, "refused": refused}
+
+
+# --------------------------------------------------------------------- #
+# The mesh path: the verified sink spread over a device mesh
+# --------------------------------------------------------------------- #
+
+STRIPE_CHUNK = 32 << 20
+
+
+def free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def equal_in_steps(dev_u8: torch.Tensor, host_u8: np.ndarray,
+                   step: int = 256 << 20) -> bool:
+    """``dev_u8`` equals the host bytes, compared a step at a time."""
+    if dev_u8.numel() != host_u8.size:
+        return False
+    return all(torch.equal(dev_u8[o:o + step], torch.from_numpy(
+        host_u8[o:o + step]).to(dev_u8.device))
+        for o in range(0, host_u8.size, step))
+
+
+def phase_mesh(content: np.ndarray, layout, taken,
+               device: torch.device) -> dict:
+    """The verified sink through the port's mesh layer in a world of one
+    rank over NCCL: every placement checked against the landed bytes, the
+    zero-copy ones by ``data_ptr``. The caller zeroes nothing: the counts
+    are set to 0 here, just before the path, and read just after it."""
+    multihost.initialize_distributed(f"localhost:{free_port()}", 1, 0,
+                                     device=device, timeout_s=120)
+    try:
+        backend = dist.get_backend_config()
+        if "cuda:nccl" not in backend:
+            raise AssertionError(f"process group without NCCL: {backend}")
+        buf = taken.sink._buffer
+        u8 = taken.as_bytes_array()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        checksum.chunk_checksums.launches = 0
+        checksum.land_and_checksum.launches = 0
+        ici.reset_collective_counts()
+        t0 = time.perf_counter()
+        mesh = ici.make_mesh()
+        mgr = DeviceSinkManager(device=device)
+        try:
+            host_mesh = mgr.default_mesh()
+        finally:
+            mgr.close()
+        if (mesh.device_type, tuple(mesh.mesh.shape)) != ("cuda", (1,)) or (
+                host_mesh.mesh_dim_names, tuple(host_mesh.mesh.shape)) != (
+                ("d",), (1,)):
+            raise AssertionError(f"meshes {mesh} and {host_mesh}")
+        no_copy = {}
+        sharded = taken.shard_to_mesh(mesh)
+        no_copy["shard_to_mesh"] = sharded.to_local().data_ptr() == \
+            buf.data_ptr()
+        replicated = taken.ici_broadcast(mesh, n_chunks=4)
+        if not torch.equal(replicated.to_local(), buf):
+            raise AssertionError("ici_broadcast bytes differ from the sink")
+        del replicated
+        gathered = ici.all_gather_shards(mesh, sharded)
+        if not torch.equal(gathered.to_local(), buf):
+            raise AssertionError("all_gather_shards differs from the sink")
+        del gathered
+        head = content[:STRIPE_CHUNK]
+        rep = ici.replicate_to_mesh(mesh, head)
+        if not equal_in_steps(rep.to_local(), head):
+            raise AssertionError("replicate_to_mesh differs from the host")
+        del rep
+        names = ("dp", "tp")
+        first = "model.layers.0."
+        specs = {"model.embed_tokens.weight": ("dp",),
+                 first + "self_attn.q_proj.weight": (None, "tp"),
+                 first + "input_layernorm.weight": (),
+                 first + "post_attention_layernorm.weight": ()}
+        mesh2 = multihost.global_mesh({"dp": 1, "tp": 1})
+        shardings = {n: (mesh2, placements_from_spec(names, spec))
+                     for n, spec in specs.items()}
+        placed = load_from_sink(taken, shardings=shardings)
+        plain = load_from_sink(taken)
+        if set(placed) != {name for name, _ in layout}:
+            raise AssertionError("load_from_sink(shardings=) lost tensors")
+        for n in specs:
+            local = placed[n].to_local()
+            if not torch.equal(local, plain[n]):
+                raise AssertionError(f"{n}: placed block differs")
+            no_copy[f"load_from_sink {n}"] = (local.data_ptr()
+                                              == plain[n].data_ptr())
+        del placed, plain
+        g = multihost.global_replicated(mesh, u8)
+        no_copy["global_replicated"] = g.to_local().data_ptr() == u8.data_ptr()
+        g = multihost.global_from_local_shards(mesh, u8)
+        no_copy["global_from_local_shards"] = (g.to_local().data_ptr()
+                                               == u8.data_ptr())
+        del g
+        t1 = time.perf_counter()
+        sb = ici.StripedBroadcast(mesh, n_chunks=4)
+        for o in range(0, content.size, STRIPE_CHUNK):
+            sb.feed(content[o:o + STRIPE_CHUNK])
+        striped = sb.result().to_local()
+        striped_s = time.perf_counter() - t1
+        if not equal_in_steps(striped, content):
+            raise AssertionError("StripedBroadcast differs from the content")
+        del striped, sb
+        torch.cuda.synchronize()
+        path_s = time.perf_counter() - t0
+        launches = {"chunk_checksums": checksum.chunk_checksums.launches,
+                    "land_and_checksum": checksum.land_and_checksum.launches}
+        calls = ici.collective_counts()
+        peak = torch.cuda.max_memory_allocated()
+        if not all(no_copy.values()):
+            raise AssertionError(f"placements that copied: {no_copy}")
+
+        # Device time of the spread beside a copy_ of the same bytes.
+        dst = torch.empty_like(buf)
+        ici_ms, ici_us = device_time(
+            lambda j: taken.ici_broadcast(mesh, n_chunks=4), 5)
+        copy_ms, _ = device_time(lambda j: dst.copy_(buf), 5)
+        del dst
+    finally:
+        dist.destroy_process_group()
+    return {"backend": backend, "ranks": 1, "bytes": buf.numel() * 4,
+            "no_copy": no_copy, "collective_calls": calls,
+            "launches": launches, "peak_device_bytes": peak,
+            "path_s": path_s, "striped_feeds": -(-content.size
+                                                // STRIPE_CHUNK),
+            "striped_s": striped_s, "ici_broadcast_ms": ici_ms,
+            "ici_broadcast_call_us": ici_us, "copy_ms": copy_ms}
 
 
 # --------------------------------------------------------------------- #
@@ -875,9 +1018,11 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path and once per feed batch, never on the
     hot swap; K1 twice in each verify gate (whole pieces, then the short
-    last piece), never in the feed."""
+    last piece), never in the feed; neither on the mesh path, which moves
+    verified bytes and folds nothing."""
     want = {"main": {"chunk_checksums": 2, "land_and_checksum": want_k2_main},
             "hot_swap": {"chunk_checksums": 2, "land_and_checksum": 0},
+            "mesh": {"chunk_checksums": 0, "land_and_checksum": 0},
             "feed": {"chunk_checksums": 0, "land_and_checksum": want_k2_feed}}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
@@ -1100,8 +1245,19 @@ def main(argv=None) -> int:
 
     swap = phase_hot_swap(content, spans, layout, taken, piece_size, gen,
                           device)
+    torch.cuda.empty_cache()
+    mesh = phase_mesh(content, layout, taken, device)
     del taken, content
     torch.cuda.empty_cache()
+    print("mesh:", json.dumps(mesh))
+    print(f"mesh: world of one over {mesh['backend']}; ici_broadcast of "
+          f"{mesh['bytes']} B {mesh['ici_broadcast_ms']:.4f} ms device time "
+          f"beside copy_ {mesh['copy_ms']:.4f} ms; no copy in "
+          f"{sum(mesh['no_copy'].values())} of {len(mesh['no_copy'])} "
+          f"placements; StripedBroadcast of {mesh['striped_feeds']} feeds "
+          f"in {mesh['striped_s']:.3f} s; peak device memory "
+          f"{mesh['peak_device_bytes'] / 1e9:.3f} GB; torch.distributed "
+          f"calls {mesh['collective_calls']} on {smi}")
     tm = swap["timings"]
     print("hot swap:", json.dumps(swap))
     print(f"hot swap: {swap['content_bytes'] / 1e9:.3f} GB in "
@@ -1123,7 +1279,7 @@ def main(argv=None) -> int:
           json.dumps(profile_feed(args.seed, LLAMA_8B["vocab"], device)))
 
     paths = {"main": main_path["launches"], "hot_swap": swap["launches"],
-             "feed": feed["launches"]}
+             "mesh": mesh["launches"], "feed": feed["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",

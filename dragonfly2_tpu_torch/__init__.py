@@ -11,15 +11,20 @@ from the JAX package (nor JAX itself):
 - ``csrc/``    the CUDA C++ kernels (``sm_90a``), built by nvcc at first use.
 - ``ops/``     checksum wrappers, the device sink (``HBMSink``), the
                hot-swap's ``assemble_delta_u8`` and ``DoubleBuffer``,
-               safetensors views over the landed bytes, and JAX-state
-               conversion.
+               safetensors views over the landed bytes, and JAX-state and
+               ``PartitionSpec`` conversion.
 - ``daemon/``  ``DeviceSinkManager``, the terminal store the reference
                daemon's task manager drives through a duck-typed surface,
                and ``FileTaskRequest``, the request it accepts.
 - ``delta/``   chunk manifests and the delta plan of a hot-swap.
 - ``client/``  the user's entry points: ``download_to_device``,
-               ``download_sharded``, ``download_delta``.
+               ``download_sharded``, ``download_global``,
+               ``download_delta``.
 - ``dataset/`` ``DeviceFeed``: loader samples into record batches on the card.
+- ``parallel/`` placement on a device mesh over ``torch.distributed``
+               (one rank per card; NCCL, or gloo on a ``cpu`` mesh):
+               process groups, ``DeviceMesh``es, ``DTensor`` placements,
+               scatter, gathers and rings, and the pod topology.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``), which is what the CPU tests do.

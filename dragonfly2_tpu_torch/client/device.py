@@ -12,16 +12,26 @@ checkpoint shards arrive as tensors without a file export::
     w = await download_to_device(d, url, digest="sha256:...",
                                  dtype="bfloat16", shape=[8192, 4096])
 
-Three paths: ``download_to_device`` (whole or ranged content),
+Four paths: ``download_to_device`` (whole or ranged content),
 ``download_sharded`` (only some tensors of a safetensors checkpoint, as
-ranged tasks) and ``download_delta`` (the next checkpoint generation as
-a delta against the live one, hot-swapped through a ``DoubleBuffer``).
+ranged tasks), ``download_global`` (only the blocks this rank holds under
+each tensor's sharding) and ``download_delta`` (the next checkpoint
+generation as a delta against the live one, hot-swapped through a
+``DoubleBuffer``).
+
+A sharding is ``(DeviceMesh, placements)``, the port of a
+``jax.sharding.Sharding`` (``ops.convert.placements_from_spec`` turns a
+``PartitionSpec``'s tuple into placements), and a sharded tensor is a
+``DTensor``. Every rank of a mesh runs its own daemon and makes the same
+call (``parallel/ici.py`` states the contract).
 
 Where the port differs from the JAX package:
 
-- multi-device placement (``shardings``, ``mesh``, ``download_global``)
-  is not ported yet (ROADMAP queue A item 6); ``shardings`` raises
-  ``NotImplementedError``;
+- ``shardings=`` places tensors that every rank landed whole: each rank
+  keeps its own block, with no collective (the JAX package moves blocks
+  between the devices of one process with ``device_put``);
+- ``download_to_device(mesh=...)`` shards content that every rank of the
+  mesh landed (``shard_to_mesh(src=None)``);
 - a corrupt device landing surfaces as ``DfError(ClientPieceDownloadFail)``
   here, because the reference daemon maps only its own package's sink
   error;
@@ -57,15 +67,17 @@ from dragonfly2_tpu_torch.ops.hbm_sink import (
     assemble_delta_u8,
     verify_u8_against_host,
 )
+from dragonfly2_tpu_torch.parallel.multihost import (
+    block_index,
+    check_shardings,
+    from_local,
+)
 from dragonfly2_tpu_torch.pkg import dflog
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import Range
 from dragonfly2_tpu_torch.proto.common import UrlMeta
 
 log = dflog.get("client.device")
-
-_NO_SHARDINGS = ("multi-device placement (shardings) is not ported yet: "
-                 "ROADMAP queue A item 6")
 
 
 @dataclass
@@ -84,24 +96,31 @@ class DeviceResult:
     def as_tensor(self, dtype, shape) -> torch.Tensor:
         return self.sink.as_tensor(dtype, shape)
 
+    def shard_to_mesh(self, mesh, axis_name: str = "d", *,
+                      src: int | None = None):
+        return self.sink.shard_to_mesh(mesh, axis_name, src=src)
+
     def load_safetensors(self, *, names: list[str] | None = None,
                          shardings: dict | None = None) -> dict:
         """The landed content as named checkpoint tensors: views of the
-        sink's buffer (the content must be a safetensors file)."""
-        if shardings:
-            raise NotImplementedError(_NO_SHARDINGS)
-        return st.load_from_sink(self.sink, names=names)
+        sink's buffer (the content must be a safetensors file), and
+        ``DTensor`` blocks for those named in ``shardings``."""
+        return st.load_from_sink(self.sink, names=names, shardings=shardings)
 
 
 async def download_to_device(daemon, url: str, *, digest: str = "",
                              tag: str = "", application: str = "",
                              header: dict | None = None,
                              range_header: str = "",
-                             dtype=None, shape=None, claim: bool = True):
+                             dtype=None, shape=None,
+                             mesh=None, axis_name: str = "d",
+                             claim: bool = True):
     """Download ``url`` through the embedded daemon's P2P machinery and
     land it in its device sink. Returns a tensor when ``dtype`` and
-    ``shape`` are given (a view of the landed bytes), else a
-    ``DeviceResult``.
+    ``shape`` are given (a view of the landed bytes); with ``mesh``, the
+    padded int32 words sharded over ``axis_name`` (``shard_to_mesh``:
+    every rank of the mesh makes this call and keeps its own shard); else
+    a ``DeviceResult``.
 
     ``claim``: take ownership of the sink (the manager forgets it; the
     memory goes with the caller's last reference). With ``claim=False``
@@ -176,6 +195,8 @@ async def download_to_device(daemon, url: str, *, digest: str = "",
                           from_reuse=final.from_reuse, sink=sink)
     if dtype is not None and shape is not None:
         return result.as_tensor(dtype, shape)
+    if mesh is not None:
+        return result.shard_to_mesh(mesh, axis_name)
     return result
 
 
@@ -285,10 +306,12 @@ async def download_sharded(daemon, url: str, *,
     ``names``: an explicit tensor list, or ``selector(name, meta) ->
     bool`` over the header's entries. Selected spans closer than
     ``coalesce_gap`` bytes merge into one ranged task (the gap bytes ride
-    along). Returns ``{name: tensor}``, views of the landed ranges.
+    along). ``shardings``: tensor name -> ``(DeviceMesh, placements)``,
+    applied after landing (``st.apply_shardings``); a sharding of a tensor
+    not selected raises before any tensor is pulled. Returns
+    ``{name: tensor}``, views of the landed ranges.
     """
-    if shardings:
-        raise NotImplementedError(_NO_SHARDINGS)
+    check_shardings(shardings)
     header_dict, data_start, prefix_u8 = await fetch_safetensors_header(
         daemon, url, tag=tag, application=application, header=header,
         prefix_guess=prefix_guess)
@@ -309,6 +332,11 @@ async def download_sharded(daemon, url: str, *,
         if missing:
             raise st.SafetensorsError(
                 f"tensors not in checkpoint: {sorted(missing)}")
+    if shardings:
+        unknown = [n for n in shardings if n not in {t[2] for t in picked}]
+        if unknown:
+            raise st.SafetensorsError(
+                f"shardings reference tensors not loaded: {unknown}")
 
     out: dict = {}
     # A zero-element tensor (data_offsets [s, s]) carries no bytes: make
@@ -353,6 +381,118 @@ async def download_sharded(daemon, url: str, *,
                     data_start + header_dict[n]["data_offsets"][1] - base]}
             for n in span_names}
         out.update(st.tensor_views(u8, sub_header, 0, span_names))
+    return st.apply_shardings(out, shardings)
+
+
+def _shape_of(name: str, meta) -> tuple[int, ...]:
+    shape = meta.get("shape")
+    if (not isinstance(shape, list)
+            or not all(isinstance(d, int) and not isinstance(d, bool)
+                       and d >= 0 for d in shape)):
+        raise st.SafetensorsError(f"{name}: bad shape {shape!r}")
+    return tuple(shape)
+
+
+def plan_global(header: dict, data_start: int, layouts: dict) -> list:
+    """``download_global``'s plan for one rank, a pure function.
+
+    ``layouts``: tensor name -> ``(placements, mesh_shape, coord)``, the
+    rank's coordinate on the tensor's mesh. Returns one
+    ``(name, span_start, span_end, shard_shape, index)`` per tensor: the
+    absolute byte span to land and how to carve the rank's block from it.
+    A block that is a slice of the leading axis with every other axis
+    whole is a contiguous span and is pulled exactly (``index`` None, the
+    span holds just the block); any other block pulls the tensor's whole
+    span and is sliced on the device by ``index``. Blocks follow
+    ``multihost.block_index`` (``torch.chunk`` sizes), as the JAX package's
+    follow ``Sharding.devices_indices_map``."""
+    plan = []
+    for name, (placements, mesh_shape, coord) in layouts.items():
+        meta = header[name]
+        begin, end = _validated_span(name, meta, data_start)
+        shape = _shape_of(name, meta)
+        nbytes = end - begin
+        count = int(np.prod(shape)) if shape else 1
+        itemsize = nbytes // max(1, count)
+        row_bytes = (int(np.prod(shape[1:])) if len(shape) > 1 else 1) \
+            * itemsize
+        idx = block_index(shape, mesh_shape, coord, placements)
+        shard_shape = tuple(len(range(*sl.indices(dim)))
+                            for sl, dim in zip(idx, shape))
+        if (len(shape) >= 1 and nbytes > 0
+                and all(s == slice(None) for s in idx[1:])):
+            r0, r1, _ = idx[0].indices(shape[0])
+            plan.append((name, begin + r0 * row_bytes,
+                         begin + max(r0, r1) * row_bytes, shard_shape, None))
+        else:
+            plan.append((name, begin, end, shard_shape, idx))
+    return plan
+
+
+async def download_global(daemon, url: str, shardings: dict, *,
+                          tag: str = "", application: str = "",
+                          header: dict | None = None,
+                          prefix_guess: int = 256 << 10) -> dict:
+    """Global sharded checkpoint load through the fabric: for each tensor
+    of ``shardings`` (name -> ``(DeviceMesh, placements)``; tensors not
+    named are not loaded), this rank pulls only the bytes of its own
+    block, lands them as ranged device tasks and wraps the block as a
+    global ``DTensor`` (``from_local``: no collective). Every rank of the
+    meshes makes this call with its own daemon; ranks holding the same
+    block send byte-identical ranged tasks, so the origin serves each
+    block once and the fabric fans it out.
+
+    Leading-axis blocks are pulled exactly; any other block pulls the
+    tensor's whole span once and is sliced on the device
+    (``plan_global``). Touching spans coalesce into one ranged task."""
+    check_shardings(shardings)
+    header_dict, data_start, prefix_u8 = await fetch_safetensors_header(
+        daemon, url, tag=tag, application=application, header=header,
+        prefix_guess=prefix_guess)
+    plen = int(prefix_u8.shape[0])
+    missing = [n for n in shardings if n not in header_dict]
+    if missing:
+        raise st.SafetensorsError(
+            f"tensors not in checkpoint: {sorted(missing)}")
+    layouts = {}
+    for name, (mesh, placements) in shardings.items():
+        coord = mesh.get_coordinate()
+        if coord is None:
+            raise st.SafetensorsError(
+                f"{name}: sharding has no device on this rank")
+        if mesh.device_type != prefix_u8.device.type:
+            raise ValueError(f"{name}: mesh on {mesh.device_type}, the "
+                             f"sink lands on {prefix_u8.device}")
+        layouts[name] = (placements, tuple(mesh.mesh.shape), coord)
+    plan = plan_global(header_dict, data_start, layouts)
+
+    pull_list = [m for m in coalesce_spans(
+        (a, b) for _, a, b, _, _ in plan if b > a) if m[1] > plen]
+    landed = await _pull_ranges(daemon, url, pull_list, tag=tag,
+                                application=application, header=header)
+    if plen:
+        landed[(0, plen)] = prefix_u8
+    coverage = pull_list + ([(0, plen)] if plen else [])
+
+    out: dict = {}
+    for name, a, b, shard_shape, idx in plan:
+        meta = header_dict[name]
+        if b <= a:
+            # A block with no bytes, through the same validated dtype path.
+            sub = {name: {**meta, "shape": list(shard_shape),
+                          "data_offsets": [0, 0]}}
+            block = st.tensor_views(prefix_u8[:0], sub, 0, [name])[name]
+        else:
+            s0, s1 = covering_span(coverage, a, b)
+            if idx is None:
+                meta = {**meta, "shape": list(shard_shape)}
+            sub = {name: {**meta, "data_offsets": [a - s0, b - s0]}}
+            block = st.tensor_views(landed[(s0, s1)], sub, 0, [name])[name]
+            if idx is not None:
+                block = block[idx].contiguous()
+        mesh, placements = shardings[name]
+        out[name] = from_local(block, mesh, placements,
+                               _shape_of(name, header_dict[name]))
     return out
 
 
@@ -438,7 +578,8 @@ def swap_generation(store, *, live_u8: torch.Tensor | None = None,
                     base_m: DeltaManifest | None = None,
                     hot: DoubleBuffer | None = None,
                     names: list[str] | None = None, device=None,
-                    task_id: str = "") -> HotSwapResult:
+                    task_id: str = "",
+                    shardings: dict | None = None) -> HotSwapResult:
     """The device half of a delta hot-swap, synchronous: parts ->
     assemble -> host checksums -> gate -> tensor views -> flip.
 
@@ -459,9 +600,15 @@ def swap_generation(store, *, live_u8: torch.Tensor | None = None,
     buffer over the store (``on_device=False``, logged); a kernel fault
     raises.
 
+    ``shardings`` (name -> ``(DeviceMesh, placements)``) places the named
+    tensors of a generation on the device (``st.apply_shardings``); a
+    generation degraded to the host keeps plain views, as in the JAX
+    package.
+
     ``download_delta`` runs this in a worker thread; the assembly and the
     gate then run on that thread's current stream. The gate's stream
     waits on an event recorded after the assembly all the same."""
+    check_shardings(shardings)
     dev = default_device(device)
     m = store.metadata
     total = m.content_length
@@ -496,7 +643,8 @@ def swap_generation(store, *, live_u8: torch.Tensor | None = None,
         u8 = torch.from_numpy(
             np.frombuffer(_read_store_span(store, 0, total), np.uint8))
         return _install(u8, hot, names, task_id, total, on_device=False,
-                        reused=0, staged=total, copies=0, timings=timings)
+                        reused=0, staged=total, copies=0, timings=timings,
+                        shardings=shardings)
     timings["assemble_s"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -519,16 +667,23 @@ def swap_generation(store, *, live_u8: torch.Tensor | None = None,
             stats["done"])
     return _install(u8, hot, names, task_id, total, on_device=True,
                     reused=reused, staged=staged, copies=stats["copies"],
-                    timings=timings)
+                    timings=timings, shardings=shardings)
 
 
 def _install(u8: torch.Tensor, hot: DoubleBuffer | None, names, task_id: str,
              total: int, *, on_device: bool, reused: int, staged: int,
-             copies: int, timings: dict) -> HotSwapResult:
-    """Tensor views of a checked buffer, flipped into ``hot``."""
+             copies: int, timings: dict,
+             shardings: dict | None = None) -> HotSwapResult:
+    """Tensor views of a checked buffer, placed by ``shardings`` on the
+    device, flipped into ``hot``."""
     t0 = time.perf_counter()
     header, data_start = st.read_header(u8)
     tensors = st.tensor_views(u8, header, data_start, names)
+    if on_device:
+        st.apply_shardings(tensors, shardings)
+    elif shardings:
+        log.warning("host generation: shardings not applied",
+                    task=task_id[:16])
     generation, flipped = 1, False
     if hot is not None:
         generation = hot.flip(u8, tensors)
@@ -561,10 +716,10 @@ async def download_delta(daemon, url: str, *, base, hot=None,
     The wire side rides the reference daemon's delta plane
     (``TaskManager.start_delta_task``): only changed chunks cross the
     network, and the patched disk landing is digest-verified. The device
-    side is ``swap_generation``, in a worker thread.
+    side is ``swap_generation``, in a worker thread; ``shardings`` places
+    the new generation's tensors there.
     """
-    if shardings:
-        raise NotImplementedError(_NO_SHARDINGS)
+    check_shardings(shardings)
     tm = daemon.task_manager
     base_task_id = base if isinstance(base, str) else base.task_id
     live_u8 = None
@@ -598,6 +753,7 @@ async def download_delta(daemon, url: str, *, base, hot=None,
             base_m = await fetch_manifest(tm, base_task_id)
     result = await asyncio.to_thread(
         swap_generation, store, live_u8=live_u8, new_m=new_m, base_m=base_m,
-        hot=hot, names=names, device=device, task_id=final.task_id)
+        hot=hot, names=names, device=device, task_id=final.task_id,
+        shardings=shardings)
     result.stats = dict(tm.delta_stats.get(final.task_id, {}))
     return result

@@ -11,7 +11,9 @@ daemon built with ``tpu_sink.enabled=False``::
 
 Pieces land into a port ``HBMSink`` as they verify, completion checks the
 landed bytes on the card against the host checksums, and the result is a
-device tensor (``as_bytes_array``, ``as_tensor``).
+device tensor (``as_bytes_array``, ``as_tensor``) or, spread over a device
+mesh, a ``DTensor`` (``shard_to_mesh``, ``ici_broadcast``; the mesh of
+this host's ranks is ``DeviceSinkManager.default_mesh``).
 
 Threading: every sink mutation runs on one ``df-device-sink`` worker
 thread, so host-to-device copies never stall the daemon's event loop.
@@ -36,6 +38,7 @@ from concurrent.futures import ThreadPoolExecutor
 from dragonfly2_tpu_torch import default_device
 from dragonfly2_tpu_torch.ops import _build
 from dragonfly2_tpu_torch.ops.hbm_sink import HBMSink
+from dragonfly2_tpu_torch.parallel.multihost import local_mesh
 from dragonfly2_tpu_torch.pkg import dflog, metrics
 
 log = dflog.get("peer.device_sink")
@@ -100,13 +103,30 @@ class TaskDeviceSink:
     def as_tensor(self, dtype, shape):
         return self.sink.as_tensor(dtype, shape)
 
+    def shard_to_mesh(self, mesh, axis_name: str = "d", *,
+                      src: int | None = None):
+        return self.sink.shard_to_mesh(mesh, axis_name, src=src)
+
+    def ici_broadcast(self, mesh, axis_name: str = "d", n_chunks: int = 4, *,
+                      src: int | None = None):
+        """Striped-broadcast consumption: the landed content on every
+        rank of the axis through the chunked ring. Requires a verified
+        sink: a striped task never exposes unverified bytes."""
+        if not self.verified:
+            raise DeviceSinkError(
+                f"ici_broadcast on unverified sink {self.task_id[:16]}")
+        return self.sink.ring_replicate(mesh, axis_name, n_chunks=n_chunks,
+                                        src=src)
+
 
 class DeviceSinkManager:
     """Owns the per-task sinks a daemon is landing."""
 
-    def __init__(self, *, batch_pieces: int = 8, max_tasks: int = 4,
+    def __init__(self, *, mesh_shape: list[int] | None = None,
+                 batch_pieces: int = 8, max_tasks: int = 4,
                  ttl: float = 600.0, device=None):
         self._device = default_device(device)
+        self.mesh_shape = list(mesh_shape or [])
         if self._device.type == "cuda":
             _build.library()   # a build failure raises here, not in a landing
         self._admission = None
@@ -311,3 +331,11 @@ class DeviceSinkManager:
                     if now - s.created_at > self.ttl]:
             log.info("device sink expired", task=tid[:16])
             del self._sinks[tid]
+
+    def default_mesh(self):
+        """Mesh over this host's ranks (``LOCAL_WORLD_SIZE`` consecutive
+        ranks, one card each), shaped by ``mesh_shape`` into axes ``d0``,
+        ``d1``, ... or one ``"d"`` axis when unset: the sinks'
+        ``shard_to_mesh`` spreads over this host's cards. A collective:
+        every rank of the job calls it."""
+        return local_mesh(self.mesh_shape, device=self._device)

@@ -39,6 +39,7 @@ from dragonfly2_tpu_torch.ops.checksum import (
     chunk_checksums,
     land_and_checksum,
 )
+from dragonfly2_tpu_torch.parallel import ici
 
 # JAX-style dtype names accepted by ``as_tensor``.
 _TORCH_DTYPES = {
@@ -241,6 +242,37 @@ class HBMSink:
             raise ValueError(f"{nbytes} bytes requested from a "
                              f"{self.padded_words * 4}-byte sink")
         return self._bytes()[:nbytes].view(target).reshape(shape)
+
+    # -- the mesh (parallel/ici.py) ----------------------------------------
+
+    def shard_to_mesh(self, mesh, axis_name: str = "d", *,
+                      src: int | None = None):
+        """The landed content spread over ``axis_name`` of ``mesh``: the
+        rank at coordinate i holds piece-contiguous shard i of the padded
+        int32 words (``Shard(0)``), padded up to a multiple of the axis
+        size with zero words, never truncated. A collective: with
+        ``src=None`` every rank of the axis landed the same content and
+        keeps its own shard, a view of its buffer when no padding is
+        needed (no transfer); with ``src`` this rank holds the sink and
+        scatters it, and every other rank calls
+        ``ici.scatter_shards(mesh, None, axis_name, src=src)``."""
+        words = self._bytes().view(torch.int32)
+        n = ici.axis_size(mesh, axis_name)
+        per = -(-self.padded_words // n)
+        if per * n != self.padded_words:
+            words = torch.cat([words, words.new_zeros(
+                per * n - self.padded_words)])
+        return ici.scatter_shards(mesh, words, axis_name, src=src)
+
+    def ring_replicate(self, mesh, axis_name: str = "d", n_chunks: int = 4,
+                       *, src: int | None = None):
+        """The striped broadcast's spread: ``shard_to_mesh``, then the
+        chunked ring completes the copy, so every rank of the axis ends
+        with the full padded word buffer (a replicated ``DTensor``;
+        callers trim or view it)."""
+        return ici.chunked_ring_all_gather(
+            mesh, self.shard_to_mesh(mesh, axis_name, src=src),
+            axis_name=axis_name, n_chunks=n_chunks)
 
 
 def verify_u8_against_host(u8: torch.Tensor, piece_size: int,

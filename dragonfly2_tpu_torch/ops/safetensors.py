@@ -22,6 +22,8 @@ import json
 import numpy as np
 import torch
 
+from dragonfly2_tpu_torch.parallel.multihost import check_shardings, place
+
 _DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
     "BF16": torch.bfloat16, "I64": torch.int64, "I32": torch.int32,
@@ -150,10 +152,32 @@ def read_header(u8: torch.Tensor) -> tuple[dict, int]:
     return parse_header(u8[: 8 + n].cpu().numpy().tobytes())
 
 
-def load_from_sink(sink, *, names: list[str] | None = None
-                   ) -> dict[str, torch.Tensor]:
+def apply_shardings(tensors: dict, shardings: dict | None) -> dict:
+    """``tensors`` with each one named in ``shardings`` (name ->
+    ``(DeviceMesh, placements)``) placed on its mesh (``multihost.place``:
+    every rank holds the tensor and keeps its block, no collective). A
+    sharding of a tensor not loaded raises: a typo would leave a tensor
+    the caller believes is sharded whole."""
+    if not shardings:
+        return tensors
+    check_shardings(shardings)
+    unknown = [n for n in shardings if n not in tensors]
+    if unknown:
+        raise SafetensorsError(
+            f"shardings reference tensors not loaded: {unknown}")
+    for name, sharding in shardings.items():
+        tensors[name] = place(tensors[name], sharding)
+    return tensors
+
+
+def load_from_sink(sink, *, names: list[str] | None = None,
+                   shardings: dict | None = None) -> dict[str, torch.Tensor]:
     """Named tensors from a completed, verified sink (anything with
-    ``as_bytes_array()`` returning a device uint8 tensor)."""
+    ``as_bytes_array()`` returning a device uint8 tensor): views of its
+    bytes, and ``DTensor`` blocks for the tensors named in ``shardings``
+    (``apply_shardings``)."""
+    check_shardings(shardings)
     u8 = sink.as_bytes_array()
     header, data_start = read_header(u8)
-    return tensor_views(u8, header, data_start, names)
+    return apply_shardings(tensor_views(u8, header, data_start, names),
+                           shardings)

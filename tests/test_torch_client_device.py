@@ -221,9 +221,12 @@ def test_daemon_without_device_sink_is_a_bad_request(run_async):
 @pytest.mark.parametrize("call", ["download_sharded", "download_delta",
                                   "load_safetensors"])
 def test_shardings_wait_for_multi_device(run_async, call):
+    """A sharding must be ``(DeviceMesh, placements)``: anything else
+    raises before a byte is pulled (the placements themselves are held
+    against the JAX package in ``tests/test_torch_mesh_sink.py``)."""
     daemon = types.SimpleNamespace(task_manager=None)
     shardings = {"w": object()}
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(TypeError, match=r"\(DeviceMesh, placements\)"):
         if call == "download_sharded":
             run_async(pdev.download_sharded(daemon, "http://o/x",
                                             shardings=shardings))

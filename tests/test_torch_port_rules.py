@@ -30,6 +30,8 @@ from dragonfly2_tpu_torch.daemon.peer.device_sink import DeviceSinkManager
 from dragonfly2_tpu_torch.dataset.device_feed import DeviceFeed
 from dragonfly2_tpu_torch.ops import _build
 from dragonfly2_tpu_torch.ops.hbm_sink import HBMSink, assemble_delta_u8
+from dragonfly2_tpu_torch.parallel.ici import make_mesh
+from dragonfly2_tpu_torch.parallel.multihost import global_mesh
 from dragonfly2_tpu_torch.pkg import metrics, piece
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,6 +66,10 @@ def test_importing_the_port_loads_no_jax():
     assert proc.returncode == 0, proc.stderr[-2000:]
     loaded = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "chip_smoke" in loaded and "dragonfly2_tpu_torch.ops.checksum" in loaded
+    assert {"dragonfly2_tpu_torch.parallel",
+            "dragonfly2_tpu_torch.parallel.ici",
+            "dragonfly2_tpu_torch.parallel.multihost",
+            "dragonfly2_tpu_torch.parallel.topology"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -112,6 +118,15 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         swap_generation(Store())               # client/device.py hot-swap
+    import torch.distributed as dist
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh()                            # parallel/ici.py
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_mesh(1, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        global_mesh({"dp": 1, "tp": 1})        # parallel/multihost.py
+    assert not dist.is_initialized()           # refused before any group
     assert default_device("cpu") == torch.device("cpu")
 
 
