@@ -52,9 +52,19 @@
    and checks every batch against the host records; then runs a short
    feed window under ``torch.profiler`` and prints the device operations
    it queued and K2's kernel time by name;
-8. checks each kernel's launches on each path (main, hot_swap, mesh,
-   feed), prints one ``{"kernels": [...]}`` line with them and, last,
-   one ``{"ok": true, "device": {...}}`` line.
+8. runs ``entry()`` (``dragonfly2_tpu_torch/entry.py``) at the JAX
+   entry's shape and at ``bench.py``'s 512 MiB shape, each output held
+   bit for bit against K2's plain version;
+9. runs the train step ``dryrun_multichip(1)`` in a child process (one
+   NCCL rank) at Llama-3.1-8B's MLP widths (``w1`` 4096 x 14336 bf16
+   landed, gathered and bitcast) and at the JAX dryrun's, each held
+   against the same step on this device with no process group, and
+   prints its wall time and peak device memory;
+10. runs the device bench's measurements (``dragonfly2_tpu_torch/
+    bench.py``) and prints its JSON line;
+11. checks each kernel's launches on each path (main, hot_swap, mesh,
+    feed, entry, train, bench), prints one ``{"kernels": [...]}`` line
+    with them and, last, one ``{"ok": true, "device": {...}}`` line.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. It imports nothing of JAX or of the JAX package.
@@ -68,9 +78,6 @@ import ctypes
 import hashlib
 import json
 import os
-import socket
-import statistics
-import subprocess
 import sys
 import threading
 import time
@@ -80,6 +87,15 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from dragonfly2_tpu_torch import bench
+from dragonfly2_tpu_torch import entry as pentry
+from dragonfly2_tpu_torch.bench import (
+    bound_ms,
+    card_bandwidth,
+    device_time,
+    host_ms,
+    smi_line,
+)
 from dragonfly2_tpu_torch.client.device import swap_generation
 from dragonfly2_tpu_torch.daemon.peer.device_sink import (
     DeviceSinkError,
@@ -110,67 +126,6 @@ SEQ_TOKENS = 8192
 FEED_BATCH = 64
 FEED_BATCHES = 64
 FEED_TAIL = 17            # the short final batch
-
-
-def card_bandwidth(name: str) -> float:
-    """Peak memory rate in bytes/s by card name (NVIDIA data sheets)."""
-    return 2.0e12 if "PCIe" in name else 3.35e12   # PCIe, else SXM (HBM3)
-
-
-def bound_ms(nbytes: int, bandwidth: float) -> float:
-    """The bytes bound. Both kernels do two 32-bit integer operations per
-    4-byte word, so their operations bound (tens of TOPS) stays below a
-    fortieth of this one: every kernel here is ``bound_by`` bytes."""
-    return nbytes / bandwidth * 1e3
-
-
-# Clock of the card's spin (torch.cuda._sleep counts SM cycles; an H100's
-# SM clock is at most 1.98 GHz, so this overstates the spin's length).
-SPIN_HZ = 2.0e9
-
-
-def device_time(fn, n: int, windows: int = 3) -> tuple[float, float]:
-    """(ms, call_us) of ``fn(j)``, j = 0 .. n-1, called back to back.
-
-    ``ms`` is the device time per call: CUDA events around all n calls,
-    over n. A spin of the card (``torch.cuda._sleep``) is queued first,
-    longer than the host takes to queue the n calls, so the host runs
-    ahead and the card never waits on it inside the window. ``call_us``
-    is the host's microseconds per call over the same n calls, taken
-    without a sync. A first untimed pass warms up and sizes the spin;
-    both numbers are the median of ``windows`` timed passes."""
-    fn(0)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for j in range(n):
-        fn(j)
-    host_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    ms, us = [], []
-    for _ in range(windows):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(int((3 * host_s + 1e-3) * SPIN_HZ))
-        start.record()
-        t0 = time.perf_counter()
-        for j in range(n):
-            fn(j)
-        call_s = time.perf_counter() - t0
-        end.record()
-        end.synchronize()
-        ms.append(start.elapsed_time(end) / n)
-        us.append(call_s / n * 1e6)
-    return statistics.median(ms), statistics.median(us)
-
-
-def host_ms(fn, iters: int) -> float:
-    """Median host-clock milliseconds of ``fn``, which must synchronise."""
-    times = []
-    for _ in range(iters):
-        t0 = time.perf_counter()
-        fn()
-        times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
 
 
 def random_words(n: int, gen: torch.Generator, device) -> torch.Tensor:
@@ -773,12 +728,6 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
 STRIPE_CHUNK = 32 << 20
 
 
-def free_port() -> int:
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        return s.getsockname()[1]
-
-
 def equal_in_steps(dev_u8: torch.Tensor, host_u8: np.ndarray,
                    step: int = 256 << 20) -> bool:
     """``dev_u8`` equals the host bytes, compared a step at a time."""
@@ -795,8 +744,9 @@ def phase_mesh(content: np.ndarray, layout, taken,
     rank over NCCL: every placement checked against the landed bytes, the
     zero-copy ones by ``data_ptr``. The caller zeroes nothing: the counts
     are set to 0 here, just before the path, and read just after it."""
-    multihost.initialize_distributed(f"localhost:{free_port()}", 1, 0,
-                                     device=device, timeout_s=120)
+    multihost.initialize_distributed(
+        f"localhost:{multihost.free_port()}", 1, 0, device=device,
+        timeout_s=120)
     try:
         backend = dist.get_backend_config()
         if "cuda:nccl" not in backend:
@@ -1014,16 +964,159 @@ def profile_feed(seed: int, vocab: int, device: torch.device,
             "k2_kernel_us": device_us / launches if launches else None}
 
 
-def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int) -> None:
+# --------------------------------------------------------------------- #
+# The entry and bench pair: entry(), the train step, the device bench
+# --------------------------------------------------------------------- #
+
+# entry()'s shapes: the JAX entry's (2 batches of 4 pieces of 4 KiB), and
+# bench.py's production shape (8 batches of 16 pieces of 4 MiB, 512 MiB).
+ENTRY_SHAPES = (("jax", {}),
+                ("bench", {"piece_words": 1 << 20, "batch_pieces": 16,
+                           "n_batches": 8}))
+ENTRY_K2 = 2 + 8          # one K2 launch per batch
+# The train step at Llama-3.1-8B's MLP widths, then at the JAX dryrun's.
+TRAIN_SHAPES = (("full width", {"d_model": LLAMA_8B["hidden"],
+                                "d_ff": LLAMA_8B["inter"], "batch": 8}),
+                ("jax", {}))
+# The train step against its plain version: float32 on both sides.
+TRAIN_RTOL, TRAIN_ATOL = 1e-6, 1e-7
+
+
+def phase_entry(device: torch.device) -> dict:
+    """``entry()`` at each of ``ENTRY_SHAPES``, its inputs drawn first;
+    the launches counted from 0 just before the calls and read just
+    after; then each output held bit for bit against K2's plain version
+    on the same inputs, against the batches themselves, and, for the
+    first and last piece, against ``checksum_numpy`` on the host."""
+    staged = [(name, *pentry.entry(device, **kw)) for name, kw in ENTRY_SHAPES]
+    torch.cuda.synchronize()
+    checksum.chunk_checksums.launches = 0
+    checksum.land_and_checksum.launches = 0
+    t0 = time.perf_counter()
+    outs = [fn(*args) for _, fn, args in staged]
+    torch.cuda.synchronize()
+    path_s = time.perf_counter() - t0
+    launches = {"chunk_checksums": checksum.chunk_checksums.launches,
+                "land_and_checksum": checksum.land_and_checksum.launches}
+    shapes = {}
+    for (name, _, args), got in zip(staged, outs):
+        want = pentry.land_batches(args,
+                                   land=checksum.land_and_checksum_torch)
+        check_equal(f"entry at the {name} shape", zip(got, want))
+        if not torch.equal(got[0], torch.cat([a.reshape(-1) for a in args])):
+            raise AssertionError(f"entry at the {name} shape: flat differs "
+                                 "from the batches")
+        k, pw = args[0].shape
+        sums = checksum.to_u32(got[1]).cpu().numpy()
+        xors = checksum.to_u32(got[2]).cpu().numpy()
+        for i in (0, len(args) * k - 1):
+            piece = got[0][i * pw:(i + 1) * pw].cpu().numpy().tobytes()
+            if (int(sums[i]), int(xors[i])) != checksum.checksum_numpy(piece):
+                raise AssertionError(f"entry at the {name} shape: piece {i} "
+                                     "checksums differ from the host's")
+        shapes[name] = {"batches": len(args), "batch_pieces": k,
+                        "piece_words": pw, "bytes": got[0].numel() * 4,
+                        "max_abs_err": max_abs_err(zip(got, want))}
+    del staged, outs
+    return {"shapes": shapes, "path_s": path_s, "launches": launches}
+
+
+def phase_train(device: torch.device) -> dict:
+    """``dryrun_multichip(1)`` on the card (one NCCL rank in a child
+    process) at each of ``TRAIN_SHAPES``; the launches are the rank
+    processes' own, counted from 0 just before each step and summed over
+    the runs. Each result is held against ``train_step_plain`` (the same
+    step on this device, no process group) within
+    ``TRAIN_RTOL``/``TRAIN_ATOL``, its words exactly and its zeros in
+    ``w1`` exactly."""
+    runs = []
+    for name, kw in TRAIN_SHAPES:
+        t0 = time.perf_counter()
+        runs.append((name, pentry.dryrun_multichip(1, device=device,
+                                                   timeout_s=300, **kw),
+                     time.perf_counter() - t0))
+    launches = {kname: sum(r.launches[kname] for _, r, _ in runs)
+                for kname in ("chunk_checksums", "land_and_checksum")}
+    out = {"launches": launches}
+    for name, r, wall_s in runs:
+        words = pentry.checkpoint_words(1, r.d_model, r.d_ff)
+        if not np.array_equal(r.words, words[:r.d_model * r.d_ff // 2]):
+            raise AssertionError(f"train at {name}: gathered words differ")
+        w_dev = torch.from_numpy(words.view(np.int32)).to(device)
+        zeros = int((pentry.weights_from_words(w_dev, r.d_model, r.d_ff)
+                     == 0).sum())
+        del w_dev
+        loss, w1, w2 = pentry.train_step_plain(words, r.d_model, r.d_ff,
+                                               r.batch, device)
+        errs = {}
+        for what, got, want in (
+                ("loss", torch.tensor([r.loss], dtype=torch.float64),
+                 torch.tensor([loss], dtype=torch.float64)),
+                ("w1", torch.from_numpy(r.w1).to(device), w1),
+                ("w2", torch.from_numpy(r.w2).to(device), w2)):
+            if not bool(torch.isfinite(got).all()):
+                raise AssertionError(f"train at {name}: non-finite {what}")
+            if not torch.allclose(got, want, rtol=TRAIN_RTOL,
+                                  atol=TRAIN_ATOL):
+                raise AssertionError(f"train at {name}: {what} differs from "
+                                     "the plain step")
+            errs[what] = float((got - want).abs().max())
+        if r.zeros != zeros:
+            raise AssertionError(f"train at {name}: {r.zeros} zeros in w1, "
+                                 f"the plain step has {zeros}")
+        del w1, w2
+        torch.cuda.empty_cache()
+        out[name] = {"d_model": r.d_model, "d_ff": r.d_ff, "batch": r.batch,
+                     "dp": r.dp, "tp": r.tp, "loss": r.loss,
+                     "w1_bytes_landed": r.d_model * r.d_ff * 2,
+                     "zeros": r.zeros, "max_abs_err": errs,
+                     "fabric_s": r.fabric_s, "step_s": r.step_s,
+                     "peak_device_bytes": r.peak_device_bytes,
+                     "wall_s": wall_s}
+    return out
+
+
+def phase_bench(device: torch.device, smi: str) -> dict:
+    """The bench module's measurements (``bench.measure``), launches
+    counted from 0 just before and read just after; its sink smoke must
+    pass."""
+    torch.cuda.synchronize()
+    checksum.chunk_checksums.launches = 0
+    checksum.land_and_checksum.launches = 0
+    line = bench.measure(device, smi)
+    torch.cuda.synchronize()
+    launches = checksum.launch_counts()
+    if line["sink_smoke"] != "ok":
+        raise AssertionError(f"bench sink smoke: {line['sink_smoke']}")
+    return {"line": line, "launches": launches}
+
+
+# The bench's launches. K2: entry()'s step is 8 launches (512 MiB in
+# batches of 16 x 4 MiB), called 1 + 10 + 3 x 10 times by device_time and
+# once more for the copy's source: 42 x 8 = 336; the sink smoke's 9 pieces
+# flush in 3 batches of up to 4. K1: the swap gate over 64 whole pieces is
+# one launch a call, warmed once and timed 5 times; K1 alone 1 + 10 + 3 x
+# 10 times; the sink smoke's gate 2 (8 whole pieces, then the short last).
+BENCH_LAUNCHES = {"chunk_checksums": 6 + 41 + 2,
+                  "land_and_checksum": 42 * 8 + 3}
+
+
+def check_launches(paths: dict, want_k2_main: int,
+                   want_k2_feed: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
-    flushed batch of the main path and once per feed batch, never on the
-    hot swap; K1 twice in each verify gate (whole pieces, then the short
-    last piece), never in the feed; neither on the mesh path, which moves
-    verified bytes and folds nothing."""
+    flushed batch of the main path, once per feed batch and once per
+    batch of each ``entry()`` call, never on the hot swap; K1 twice in
+    each verify gate (whole pieces, then the short last piece), never in
+    the feed or ``entry()``; neither on the mesh path, which moves
+    verified bytes and folds nothing, nor in the train step, which lands
+    through collectives; the bench's ``BENCH_LAUNCHES``."""
     want = {"main": {"chunk_checksums": 2, "land_and_checksum": want_k2_main},
             "hot_swap": {"chunk_checksums": 2, "land_and_checksum": 0},
             "mesh": {"chunk_checksums": 0, "land_and_checksum": 0},
-            "feed": {"chunk_checksums": 0, "land_and_checksum": want_k2_feed}}
+            "feed": {"chunk_checksums": 0, "land_and_checksum": want_k2_feed},
+            "entry": {"chunk_checksums": 0, "land_and_checksum": ENTRY_K2},
+            "train": {"chunk_checksums": 0, "land_and_checksum": 0},
+            "bench": BENCH_LAUNCHES}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -1152,14 +1245,6 @@ def ptxas_lines(log: str) -> list[str]:
     return out
 
 
-def smi_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout.strip().splitlines()
-    return out[0].strip()
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1174,8 +1259,8 @@ def main(argv=None) -> int:
     torch.cuda.set_device(device)
     t_start = time.perf_counter()
     smi = smi_line()
-    name = torch.cuda.get_device_name(0)
-    bw = card_bandwidth(name)
+    device_name = torch.cuda.get_device_name(0)
+    bw = card_bandwidth(device_name)
     print(f"card: {smi}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; bound at "
           f"{bw / 1e12:.2f} TB/s")
@@ -1277,18 +1362,68 @@ def main(argv=None) -> int:
           f"on {smi}")
     print("feed window under the profiler:",
           json.dumps(profile_feed(args.seed, LLAMA_8B["vocab"], device)))
+    torch.cuda.empty_cache()
+
+    ent = phase_entry(device)
+    torch.cuda.empty_cache()
+    print("entry:", json.dumps(ent))
+    for shape, sh in ent["shapes"].items():
+        print(f"entry at the {shape} shape: {sh['batches']} batches of "
+              f"{sh['batch_pieces']} x {sh['piece_words'] * 4} B "
+              f"({sh['bytes']} B) landed through K2, equal to its plain "
+              f"version bit for bit, on {smi}")
+    train = phase_train(device)
+    print("train:", json.dumps(train))
+    for shape, _ in TRAIN_SHAPES:
+        r = train[shape]
+        print(f"train at {shape}: d_model {r['d_model']} d_ff {r['d_ff']} "
+              f"batch {r['batch']}, w1 of {r['w1_bytes_landed']} B landed, "
+              f"gathered and bitcast, {r['zeros']} zeros; loss "
+              f"{r['loss']!r}; step {r['step_s']:.4f} s, landing "
+              f"{r['fabric_s']:.4f} s, peak device memory "
+              f"{r['peak_device_bytes'] / 1e9:.4f} GB, wall {r['wall_s']:.1f}"
+              f" s; max abs err vs the plain step {r['max_abs_err']} on "
+              f"{smi}")
+    ben = phase_bench(device, smi)
+    torch.cuda.empty_cache()
+    print("bench:", json.dumps(ben["line"]))
+    line = ben["line"]
+    print(f"bench: verify_and_land {line['value']:.2f} GB/s "
+          f"({line['verify_and_land_ms']:.4f} ms against a "
+          f"{line['verify_and_land_bound_ms']:.4f} ms bound, copy_ "
+          f"{line['verify_and_land_copy_ms']:.4f} ms), staging pageable "
+          f"{line['staged_host_to_hbm_gbps']:.2f} / pinned "
+          f"{line['staged_pinned_host_to_hbm_gbps']:.2f} GB/s, swap verify "
+          f"{line['swap_verify_gbps']:.2f} GB/s, cpu sha256 "
+          f"{line['cpu_sha256_gbps']:.3f} GB/s on {smi}")
 
     paths = {"main": main_path["launches"], "hot_swap": swap["launches"],
-             "mesh": mesh["launches"], "feed": feed["launches"]}
+             "mesh": mesh["launches"], "feed": feed["launches"],
+             "entry": ent["launches"], "train": train["launches"],
+             "bench": ben["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",
                   "shape")
+    # The bench's shapes: K1 over 256 MiB of 4 MiB pieces (the swap gate's
+    # fold), and entry()'s step of 8 K2 launches of 16 x 4 MiB a call.
+    at_swap = {"ms": line["swap_verify_k1_ms"],
+               "bound_ms": line["swap_verify_k1_bound_ms"],
+               "plain_ms": line["swap_verify_k1_plain_ms"],
+               "shape": "n=64 pw=1048576"}
+    at_bench = {"ms_per_call": line["verify_and_land_ms"],
+                "launches_per_call": line["verify_and_land_batches"],
+                "bound_ms": line["verify_and_land_bound_ms"],
+                "plain_ms": line["verify_and_land_plain_ms"],
+                "copy_ms": line["verify_and_land_copy_ms"],
+                "shape": "8 launches of k=16 pw=1048576 into 128 slots"}
     for kname, res, replaces, also in (
-            ("chunk_checksums", k1, "dragonfly2_tpu/ops/checksum.py:67", {}),
+            ("chunk_checksums", k1, "dragonfly2_tpu/ops/checksum.py:67",
+             {"at_swap_verify_shape": at_swap}),
             ("land_and_checksum", k2, "dragonfly2_tpu/ops/checksum.py:133",
-             {"at_feed_shape": {key: k2_feed[key] for key in timed_keys}})):
+             {"at_feed_shape": {key: k2_feed[key] for key in timed_keys},
+              "at_bench_shape": at_bench})):
         by_path = {p: counts[kname] for p, counts in paths.items()}
         kernels.append({
             "name": kname, "route": "cuda",
@@ -1305,7 +1440,7 @@ def main(argv=None) -> int:
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": device_name,
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -25,6 +25,13 @@ from the JAX package (nor JAX itself):
                (one rank per card; NCCL, or gloo on a ``cpu`` mesh):
                process groups, ``DeviceMesh``es, ``DTensor`` placements,
                scatter, gathers and rings, and the pod topology.
+- ``entry``    the top-level entry points (``__graft_entry__.py``'s twin):
+               ``entry()``, the verify+land step through K2, and
+               ``dryrun_multichip(n)``, the fabric + dp×tp train step,
+               one process per rank.
+- ``bench``    the device bench (``bench.py``'s device section): one JSON
+               line of verify+land, staging and swap-verify rates on a
+               CUDA card, and its own history of verified runs.
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``), which is what the CPU tests do.

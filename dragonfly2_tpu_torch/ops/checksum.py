@@ -291,3 +291,9 @@ def land_and_checksum(buffer, pieces, slots, out_sums=None, out_xors=None, *,
 
 
 land_and_checksum.launches = 0
+
+
+def launch_counts() -> dict:
+    """Each kernel's launches so far, as its wrapper counts them."""
+    return {"chunk_checksums": chunk_checksums.launches,
+            "land_and_checksum": land_and_checksum.launches}

@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import datetime
 import os
+import socket
 
 import numpy as np
 import torch
@@ -47,6 +48,15 @@ def _set_cuda_device(backend: str, rank: int) -> None:
     if "nccl" in backend:
         local = int(os.environ.get("LOCAL_RANK", rank))
         torch.cuda.set_device(local % torch.cuda.device_count())
+
+
+def free_port() -> int:
+    """A free TCP port on this host for a coordinator address (the port
+    may be taken again before the group binds it; a rendezvous on a taken
+    port fails and raises)."""
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
 
 
 def initialize_distributed(coordinator_address: str | None = None,

@@ -2,7 +2,8 @@
 
 - The port and ``chip_smoke.py`` import neither JAX nor the JAX package
   (checked in a subprocess, since ``tests/conftest.py`` imports jax into
-  every test process, and by an AST scan of the sources).
+  every test process, and by an AST scan of the sources); nor does a
+  rank process of ``dryrun_multichip``. The example twins import no JAX.
 - Its entry points run on the card unless told ``device="cpu"``: without
   CUDA they raise instead of quietly using the CPU.
 - The kernels build with nvcc or raise with nvcc's output; nothing falls
@@ -69,8 +70,52 @@ def test_importing_the_port_loads_no_jax():
     assert {"dragonfly2_tpu_torch.parallel",
             "dragonfly2_tpu_torch.parallel.ici",
             "dragonfly2_tpu_torch.parallel.multihost",
-            "dragonfly2_tpu_torch.parallel.topology"} <= set(loaded)
+            "dragonfly2_tpu_torch.parallel.topology",
+            "dragonfly2_tpu_torch.entry",
+            "dragonfly2_tpu_torch.bench"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_a_dryrun_rank_loads_no_jax(tmp_path):
+    """One rank of ``dryrun_multichip`` (the module run with ``--rank``,
+    as the parent starts it) in a world of one on the CPU: it runs the
+    whole step and imports neither JAX nor the JAX package."""
+    code = ("import json, socket, sys\n"
+            "from dragonfly2_tpu_torch import entry\n"
+            "s = socket.socket(); s.bind(('127.0.0.1', 0))\n"
+            "port = s.getsockname()[1]; s.close()\n"
+            "entry.main(['--rank', '0', '--world', '1', '--addr',\n"
+            "            f'tcp://127.0.0.1:{port}', '--device', 'cpu',\n"
+            f"            '--out', {str(tmp_path)!r}])\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert "torch.distributed" in loaded
+    assert [m for m in loaded if _forbidden(m)] == []
+    assert (tmp_path / "rank0.npz").exists()
+
+
+@pytest.mark.parametrize("name", ["torch_pod_checkpoint.py",
+                                  "torch_checkpoint_hotswap.py",
+                                  "torch_fabric.py"])
+def test_example_twins_import_no_jax(name):
+    """The GPU twins of the JAX examples may drive the reference daemon
+    and scheduler (plain Python), never JAX."""
+    path = os.path.join(REPO, "examples", name)
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert [n for n in names if n == "jax" or n.startswith(
+        ("jax.", "jaxlib"))] == []
+    assert not any(n.startswith("dragonfly2_tpu.ops") for n in names)
 
 
 @pytest.mark.parametrize("path", _port_sources(),
