@@ -5,7 +5,8 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``dragonfly2_tpu_torch/csrc`` with nvcc
-   and prints each kernel's registers, shared memory and spills;
+   (one nvcc a source, started together) and prints each kernel's
+   registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, at the feed's shape (K2: 64 token
    records into 64 slots) and at odd shapes (K2 also: one piece, a piece
@@ -17,8 +18,13 @@
    over 16 input sets in turn, more than the L2 holds) beside the host's
    microseconds per call, the plain version, a ``copy_`` of the same
    bytes and, for K2, its register path alone and its other launch
-   plans; with ``--parent DIR`` also times the kernels of the checkout in
-   DIR against this tree's, in turns;
+   plans; holds K3 (the gear scan of content-defined chunking) against
+   its plain version at 64 MiB (ctx 0 and 31), at the manifest's 8 MiB
+   spans, with dense candidates, at 1-33 bytes and 4 MiB + 3, at starts
+   off a 16-byte boundary, through its second launch, and over 2^31 +
+   4099 bytes, and times it beside its bound and its plain version; with
+   ``--parent DIR`` also times the kernels of the checkout in DIR against
+   this tree's, in turns;
 4. lands one checkpoint shard the size of Llama-3.1-8B's
    ``model-00001-of-00004.safetensors`` (~4.98 GB: the embedding and
    layers 0-8 at the published widths, random bf16 from ``--seed``)
@@ -36,6 +42,18 @@
    ``DoubleBuffer`` flips while a reader thread takes snapshots; checks
    every byte and tensor, the byte accounting against the plan, and that
    a wrong host checksum fails the gate by piece and does not flip;
+   then chunks a 512 MiB prefix of the shard with the card's
+   ``GearChunker`` in two feed splits, each equal to the plain CPU
+   chunker's chunks; builds the whole shard's manifest with
+   ``manifest_from_store`` on the card and splits its time into the
+   reads, the staging, the scan and sha256, with K3's share estimated
+   as its launches times its device time at the same shape;
+   and swaps generation 1 to generation 2 through ``download_delta``'s
+   fallback (``local_base_manifest`` over generation 1's store, since no
+   manifest of it was published, then ``swap_generation``), holding the
+   bytes it reuses and stages to ``plan_delta`` of the two
+   content-defined manifests exactly, with the checks of the fixed-chunk
+   swap;
 6. spreads the main path's verified sink over a device mesh (the
    ``mesh`` path, a world of one rank over NCCL: the card holds one
    GPU): ``initialize_distributed`` with explicit arguments,
@@ -63,8 +81,9 @@
 10. runs the device bench's measurements (``dragonfly2_tpu_torch/
     bench.py``) and prints its JSON line;
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
-    feed, entry, train, bench), prints one ``{"kernels": [...]}`` line
-    with them and, last, one ``{"ok": true, "device": {...}}`` line.
+    feed, entry, train, bench, chunker, manifest, cdc_swap), prints one
+    ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
+    "device": {...}}`` line.
 
 Any failure raises and exits non-zero. Without CUDA it exits 2 and prints
 no result. It imports nothing of JAX or of the JAX package.
@@ -96,15 +115,25 @@ from dragonfly2_tpu_torch.bench import (
     host_ms,
     smi_line,
 )
-from dragonfly2_tpu_torch.client.device import swap_generation
+from dragonfly2_tpu_torch.client.device import (
+    local_base_manifest,
+    swap_generation,
+)
 from dragonfly2_tpu_torch.daemon.peer.device_sink import (
     DeviceSinkError,
     DeviceSinkManager,
     TaskDeviceSink,
 )
 from dragonfly2_tpu_torch.dataset.device_feed import DEVICE_BATCHES, DeviceFeed
-from dragonfly2_tpu_torch.delta.manifest import CDCParams, Chunk, DeltaManifest
-from dragonfly2_tpu_torch.ops import _build, checksum
+from dragonfly2_tpu_torch.delta.chunker import GearChunker, chunk_bytes
+from dragonfly2_tpu_torch.delta.manifest import (
+    CDCParams,
+    Chunk,
+    DeltaManifest,
+    manifest_from_store,
+)
+from dragonfly2_tpu_torch.delta.resolver import plan_delta
+from dragonfly2_tpu_torch.ops import _build, checksum, gear
 from dragonfly2_tpu_torch.ops.convert import placements_from_spec
 from dragonfly2_tpu_torch.ops.hbm_sink import DoubleBuffer, verify_u8_against_host
 from dragonfly2_tpu_torch.ops.safetensors import load_from_sink
@@ -126,6 +155,14 @@ SEQ_TOKENS = 8192
 FEED_BATCH = 64
 FEED_BATCHES = 64
 FEED_TAIL = 17            # the short final batch
+
+
+def zero_launches() -> None:
+    """Every kernel's launch count to 0, just before a path; each path's
+    counts are read just after it with ``checksum.launch_counts()``."""
+    checksum.chunk_checksums.launches = 0
+    checksum.land_and_checksum.launches = 0
+    gear.gear_candidates.launches = 0
 
 
 def random_words(n: int, gen: torch.Generator, device) -> torch.Tensor:
@@ -353,22 +390,28 @@ class _PieceRec:
 
 
 class _StoreMeta:
-    def __init__(self, content_length: int, piece_size: int, pieces: dict):
+    def __init__(self, content_length: int, piece_size: int, pieces: dict,
+                 task_id: str):
         self.content_length = content_length
         self.piece_size = piece_size
         self.total_piece_count = len(pieces)
         self.pieces = pieces
+        self.task_id = task_id
+        self.url = f"chip-smoke://{task_id}"
 
 
 class ShardStore:
     """The surface of the daemon's completed task store that the device
-    sink manager and the hot-swap use, over bytes held in host memory."""
+    sink manager, the hot-swap and ``manifest_from_store`` use, over bytes
+    held in host memory."""
 
-    def __init__(self, content: np.ndarray, piece_size: int):
+    def __init__(self, content: np.ndarray, piece_size: int,
+                 task_id: str = "chip-smoke"):
         self._content = content
         n = compute_piece_count(content.size, piece_size)
         self.metadata = _StoreMeta(content.size, piece_size,
-                                   {i: _PieceRec(i) for i in range(n)})
+                                   {i: _PieceRec(i) for i in range(n)},
+                                   task_id)
 
     def __enter__(self):
         return self
@@ -459,8 +502,7 @@ def drive_main_path(content: np.ndarray, spans: dict, layout, piece_size: int,
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    checksum.chunk_checksums.launches = 0
-    checksum.land_and_checksum.launches = 0
+    zero_launches()
     try:
         sink = asyncio.run(land_and_finalize())
         if sink is None:
@@ -479,8 +521,7 @@ def drive_main_path(content: np.ndarray, spans: dict, layout, piece_size: int,
         t2 = time.perf_counter()
     finally:
         mgr.close()
-    launches = {"chunk_checksums": checksum.chunk_checksums.launches,
-                "land_and_checksum": checksum.land_and_checksum.launches}
+    launches = checksum.launch_counts()
     times["verify_gate_s"], times["load_s"] = t1 - t0, t2 - t1
     # The landing's host time by share, accumulated inside land_piece and
     # flush while the pieces landed.
@@ -602,26 +643,11 @@ def planned_bytes(total: int, changed, chunk: int = CHUNK) -> tuple[int, int]:
     return total - staged, staged
 
 
-def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
-                   piece_size: int, gen, device: torch.device,
-                   chunk: int = CHUNK) -> dict:
-    """Generation 1 (the main path's verified sink) goes live in a
-    DoubleBuffer; generation 2 swaps in through swap_generation while a
-    reader thread takes snapshots across the flip."""
-    live = taken.as_bytes_array()
-    hot = DoubleBuffer()
-    hot.flip(live, load_from_sink(taken))
-    t0 = time.perf_counter()
-    gen2, changed, counts = make_generation2(content, spans, layout, gen,
-                                             device)
-    made_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    base_m = fixed_manifest(content, "generation-1", chunk)
-    new_m = fixed_manifest(gen2, "generation-2", chunk)
-    manifest_s = time.perf_counter() - t0
-    store = ShardStore(gen2, piece_size)
-    want_reused, want_staged = planned_bytes(content.size, changed, chunk)
-
+def swap_under_reader(hot: DoubleBuffer, swap, device: torch.device):
+    """``swap()`` while a reader thread takes snapshots of ``hot`` across
+    the flip; the launch counts set to 0 just before it and read just
+    after. Returns (result, launches, swap_s, peak device bytes,
+    snapshots by generation, mixed snapshots)."""
     mixed: list = []
     seen: dict = {}
     stop = threading.Event()
@@ -639,20 +665,16 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
     if _on_card(device):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-    checksum.chunk_checksums.launches = 0
-    checksum.land_and_checksum.launches = 0
+    zero_launches()
     thread = threading.Thread(target=reader, name="df-chip-reader")
     thread.start()
     try:
         t0 = time.perf_counter()
-        result = swap_generation(store, live_u8=live, new_m=new_m,
-                                 base_m=base_m, hot=hot, device=device,
-                                 task_id="chip-smoke-generation-2")
+        result = swap()
         if _on_card(device):
             torch.cuda.synchronize()
         swap_s = time.perf_counter() - t0
-        launches = {"chunk_checksums": checksum.chunk_checksums.launches,
-                    "land_and_checksum": checksum.land_and_checksum.launches}
+        launches = checksum.launch_counts()
         peak = torch.cuda.max_memory_allocated() if _on_card(device) else 0
         time.sleep(0.05)               # snapshots of the new generation
     finally:
@@ -660,8 +682,13 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
         thread.join(timeout=60)
     if thread.is_alive():
         raise AssertionError("snapshot reader did not stop")
+    return result, launches, swap_s, peak, seen, mixed
 
-    # What came out: the flip, every byte, every tensor, the accounting.
+
+def check_generation2(result, hot: DoubleBuffer, gen2: np.ndarray, layout,
+                      spans: dict, seen: dict, mixed: list) -> torch.Tensor:
+    """What a swap to generation 2 must give: the flip, no mixed
+    snapshot, every byte and every tensor. Returns the flipped buffer."""
     buf = hot.buffer()
     if not (result.flipped and result.on_device and hot.generation == 2
             and buf is result.buffer):
@@ -684,6 +711,55 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
             raise AssertionError(f"{name}: bytes differ from generation 2")
         if not bool(torch.isfinite(t).all()):
             raise AssertionError(f"{name}: non-finite values")
+    return buf
+
+
+def check_refusal(store: ShardStore, hot: DoubleBuffer, buf, **swap_kw) -> str:
+    """A generation 2 whose host checksum of one piece is wrong fails the
+    gate by piece number, and the live generation stays."""
+    bad = store.metadata.total_piece_count // 2
+    try:
+        swap_generation(CorruptPiece(store, bad), hot=hot, **swap_kw)
+    except DfError as e:
+        if e.code != Code.ClientPieceDownloadFail or f"piece {bad} " not in str(e):
+            raise AssertionError(f"wrong gate failure: {e!r}")
+        refused = str(e)
+    else:
+        raise AssertionError("a wrong host checksum passed the gate")
+    if hot.generation != 2 or hot.buffer() is not buf:
+        raise AssertionError("the refused generation flipped")
+    return refused
+
+
+def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
+                   piece_size: int, gen, device: torch.device,
+                   chunk: int = CHUNK) -> tuple[dict, np.ndarray, list]:
+    """Generation 1 (the main path's verified sink) goes live in a
+    DoubleBuffer; generation 2 swaps in through swap_generation over
+    fixed-size chunk manifests while a reader thread takes snapshots
+    across the flip. Returns the report, generation 2's bytes and its
+    changed spans."""
+    live = taken.as_bytes_array()
+    hot = DoubleBuffer()
+    hot.flip(live, load_from_sink(taken))
+    t0 = time.perf_counter()
+    gen2, changed, counts = make_generation2(content, spans, layout, gen,
+                                             device)
+    made_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    base_m = fixed_manifest(content, "generation-1", chunk)
+    new_m = fixed_manifest(gen2, "generation-2", chunk)
+    manifest_s = time.perf_counter() - t0
+    store = ShardStore(gen2, piece_size, "generation-2")
+    want_reused, want_staged = planned_bytes(content.size, changed, chunk)
+
+    result, launches, swap_s, peak, seen, mixed = swap_under_reader(
+        hot, lambda: swap_generation(
+            store, live_u8=live, new_m=new_m, base_m=base_m, hot=hot,
+            device=device, task_id="chip-smoke-generation-2"), device)
+
+    # What came out: the flip, every byte, every tensor, the accounting.
+    buf = check_generation2(result, hot, gen2, layout, spans, seen, mixed)
     got = (result.reused_device_bytes, result.staged_bytes)
     if got != (want_reused, want_staged):
         raise AssertionError(f"reused/staged {got} != plan "
@@ -696,21 +772,8 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
               for rec in store.get_pieces()}
     gate_warm_ms = host_ms(
         lambda: verify_u8_against_host(buf, piece_size, checks), 5)
-
-    # A generation 2 whose host checksum of one piece is wrong fails the
-    # gate by piece number, and the live generation stays.
-    bad = store.metadata.total_piece_count // 2
-    try:
-        swap_generation(CorruptPiece(store, bad), live_u8=live, new_m=new_m,
-                        base_m=base_m, hot=hot, device=device)
-    except DfError as e:
-        if e.code != Code.ClientPieceDownloadFail or f"piece {bad} " not in str(e):
-            raise AssertionError(f"wrong gate failure: {e!r}")
-        refused = str(e)
-    else:
-        raise AssertionError("a wrong host checksum passed the gate")
-    if hot.generation != 2 or hot.buffer() is not buf:
-        raise AssertionError("the refused generation flipped")
+    refused = check_refusal(store, hot, buf, live_u8=live, new_m=new_m,
+                            base_m=base_m, device=device)
     return {"content_bytes": content.size, "chunk": chunk,
             "chunks": new_m.num_chunks, **counts,
             "reused_device_bytes": result.reused_device_bytes,
@@ -718,7 +781,290 @@ def phase_hot_swap(content: np.ndarray, spans: dict, layout, taken,
             "timings": result.timings, "swap_s": swap_s,
             "gate_warm_ms": gate_warm_ms, "made_s": made_s,
             "manifest_s": manifest_s, "peak_device_bytes": peak,
-            "snapshots": seen, "launches": launches, "refused": refused}
+            "snapshots": seen, "launches": launches,
+            "refused": refused}, gen2, changed
+
+
+# --------------------------------------------------------------------- #
+# Content-defined chunking on the card: K3, the chunker, whole-shard
+# manifests, and the hot swap through download_delta's fallback
+# --------------------------------------------------------------------- #
+
+# The scan's mask: the default CDCParams' (expected chunk 256 KiB + 1 MiB).
+GEAR_BITS = CDCParams().mask_bits
+# The manifest reads of manifest_from_store, the main path's K3 shape: one
+# span of new bytes a launch, after 31 bytes of left context.
+SPAN = 8 << 20
+GEAR_MAIN = SPAN + gear.WINDOW - 1
+# Over 2^31 bytes: 64-bit offsets in K3.
+GEAR_HUGE = (1 << 31) + 4099
+CHUNKER_PREFIX = 512 << 20
+# H100 SXM: 132 SMs x 64 int32 lanes x 1.98 GHz, half the float32 lanes
+# behind the card's 67 TFLOP/s (an FMA counted as two).
+INT32_OPS = 132 * 64 * 1.98e9
+# K3's operations a position: a shift, an add and a compare.
+GEAR_OPS = 3
+
+
+def gear_bound_ms(n: int, candidates: int, bw: float) -> tuple[float, str]:
+    """K3's bound over n positions: each byte and the 1 KiB table read
+    once and 8 bytes a candidate written, over the memory rate; or
+    ``GEAR_OPS`` operations a position over the card's int32 rate;
+    whichever is longer."""
+    by_bytes = bound_ms(n + 1024 + 8 * candidates, bw)
+    by_ops = n * GEAR_OPS / INT32_OPS * 1e3
+    return max(by_bytes, by_ops), ("bytes" if by_bytes >= by_ops
+                                   else "operations")
+
+
+def planned_k3(sizes) -> int:
+    """K3's launches for a GearChunker fed ``sizes`` bytes in turn: one
+    for each started scan block of each feed."""
+    return sum(-(-n // GearChunker._SCAN_BLOCK) for n in sizes)
+
+
+def span_sizes(total: int) -> list[int]:
+    """The reads of ``manifest_from_store`` over ``total`` bytes."""
+    return [min(SPAN, total - off) for off in range(0, total, SPAN)]
+
+
+def phase_gear(gen, device, bw: float) -> dict:
+    """K3 against its plain version on the same card tensors, bit for
+    bit: 64 MiB of random bytes at ctx 0 and 31, the main path's shape
+    (8 MiB + 31 bytes, ctx 31), dense candidates (mask_bits 4 and 1),
+    regions of 1, 31, 32, 33 and 4 MiB + 3 bytes, starts 1-15 bytes past
+    a 16-byte boundary, 4 MiB of a 32-byte window repeated (a candidate
+    every 32 bytes: more than the first launch has room for, so a second
+    launch), and one region of 2^31 + 4099 bytes. Then K3 timed by
+    ``device_time`` at the main path's shape and at 64 MiB (launches with
+    no read-back between them), beside the plain version and the bound."""
+    big = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8, device=device,
+                        generator=gen)
+    cases = []
+
+    def case(what, region, ctx, bits, launches=1):
+        before = gear.gear_candidates.launches
+        got = gear.gear_candidates(region, ctx, bits)
+        want = gear.gear_candidates_torch(region, ctx, bits)
+        took = gear.gear_candidates.launches - before
+        if not torch.equal(got, want):
+            raise AssertionError(f"gear_candidates {what}: differs from the "
+                                 "plain version")
+        if took != launches:
+            raise AssertionError(f"gear_candidates {what}: {took} launches, "
+                                 f"want {launches}")
+        cases.append({"case": what, "bytes": region.numel(), "ctx": ctx,
+                      "mask_bits": bits, "candidates": got.numel(),
+                      "launches": took})
+        return got, want
+
+    for ctx in (0, 31):
+        case(f"64 MiB ctx {ctx}", big, ctx, GEAR_BITS)
+    main_got, main_want = case("main path: 8 MiB + 31, ctx 31",
+                               big[:GEAR_MAIN], 31, GEAR_BITS)
+    case("dense, mask_bits 4", big, 0, 4)
+    case("dense, mask_bits 1", big[:1 << 20], 5, 1)
+    for n in (1, 31, 32, 33, (4 << 20) + 3):
+        for ctx in sorted({0, min(n, 31)}):
+            case(f"{n} bytes ctx {ctx}", big[:n], ctx, 2)
+        case(f"{n} bytes, mask_bits {GEAR_BITS}", big[:n], 0, GEAR_BITS)
+    for off in (1, 3, 8, 15):
+        case(f"start {off} bytes past 16", big[off:off + (1 << 20) + 5], 31,
+             10)
+    # The window ending at a candidate, repeated: every 32nd position is a
+    # candidate, 32768 a MiB against the first launch's room of
+    # 4 x 2^-20 a byte plus _SPARE_SLOTS.
+    p = int(main_want[0])
+    periodic = big[p - 31:p + 1].repeat((4 << 20) // gear.WINDOW)
+    got, _ = case("4 MiB of a repeated window", periodic, 0, GEAR_BITS,
+                  launches=2)
+    if got.numel() < periodic.numel() // gear.WINDOW:
+        raise AssertionError(f"gear_candidates: {got.numel()} candidates in "
+                             "the repeated window, want one every 32 bytes")
+    del periodic
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    huge = torch.randint(0, 256, (GEAR_HUGE,), dtype=torch.uint8,
+                         device=device, generator=gen)
+    case(f"{GEAR_HUGE} bytes (over 2^31)", huge, 31, GEAR_BITS)
+    del huge
+    torch.cuda.empty_cache()
+    huge_s = time.perf_counter() - t0
+
+    def timed(region, ctx, n):
+        out = torch.empty(4 * (region.numel() >> GEAR_BITS) + (1 << 16),
+                          dtype=torch.int64, device=device)
+        count = torch.zeros(1, dtype=torch.int64, device=device)
+        ms, call_us = device_time(
+            lambda j: gear.gear_scan(region, ctx, GEAR_BITS, out, count), n)
+        plain, _ = device_time(
+            lambda j: gear.gear_candidates_torch(region, ctx, GEAR_BITS), 2,
+            windows=1)
+        cands = gear.gear_candidates(region, ctx, GEAR_BITS).numel()
+        bound, by = gear_bound_ms(region.numel(), cands, bw)
+        return {"ms": ms, "call_us": call_us, "plain_ms": plain,
+                "bound_ms": bound, "bound_by": by, "candidates": cands,
+                "shape": f"n={region.numel()} ctx={ctx} "
+                         f"mask_bits={GEAR_BITS}"}
+
+    main = timed(big[:GEAR_MAIN], 31, 40)
+    at_64 = timed(big, 31, 10)
+    del big
+    return {**main, "max_abs_err": max_abs_err([(main_got, main_want)]),
+            "library_ms": None, "at_64_mib": at_64, "cases": cases,
+            "huge_s": huge_s}
+
+
+def chunk_triples(chunks) -> list[tuple[int, int, str]]:
+    return [(c.offset, c.length, c.sha256) for c in chunks]
+
+
+def feed_sizes(total: int, seed: int) -> list[int]:
+    """A seeded irregular split of ``total`` bytes: a few tiny feeds, then
+    random ones up to 96 MiB (more than one scan block)."""
+    rng = np.random.default_rng(seed)
+    sizes = [1, 30, 1, 4095]
+    while sum(sizes) < total:
+        sizes.append(int(rng.integers(1, 96 << 20)))
+    sizes[-1] -= sum(sizes) - total
+    return [n for n in sizes if n > 0]
+
+
+def phase_chunker(content: np.ndarray, seed: int,
+                  device: torch.device) -> dict:
+    """The card's GearChunker over a ``CHUNKER_PREFIX`` prefix of the
+    shard, fed in 8 MiB spans (as manifest_from_store reads) and in a
+    seeded irregular split, against the plain chunker on the CPU. The
+    launches are counted from 0 just before the two card runs: one K3
+    launch for each started scan block of each feed."""
+    prefix = memoryview(content)[:CHUNKER_PREFIX]
+    params = CDCParams()
+    t0 = time.perf_counter()
+    want = chunk_triples(chunk_bytes(prefix, params, device="cpu"))
+    plain_s = time.perf_counter() - t0
+    splits = {"8 MiB spans": span_sizes(CHUNKER_PREFIX),
+              "irregular": feed_sizes(CHUNKER_PREFIX, seed)}
+    torch.cuda.synchronize()
+    zero_launches()
+    runs = {}
+    for name, sizes in splits.items():
+        t0 = time.perf_counter()
+        ch = GearChunker(params, device=device)
+        off = 0
+        for n in sizes:
+            ch.feed(prefix[off:off + n])
+            off += n
+        ch.finish()
+        runs[name] = {"s": time.perf_counter() - t0, "feeds": len(sizes),
+                      **ch.timings}
+        if chunk_triples(ch.chunks) != want:
+            raise AssertionError(f"chunker, {name}: chunks differ from the "
+                                 "plain chunker's")
+    launches = checksum.launch_counts()
+    want_k3 = sum(planned_k3(sizes) for sizes in splits.values())
+    if launches["gear_candidates"] != want_k3:
+        raise AssertionError(f"chunker: K3 launched "
+                             f"{launches['gear_candidates']} times, want "
+                             f"{want_k3}")
+    del prefix
+    return {"bytes": CHUNKER_PREFIX, "chunks": len(want), "plain_s": plain_s,
+            "runs": runs, "launches": launches, "planned_k3": want_k3}
+
+
+def phase_manifest(content: np.ndarray, piece_size: int,
+                   device: torch.device) -> tuple[dict, DeltaManifest]:
+    """One manifest_from_store over the whole shard on the card, its time
+    split into the reads, the staging, the scan (K3 and its read-back)
+    and cut selection with sha256. K3 launches once for each started scan
+    block of each span read, counted from 0 just before."""
+    store = ShardStore(content, piece_size, "generation-1")
+    stats: dict = {}
+    torch.cuda.synchronize()
+    zero_launches()
+    t0 = time.perf_counter()
+    m = manifest_from_store(store, params=CDCParams(), span=SPAN,
+                            device=device, stats=stats)
+    manifest_s = time.perf_counter() - t0
+    launches = checksum.launch_counts()
+    m.validate()
+    sizes = span_sizes(content.size)
+    if (launches["gear_candidates"] != planned_k3(sizes)
+            or stats["feeds"] != len(sizes)):
+        raise AssertionError(f"manifest: K3 launched "
+                             f"{launches['gear_candidates']} times over "
+                             f"{stats['feeds']} reads, want "
+                             f"{planned_k3(sizes)} over {len(sizes)}")
+    lengths = [c.length for c in m.chunks]
+    p = m.params
+    if max(lengths) > p.max_size or min(lengths[:-1]) < p.min_size:
+        raise AssertionError("manifest: a chunk outside the CDC bounds")
+    return {"bytes": content.size, "chunks": m.num_chunks,
+            "mean_chunk": content.size / m.num_chunks,
+            "forced_cuts": sum(n == p.max_size for n in lengths),
+            "manifest_s": manifest_s, **stats, "launches": launches}, m
+
+
+def phase_cdc_swap(content: np.ndarray, gen2: np.ndarray, spans: dict,
+                   layout, taken, base_ref: DeltaManifest, piece_size: int,
+                   device: torch.device) -> dict:
+    """Generation 1 to generation 2 through download_delta's repaired
+    fallback: the publisher's manifest of generation 2 from
+    manifest_from_store, and no published manifest of generation 1, so
+    ``local_base_manifest`` chunks generation 1's store on the card; then
+    ``swap_generation`` while a reader takes snapshots. The path (the
+    fallback and the swap) is counted from 0 just before it. Checks the
+    base manifest against the whole-shard one (``base_ref``), the
+    accounting against ``plan_delta`` exactly, every byte and tensor, and
+    the refusal of a wrong host checksum."""
+    live = taken.as_bytes_array()
+    hot = DoubleBuffer()
+    hot.flip(live, load_from_sink(taken))
+    t0 = time.perf_counter()
+    new_m = manifest_from_store(ShardStore(gen2, piece_size, "generation-2"),
+                                params=CDCParams(), device=device)
+    publisher_s = time.perf_counter() - t0
+    plan = plan_delta(new_m, base_ref)
+    base_store = ShardStore(content, piece_size, "generation-1")
+    store = ShardStore(gen2, piece_size, "generation-2")
+    stats: dict = {}
+    built: dict = {}
+
+    def swap():
+        t = time.perf_counter()
+        built["base_m"] = local_base_manifest(base_store, new_m,
+                                              device=device, stats=stats)
+        built["base_s"] = time.perf_counter() - t
+        return swap_generation(store, live_u8=live, new_m=new_m,
+                               base_m=built["base_m"], hot=hot, device=device,
+                               task_id="chip-smoke-cdc-generation-2")
+
+    result, launches, swap_s, peak, seen, mixed = swap_under_reader(
+        hot, swap, device)
+    base_m = built["base_m"]
+    if chunk_triples(base_m.chunks) != chunk_triples(base_ref.chunks):
+        raise AssertionError("cdc swap: the fallback's base manifest differs "
+                             "from the whole-shard manifest")
+    buf = check_generation2(result, hot, gen2, layout, spans, seen, mixed)
+    got = (result.reused_device_bytes, result.staged_bytes)
+    if got != (plan.reused_bytes, plan.fetched_bytes):
+        raise AssertionError(f"cdc swap: reused/staged {got} != plan "
+                             f"{(plan.reused_bytes, plan.fetched_bytes)}")
+    want = {"chunk_checksums": 2, "land_and_checksum": 0,
+            "gear_candidates": planned_k3(span_sizes(content.size))}
+    if _on_card(device) and launches != want:
+        raise AssertionError(f"cdc swap: launches {launches}, want {want}")
+    refused = check_refusal(store, hot, buf, live_u8=live, new_m=new_m,
+                            base_m=base_m, device=device)
+    return {"content_bytes": content.size, "chunks_new": new_m.num_chunks,
+            "chunks_base": base_m.num_chunks,
+            "reused_chunks": len(plan.reused),
+            "fetched_chunks": len(plan.fetched),
+            "reused_device_bytes": result.reused_device_bytes,
+            "staged_bytes": result.staged_bytes, "copies": result.copies,
+            "timings": result.timings, "base_manifest_s": built["base_s"],
+            "base_manifest": stats, "publisher_manifest_s": publisher_s,
+            "swap_s": swap_s, "peak_device_bytes": peak, "snapshots": seen,
+            "launches": launches, "refused": refused}
 
 
 # --------------------------------------------------------------------- #
@@ -755,8 +1101,7 @@ def phase_mesh(content: np.ndarray, layout, taken,
         u8 = taken.as_bytes_array()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        checksum.chunk_checksums.launches = 0
-        checksum.land_and_checksum.launches = 0
+        zero_launches()
         ici.reset_collective_counts()
         t0 = time.perf_counter()
         mesh = ici.make_mesh()
@@ -823,8 +1168,7 @@ def phase_mesh(content: np.ndarray, layout, taken,
         del striped, sb
         torch.cuda.synchronize()
         path_s = time.perf_counter() - t0
-        launches = {"chunk_checksums": checksum.chunk_checksums.launches,
-                    "land_and_checksum": checksum.land_and_checksum.launches}
+        launches = checksum.launch_counts()
         calls = ici.collective_counts()
         peak = torch.cuda.max_memory_allocated()
         if not all(no_copy.values()):
@@ -887,15 +1231,13 @@ def phase_feed(seed: int, vocab: int, device: torch.device, **shape) -> dict:
     hbm, numpy_ = DEVICE_BATCHES.value("hbm"), DEVICE_BATCHES.value("numpy")
     if _on_card(device):
         torch.cuda.synchronize()
-    checksum.chunk_checksums.launches = 0
-    checksum.land_and_checksum.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     batches = asyncio.run(collect(feed))
     if _on_card(device):
         torch.cuda.synchronize()
     feed_s = time.perf_counter() - t0
-    launches = {"chunk_checksums": checksum.chunk_checksums.launches,
-                "land_and_checksum": checksum.land_and_checksum.launches}
+    launches = checksum.launch_counts()
     paths = {"hbm": DEVICE_BATCHES.value("hbm") - hbm,
              "numpy": DEVICE_BATCHES.value("numpy") - numpy_}
 
@@ -990,14 +1332,12 @@ def phase_entry(device: torch.device) -> dict:
     first and last piece, against ``checksum_numpy`` on the host."""
     staged = [(name, *pentry.entry(device, **kw)) for name, kw in ENTRY_SHAPES]
     torch.cuda.synchronize()
-    checksum.chunk_checksums.launches = 0
-    checksum.land_and_checksum.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     outs = [fn(*args) for _, fn, args in staged]
     torch.cuda.synchronize()
     path_s = time.perf_counter() - t0
-    launches = {"chunk_checksums": checksum.chunk_checksums.launches,
-                "land_and_checksum": checksum.land_and_checksum.launches}
+    launches = checksum.launch_counts()
     shapes = {}
     for (name, _, args), got in zip(staged, outs):
         want = pentry.land_batches(args,
@@ -1036,7 +1376,7 @@ def phase_train(device: torch.device) -> dict:
                                                    timeout_s=300, **kw),
                      time.perf_counter() - t0))
     launches = {kname: sum(r.launches[kname] for _, r, _ in runs)
-                for kname in ("chunk_checksums", "land_and_checksum")}
+                for kname in runs[0][1].launches}
     out = {"launches": launches}
     for name, r, wall_s in runs:
         words = pentry.checkpoint_words(1, r.d_model, r.d_ff)
@@ -1081,8 +1421,7 @@ def phase_bench(device: torch.device, smi: str) -> dict:
     counted from 0 just before and read just after; its sink smoke must
     pass."""
     torch.cuda.synchronize()
-    checksum.chunk_checksums.launches = 0
-    checksum.land_and_checksum.launches = 0
+    zero_launches()
     line = bench.measure(device, smi)
     torch.cuda.synchronize()
     launches = checksum.launch_counts()
@@ -1101,22 +1440,29 @@ BENCH_LAUNCHES = {"chunk_checksums": 6 + 41 + 2,
                   "land_and_checksum": 42 * 8 + 3}
 
 
-def check_launches(paths: dict, want_k2_main: int,
-                   want_k2_feed: int) -> None:
+def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
+                   want_k3_chunker: int, want_k3_manifest: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch and once per
-    batch of each ``entry()`` call, never on the hot swap; K1 twice in
+    batch of each ``entry()`` call, never on a hot swap; K1 twice in
     each verify gate (whole pieces, then the short last piece), never in
     the feed or ``entry()``; neither on the mesh path, which moves
     verified bytes and folds nothing, nor in the train step, which lands
-    through collectives; the bench's ``BENCH_LAUNCHES``."""
-    want = {"main": {"chunk_checksums": 2, "land_and_checksum": want_k2_main},
-            "hot_swap": {"chunk_checksums": 2, "land_and_checksum": 0},
-            "mesh": {"chunk_checksums": 0, "land_and_checksum": 0},
-            "feed": {"chunk_checksums": 0, "land_and_checksum": want_k2_feed},
-            "entry": {"chunk_checksums": 0, "land_and_checksum": ENTRY_K2},
-            "train": {"chunk_checksums": 0, "land_and_checksum": 0},
-            "bench": BENCH_LAUNCHES}
+    through collectives; the bench's ``BENCH_LAUNCHES``; K3 once for each
+    started scan block of each feed: of the chunker runs, and of the span
+    reads of a whole-shard manifest (the manifest path, and the cdc swap's
+    fallback); nowhere else."""
+    def k(k1, k2, k3=0):
+        return {"chunk_checksums": k1, "land_and_checksum": k2,
+                "gear_candidates": k3}
+
+    want = {"main": k(2, want_k2_main), "hot_swap": k(2, 0),
+            "mesh": k(0, 0), "feed": k(0, want_k2_feed),
+            "entry": k(0, ENTRY_K2), "train": k(0, 0),
+            "bench": {**BENCH_LAUNCHES, "gear_candidates": 0},
+            "chunker": k(0, 0, want_k3_chunker),
+            "manifest": k(0, 0, want_k3_manifest),
+            "cdc_swap": k(2, 0, want_k3_manifest)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -1238,7 +1584,8 @@ def ptxas_lines(log: str) -> list[str]:
     for line in log.splitlines():
         if "Function properties for" in line:
             kernel = next((k for k in ("chunk_checksums_kernel",
-                                       "land_checksum_kernel") if k in line),
+                                       "land_checksum_kernel",
+                                       "gear_scan_kernel") if k in line),
                           line.split()[-1])
         elif kernel and ("spill" in line or "Used" in line):
             out.append(f"{kernel}: {line.split(' : ')[-1].strip()}")
@@ -1265,9 +1612,15 @@ def main(argv=None) -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; bound at "
           f"{bw / 1e12:.2f} TB/s")
 
-    _build.library()
-    print(f"kernels built in {_build.build_seconds:.1f} s "
-          f"({_build.library_path()})")
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=len(_build.SOURCES),
+                            thread_name_prefix="df-nvcc") as ex:
+        # One nvcc for each source, started together.
+        for f in [ex.submit(_build.library), ex.submit(_build.gear_library)]:
+            f.result()
+    print(f"kernels built in {time.perf_counter() - t0:.1f} s ("
+          + ", ".join(_build.library_path(src) for src in _build.SOURCES)
+          + ")")
     if _build.build_log:
         print(_build.build_log)
     for line in ptxas_lines(_build.build_log):
@@ -1295,6 +1648,16 @@ def main(argv=None) -> int:
           json.dumps(k2_feed))
     phase_odd_shapes(gen, device)
     print("odd shapes: both kernels match their plain versions")
+    k3 = phase_gear(gen, device, bw)
+    torch.cuda.empty_cache()
+    print("kernel gear_candidates:", json.dumps(k3))
+    print(f"gear: K3 equal to its plain version bit for bit in "
+          f"{len(k3['cases'])} cases, the largest {GEAR_HUGE} bytes (over "
+          f"2^31); at the main path's shape ({k3['shape']}) "
+          f"{k3['ms']:.5f} ms against a {k3['bound_ms']:.5f} ms bound "
+          f"({k3['bound_by']}), plain {k3['plain_ms']:.4f} ms; at 64 MiB "
+          f"{k3['at_64_mib']['ms']:.5f} ms against "
+          f"{k3['at_64_mib']['bound_ms']:.5f} ms on {smi}")
     if args.parent:
         print("against the parent:", json.dumps(compare_parent(
             args.parent, n_pieces, pw, gen, device)))
@@ -1305,6 +1668,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     content, spans = make_shard(layout, gen, device)
+    shard_bytes = content.size
     print(f"shard: {content.size} bytes, {len(layout)} tensors, "
           f"{n_pieces} pieces of {piece_size}, made in "
           f"{time.perf_counter() - t0:.1f} s")
@@ -1328,9 +1692,44 @@ def main(argv=None) -> int:
           f"K2) = {device_s:.4f} s")
     print("corruption:", phase_corruption(device))
 
-    swap = phase_hot_swap(content, spans, layout, taken, piece_size, gen,
-                          device)
+    swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
+                                   piece_size, gen, device)
     torch.cuda.empty_cache()
+    chunker = phase_chunker(content, args.seed, device)
+    print("chunker:", json.dumps(chunker))
+    print(f"chunker: {chunker['bytes']} B prefix, {chunker['chunks']} "
+          f"chunks, the card's in two splits equal to the plain CPU "
+          f"chunker's ({chunker['plain_s']:.2f} s); card runs "
+          + ", ".join(f"{name} {r['s']:.3f} s" for name, r in
+                      chunker["runs"].items()) + f" on {smi}")
+    torch.cuda.empty_cache()
+    man, base_ref = phase_manifest(content, piece_size, device)
+    print("manifest:", json.dumps(man))
+    print(f"manifest: {man['bytes']} B in {man['chunks']} chunks "
+          f"({man['forced_cuts']} forced at the bound); manifest_s "
+          f"{man['manifest_s']:.3f} s = read {man['read_s']:.3f} s + stage "
+          f"{man['stage_s']:.3f} s + scan {man['scan_s']:.3f} s + sha256 "
+          f"and emit {man['hash_s']:.3f} s + the rest; "
+          f"{man['launches']['gear_candidates']} K3 launches, their device "
+          f"time estimated as that many x K3's {k3['ms']:.5f} ms at the same "
+          f"shape = {man['launches']['gear_candidates'] * k3['ms']:.3f} ms, "
+          f"on {smi}")
+    torch.cuda.empty_cache()
+    cdc = phase_cdc_swap(content, gen2, spans, layout, taken, base_ref,
+                         piece_size, device)
+    del gen2
+    torch.cuda.empty_cache()
+    ctm = cdc["timings"]
+    print("cdc swap:", json.dumps(cdc))
+    print(f"cdc swap: {cdc['chunks_new']} chunks of generation 2 against "
+          f"{cdc['chunks_base']} of generation 1 (its manifest built from "
+          f"the landed store in {cdc['base_manifest_s']:.3f} s); reused "
+          f"{cdc['reused_device_bytes']} B device to device, staged "
+          f"{cdc['staged_bytes']} B (plan_delta's fetched bytes), "
+          f"{cdc['copies']} copies; assemble {ctm['assemble_s']:.4f} s, its "
+          f"copies {ctm['assemble_device_ms']:.4f} ms on the card; swap "
+          f"{cdc['swap_s']:.3f} s with the fallback; peak device memory "
+          f"{cdc['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
     mesh = phase_mesh(content, layout, taken, device)
     del taken, content
     torch.cuda.empty_cache()
@@ -1400,8 +1799,10 @@ def main(argv=None) -> int:
     paths = {"main": main_path["launches"], "hot_swap": swap["launches"],
              "mesh": mesh["launches"], "feed": feed["launches"],
              "entry": ent["launches"], "train": train["launches"],
-             "bench": ben["launches"]}
-    check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"])
+             "bench": ben["launches"], "chunker": chunker["launches"],
+             "manifest": man["launches"], "cdc_swap": cdc["launches"]}
+    check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
+                   chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)))
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",
@@ -1411,6 +1812,7 @@ def main(argv=None) -> int:
     at_swap = {"ms": line["swap_verify_k1_ms"],
                "bound_ms": line["swap_verify_k1_bound_ms"],
                "plain_ms": line["swap_verify_k1_plain_ms"],
+               "copy_ms": line["swap_verify_k1_copy_ms"],
                "shape": "n=64 pw=1048576"}
     at_bench = {"ms_per_call": line["verify_and_land_ms"],
                 "launches_per_call": line["verify_and_land_batches"],
@@ -1419,9 +1821,9 @@ def main(argv=None) -> int:
                 "copy_ms": line["verify_and_land_copy_ms"],
                 "shape": "8 launches of k=16 pw=1048576 into 128 slots"}
     for kname, res, replaces, also in (
-            ("chunk_checksums", k1, "dragonfly2_tpu/ops/checksum.py:67",
+            ("chunk_checksums", k1, "dragonfly2_tpu/ops/checksum.py:68",
              {"at_swap_verify_shape": at_swap}),
-            ("land_and_checksum", k2, "dragonfly2_tpu/ops/checksum.py:133",
+            ("land_and_checksum", k2, "dragonfly2_tpu/ops/checksum.py:134",
              {"at_feed_shape": {key: k2_feed[key] for key in timed_keys},
               "at_bench_shape": at_bench})):
         by_path = {p: counts[kname] for p, counts in paths.items()}
@@ -1436,6 +1838,18 @@ def main(argv=None) -> int:
                 "bound_by", "library_ms", "copy_ms", "register_path_ms",
                 "plan", "shape") if key in res},
             **also, "match": True})
+    by_path = {p: counts["gear_candidates"] for p, counts in paths.items()}
+    kernels.append({
+        "name": "gear_candidates", "route": "cuda",
+        "source": "dragonfly2_tpu_torch/csrc/gear.cu",
+        "replaces": "dragonfly2_tpu/native/src/dfchunk.cc:46",
+        "replaces_what": "df_chunk_scan, the JAX package's native host scan "
+                         "(not a Pallas kernel)",
+        "launches": sum(by_path.values()), "launches_by_path": by_path,
+        **{key: k3[key] for key in (
+            "max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "shape")},
+        "at_64_mib": k3["at_64_mib"], "match": True})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,7 @@ mean the same thing:
   bench times ``device_put``.
 - ``swap_verify_gbps``: ``verify_u8_against_host`` over 256 MiB of 4 MiB
   pieces (K1 and the host compare), host clock; K1's device time beside
-  its bound and its plain version's.
+  its bound, its plain version's and a ``copy_`` of the same bytes.
 - ``sink_smoke``: ``HBMSink`` lands 8 x 1 MiB + 12,345 B in shuffled
   order, then ``verify``, the swap gate and a byte round trip.
 
@@ -242,11 +242,13 @@ def bench_swap_verify(device, bandwidth: float) -> dict:
         u8.view(torch.int32), piece // 4), TIMED_CALLS)
     k1_plain, _ = device_time(lambda j: chunk_checksums_torch(
         u8.view(torch.int32), piece // 4), 2, windows=1)
+    dst = torch.empty_like(u8)
+    k1_copy, _ = device_time(lambda j: dst.copy_(u8), TIMED_CALLS)
     n_pieces = total // piece
     return {"bytes": total, "ms": ms, "gbps": total / ms / 1e6,
             "k1_ms": k1_ms, "k1_bound_ms": bound_ms(total + 8 * n_pieces,
                                                     bandwidth),
-            "k1_plain_ms": k1_plain}
+            "k1_plain_ms": k1_plain, "k1_copy_ms": k1_copy}
 
 
 def sink_smoke(device=None) -> str:
@@ -310,6 +312,7 @@ def measure(device, smi: str) -> dict:
         "swap_verify_k1_ms": swap["k1_ms"],
         "swap_verify_k1_bound_ms": swap["k1_bound_ms"],
         "swap_verify_k1_plain_ms": swap["k1_plain_ms"],
+        "swap_verify_k1_copy_ms": swap["k1_copy_ms"],
         "swap_verify_bytes": swap["bytes"],
         "cpu_sha256_gbps": cpu_bps / 1e9,
         "sink_smoke": smoke,

@@ -37,10 +37,11 @@ Where the port differs from the JAX package:
   error;
 - the hot-swap degrades to a host buffer only on a CUDA out-of-memory; a
   fault of the port's kernels (``KernelError``) and a verify mismatch
-  raise;
-- with no published base manifest the hot-swap stages the whole buffer
-  from the host (the JAX package chunks the base locally; the result is
-  the same, only more bytes move).
+  raise.
+
+With no published base manifest, ``download_delta`` chunks the landed
+base store itself, as the JAX package does (``local_base_manifest``; the
+scan runs on the card).
 """
 
 from __future__ import annotations
@@ -58,7 +59,10 @@ from dragonfly2_tpu_torch.daemon.peer.task_manager import (
     DEVICE_SINK,
     FileTaskRequest,
 )
-from dragonfly2_tpu_torch.delta.manifest import DeltaManifest
+from dragonfly2_tpu_torch.delta.manifest import (
+    DeltaManifest,
+    manifest_from_store,
+)
 from dragonfly2_tpu_torch.delta.resolver import fetch_manifest, plan_delta
 from dragonfly2_tpu_torch.ops import safetensors as st
 from dragonfly2_tpu_torch.ops.checksum import checksum_numpy
@@ -573,6 +577,23 @@ def _device_parts(new_m: DeltaManifest,
     return parts, reused, staged
 
 
+def local_base_manifest(base_store, new_m: DeltaManifest | None,
+                        base_m: DeltaManifest | None = None, *, device=None,
+                        stats: dict | None = None) -> DeltaManifest | None:
+    """The base manifest of a device delta: ``base_m`` (the published
+    one) when there is one; else, when the base is landed here and the new
+    version's manifest ``new_m`` is at hand, the base store chunked with
+    ``new_m``'s params (``manifest_from_store``, scanned on ``device``), as
+    the JAX package's ``download_delta`` does; else None. Blocking:
+    ``download_delta`` runs it in its worker thread."""
+    if base_m is not None or base_store is None or new_m is None:
+        return base_m
+    log.info("no published base manifest; chunking the landed base",
+             base=base_store.metadata.task_id[:16])
+    return manifest_from_store(base_store, base_store.metadata.url,
+                               new_m.params, device=device, stats=stats)
+
+
 def swap_generation(store, *, live_u8: torch.Tensor | None = None,
                     new_m: DeltaManifest | None = None,
                     base_m: DeltaManifest | None = None,
@@ -716,8 +737,9 @@ async def download_delta(daemon, url: str, *, base, hot=None,
     The wire side rides the reference daemon's delta plane
     (``TaskManager.start_delta_task``): only changed chunks cross the
     network, and the patched disk landing is digest-verified. The device
-    side is ``swap_generation``, in a worker thread; ``shardings`` places
-    the new generation's tensors there.
+    side runs in a worker thread: ``local_base_manifest`` when the fabric
+    has no manifest of the base, then ``swap_generation``; ``shardings``
+    places the new generation's tensors there.
     """
     check_shardings(shardings)
     tm = daemon.task_manager
@@ -745,15 +767,20 @@ async def download_delta(daemon, url: str, *, base, hot=None,
     if store is None:
         raise DfError(Code.UnknownError, "delta task has no store")
 
-    new_m = base_m = None
+    new_m = base_m = base_store = None
     if live_u8 is not None:
         new_m = await fetch_manifest(tm, final.task_id)
-        if (new_m is not None
-                and tm.storage.find_completed_task(base_task_id) is not None):
+        base_store = tm.storage.find_completed_task(base_task_id)
+        if new_m is not None and base_store is not None:
             base_m = await fetch_manifest(tm, base_task_id)
-    result = await asyncio.to_thread(
-        swap_generation, store, live_u8=live_u8, new_m=new_m, base_m=base_m,
-        hot=hot, names=names, device=device, task_id=final.task_id,
-        shardings=shardings)
+
+    def swap() -> HotSwapResult:
+        base = local_base_manifest(base_store, new_m, base_m, device=device)
+        return swap_generation(
+            store, live_u8=live_u8, new_m=new_m, base_m=base, hot=hot,
+            names=names, device=device, task_id=final.task_id,
+            shardings=shardings)
+
+    result = await asyncio.to_thread(swap)
     result.stats = dict(tm.delta_stats.get(final.task_id, {}))
     return result

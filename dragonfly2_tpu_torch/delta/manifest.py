@@ -1,21 +1,28 @@
-"""Chunk manifests: the port's own copy of ``Chunk``, ``CDCParams`` and
-``DeltaManifest`` (``dragonfly2_tpu/delta/chunker.py`` and
-``dragonfly2_tpu/delta/manifest.py``).
+"""Chunk manifests: the port's own copy of
+``dragonfly2_tpu/delta/manifest.py``'s ``DeltaManifest``,
+``build_manifest``, ``manifest_from_store`` and ``manifest_object_key``.
 
 A manifest lists one content version's chunks ``{offset, length,
-sha256}`` and the chunking geometry that cut them. The port reads the
-manifests other hosts publish (``from_json_bytes``) and plans a device
-hot-swap from two of them; it has no chunker of its own.
+sha256}`` and the chunking geometry that cut them (``CDCParams`` and
+``Chunk`` live in ``delta/chunker.py`` and are imported here too). The
+port builds manifests with its own chunker, whose scan runs on the card,
+and reads the manifests other hosts publish (``from_json_bytes``); a
+device hot-swap plans from two of them. Its manifests are the JAX
+package's, byte for byte.
 """
 
 from __future__ import annotations
 
 import json
+import time
 from dataclasses import dataclass, field
 
+from dragonfly2_tpu_torch.delta.chunker import CDCParams, Chunk, GearChunker
 from dragonfly2_tpu_torch.pkg import metrics
 
 MANIFEST_VERSION = 1
+# Hidden bucket prefix of gateway-cached manifests, beside the object.
+MANIFEST_PREFIX = ".dfdelta/"
 
 MANIFEST_FETCHES = metrics.counter(
     "peer_delta_manifest_total",
@@ -24,36 +31,6 @@ MANIFEST_FETCHES = metrics.counter(
 
 class ManifestError(Exception):
     """Malformed or inconsistent chunk manifest."""
-
-
-@dataclass(frozen=True)
-class CDCParams:
-    """Chunking geometry: candidates every ~2^mask_bits bytes, chunks
-    within [min_size, max_size]. Two manifests dedup against each other
-    only when their params are equal. Defaults: ~1.25 MiB chunks within
-    [256 KiB, 4 MiB]."""
-
-    mask_bits: int = 20
-    min_size: int = 256 << 10
-    max_size: int = 4 << 20
-
-    def __post_init__(self):
-        if not (0 < self.min_size <= self.max_size):
-            raise ValueError(
-                f"bad CDC bounds [{self.min_size}, {self.max_size}]")
-        if not (1 <= self.mask_bits <= 31):
-            raise ValueError(f"bad mask_bits {self.mask_bits}")
-
-
-@dataclass(frozen=True)
-class Chunk:
-    offset: int
-    length: int
-    sha256: str        # hex, no "sha256:" prefix
-
-    @property
-    def end(self) -> int:
-        return self.offset + self.length
 
 
 @dataclass
@@ -121,3 +98,57 @@ class DeltaManifest:
             raise ManifestError(f"corrupt delta manifest: {e}") from e
         m.validate()
         return m
+
+
+def build_manifest(data, name: str = "", params: CDCParams | None = None,
+                   *, device=None) -> DeltaManifest:
+    """Manifest of in-memory content, scanned on ``device``."""
+    ch = GearChunker(params, device=device)
+    ch.feed(data)
+    ch.finish()
+    return DeltaManifest(name=name, content_length=len(data),
+                         chunks=ch.chunks, params=ch.params)
+
+
+def manifest_from_store(store, name: str = "",
+                        params: CDCParams | None = None,
+                        span: int = 8 << 20, *, device=None,
+                        stats: dict | None = None) -> DeltaManifest:
+    """Manifest of a completed task store (``metadata``, ``read_into``,
+    ``with`` to pin it): ``span``-byte reads into one buffer of this
+    call's own, fed through the streaming chunker scanning on ``device``;
+    never the whole content in memory. Blocking: callers on an event loop
+    run it in a thread.
+
+    ``stats``, when given, gets the host seconds of the reads
+    (``read_s``), the chunker's ``timings`` and the number of
+    ``feeds``."""
+    total = store.metadata.content_length
+    if total < 0:
+        raise ManifestError(
+            f"task {store.metadata.task_id[:16]} has unknown length")
+    ch = GearChunker(params, device=device)
+    buf = bytearray(min(span, total))
+    read_s = 0.0
+    feeds = 0
+    with store:
+        off = 0
+        while off < total:
+            take = min(span, total - off)
+            t0 = time.perf_counter()
+            store.read_into(off, take, buf)
+            read_s += time.perf_counter() - t0
+            ch.feed(memoryview(buf)[:take])
+            feeds += 1
+            off += take
+    ch.finish()
+    if stats is not None:
+        stats.update(read_s=read_s, feeds=feeds, **ch.timings)
+    return DeltaManifest(name=name or store.metadata.url,
+                         content_length=total, chunks=ch.chunks,
+                         params=ch.params)
+
+
+def manifest_object_key(key: str) -> str:
+    """The gateway object key of the manifest cached beside ``key``."""
+    return f"{MANIFEST_PREFIX}{key}.json"

@@ -1,6 +1,6 @@
 """Delta planning and fabric-published manifests: the port's own copy of
-``plan_delta``, ``DeltaPlan`` and ``fetch_manifest``
-(``dragonfly2_tpu/delta/resolver.py``).
+``plan_delta``, ``DeltaPlan``, ``fetch_manifest`` and
+``publish_manifest_for`` (``dragonfly2_tpu/delta/resolver.py``).
 
 A new version's chunk is reused when a chunk of the same sha256 and
 length exists anywhere in the base version, and fetched otherwise. The
@@ -10,20 +10,25 @@ live device buffer and stages only the fetched ones from the host.
 Manifests travel over the fabric as ``dfdelta://<content_task_id>``
 tasks. The manifest task's id is a pure function of the content task id,
 so the port must build the same request as the JAX package, or every
-fetch misses and the hot-swap stages the whole generation from the host.
+fetch misses. A host that holds the content builds and publishes its
+manifest (``publish_manifest_for``); the daemon's task manager ``tm`` is
+the reference one, reached by duck type.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 from dataclasses import dataclass, field
 
 from dragonfly2_tpu_torch.daemon.peer.task_manager import FileTaskRequest
 from dragonfly2_tpu_torch.delta.manifest import (
     MANIFEST_FETCHES,
+    CDCParams,
     Chunk,
     DeltaManifest,
     ManifestError,
+    manifest_from_store,
 )
 from dragonfly2_tpu_torch.pkg import dflog
 from dragonfly2_tpu_torch.pkg.errors import DfError
@@ -98,7 +103,7 @@ async def fetch_manifest(tm, content_task_id: str,
     daemon's task manager ``tm``; None when no host published one. The
     timeout is short on purpose: an unpublished manifest would cost the
     scheduler's full no-source patience, and every miss has a cheap
-    recovery (stage the whole buffer)."""
+    recovery (chunk a landed base here, or stage the whole buffer)."""
     req = manifest_request(content_task_id)
 
     async def drain():
@@ -133,3 +138,48 @@ async def fetch_manifest(tm, content_task_id: str,
         return None
     MANIFEST_FETCHES.labels("hit").inc()
     return m
+
+
+async def publish_manifest_for(tm, content_task_id: str, *,
+                               params: CDCParams | None = None,
+                               manifest: DeltaManifest | None = None,
+                               device=None) -> DeltaManifest | None:
+    """Build the manifest of this host's completed copy of a content task
+    (scanned on ``device``), or take the prebuilt ``manifest``, and import
+    it as the ``dfdelta://`` task, announced like any import so peers can
+    pull it. An already-published manifest task is left as it is. Returns
+    the manifest, or None when the content is not landed here.
+
+    ``tm`` is the daemon's task manager: ``storage.find_completed_task``,
+    ``storage.opt.data_dir`` and ``import_task``."""
+    store = tm.storage.find_completed_task(content_task_id)
+    if store is None:
+        log.warning("cannot publish manifest: content not landed",
+                    task=content_task_id[:16])
+        return None
+    m = manifest
+    if m is None:
+        m = await asyncio.to_thread(manifest_from_store, store,
+                                    store.metadata.url, params,
+                                    device=device)
+    req = manifest_request(content_task_id)
+    if tm.storage.find_completed_task(req.task_id()) is not None:
+        MANIFEST_FETCHES.labels("published").inc()
+        return m
+    path = os.path.join(tm.storage.opt.data_dir,
+                        f".manifest-{content_task_id[:16]}.json")
+    try:
+        await asyncio.to_thread(_write_file, path, m.to_json_bytes())
+        await tm.import_task(path, req)
+    finally:
+        try:
+            os.unlink(path)
+        except OSError:
+            pass
+    MANIFEST_FETCHES.labels("published").inc()
+    return m
+
+
+def _write_file(path: str, data: bytes) -> None:
+    with open(path, "wb") as f:
+        f.write(data)

@@ -1,15 +1,17 @@
-"""Build and bind the port's CUDA kernels (``csrc/checksum.cu``).
+"""Build and bind the port's CUDA kernels: ``csrc/checksum.cu`` (K1, K2)
+and ``csrc/gear.cu`` (K3).
 
-``nvcc`` compiles the source into a shared library with a plain C
-interface, bound with ``ctypes``: every pointer and the stream as
-``c_void_p``, every size as ``c_int64``. The library goes into ``build/``
-at the repository root, named by a hash of the source and the flags, so an
-edited source rebuilds and an unchanged one loads at once. It is built at
-first use, never at import. A missing compiler or a failed compile raises
+``nvcc`` compiles each source into a shared library of its own with a
+plain C interface, bound with ``ctypes``: every pointer and the stream as
+``c_void_p``, every size as ``c_int64``. A library goes into ``build/`` at
+the repository root, named by its source's name and a hash of the source
+and the flags, so an edited source rebuilds and an unchanged one loads at
+once. It is built at first use, never at import; each library has a lock
+of its own, so ``library()`` and ``gear_library()`` called on two threads
+run their two nvcc at once. A missing compiler or a failed compile raises
 ``KernelBuildError`` carrying nvcc's own output, and a launch that returns
-a CUDA error raises ``KernelLaunchError``: there is no fallback. Both are
-``KernelError``, which the device sink manager never turns into a
-disk-only landing.
+a CUDA error raises ``KernelLaunchError``: there is no fallback. Both are ``KernelError``, which the device sink manager never
+turns into a disk-only landing.
 
 Run ``python -m dragonfly2_tpu_torch.ops._build`` to build ahead of time.
 """
@@ -23,17 +25,21 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import time
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "checksum.cu")
+SOURCE = os.path.join(_PKG_DIR, "csrc", "checksum.cu")        # K1, K2
+GEAR_SOURCE = os.path.join(_PKG_DIR, "csrc", "gear.cu")       # K3
+SOURCES = (SOURCE, GEAR_SOURCE)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-build_log = ""          # nvcc's output of the build this process made or loaded
-build_seconds = 0.0
+_locks = {source: threading.Lock() for source in SOURCES}
+_log_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}      # source -> its loaded library
+build_log = ""          # nvcc's output of the builds this process made
+build_seconds = 0.0     # this process's builds and loads, summed
 
 
 class KernelError(RuntimeError):
@@ -60,7 +66,8 @@ def nvcc_path() -> str | None:
 def library_path(source: str = SOURCE) -> str:
     with open(source, "rb") as f:
         digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
-    return os.path.join(BUILD_DIR, f"checksum-{digest.hexdigest()[:16]}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return os.path.join(BUILD_DIR, f"{stem}-{digest.hexdigest()[:16]}.so")
 
 
 def compile_source(out: str, source: str = SOURCE) -> str:
@@ -87,36 +94,59 @@ def compile_source(out: str, source: str = SOURCE) -> str:
             os.unlink(tmp)
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, building it first if needed."""
-    global _lib, build_log, build_seconds
-    with _lock:
-        if _lib is not None:
-            return _lib
-        import time
-
+def _load(source: str, bind) -> ctypes.CDLL:
+    """The library of ``source``, built first if missing, loaded once and
+    handed to ``bind`` to declare its launchers."""
+    global build_log, build_seconds
+    with _locks[source]:
+        lib = _libs.get(source)
+        if lib is not None:
+            return lib
         t0 = time.perf_counter()
-        path = library_path()
-        build_log = compile_source(path) if not os.path.exists(path) else ""
+        path = library_path(source)
+        log = compile_source(path, source) if not os.path.exists(path) else ""
         try:
             lib = ctypes.CDLL(path)
         except OSError as e:
             raise KernelBuildError(f"cannot load {path}: {e}") from e
-        p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.df_chunk_checksums.argtypes = [p, i64, i64, p, p, p]
-        lib.df_chunk_checksums.restype = i32
-        # buffer, n_slots, pieces, slots, k, pw, the LandPlan's five fields,
-        # sums, xors, scatter, stream
-        lib.df_land_and_checksum.argtypes = [
-            p, i64, p, p, i64, i64, i32, i32, i32, i32, i32, p, p, i32, p]
-        lib.df_land_and_checksum.restype = i32
-        lib.df_land_max_active_clusters.argtypes = [i32, i32, i32]
-        lib.df_land_max_active_clusters.restype = i32
         lib.df_error_string.argtypes = [ctypes.c_int]
         lib.df_error_string.restype = ctypes.c_char_p
-        build_seconds = time.perf_counter() - t0
-        _lib = lib
+        bind(lib)
+        _libs[source] = lib
+        with _log_lock:
+            build_log = "\n".join(x for x in (build_log, log) if x)
+            build_seconds += time.perf_counter() - t0
         return lib
+
+
+def _bind_checksum(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    lib.df_chunk_checksums.argtypes = [p, i64, i64, p, p, p]
+    lib.df_chunk_checksums.restype = i32
+    # buffer, n_slots, pieces, slots, k, pw, the LandPlan's five fields,
+    # sums, xors, scatter, stream
+    lib.df_land_and_checksum.argtypes = [
+        p, i64, p, p, i64, i64, i32, i32, i32, i32, i32, p, p, i32, p]
+    lib.df_land_and_checksum.restype = i32
+    lib.df_land_max_active_clusters.argtypes = [i32, i32, i32]
+    lib.df_land_max_active_clusters.restype = i32
+
+
+def _bind_gear(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # data, n, ctx, gear, mask_bits, out, cap, count, stream
+    lib.df_gear_candidates.argtypes = [p, i64, i64, p, i32, p, i64, p, p]
+    lib.df_gear_candidates.restype = i32
+
+
+def library() -> ctypes.CDLL:
+    """The loaded K1/K2 library, building it first if needed."""
+    return _load(SOURCE, _bind_checksum)
+
+
+def gear_library() -> ctypes.CDLL:
+    """The loaded K3 library, building it first if needed."""
+    return _load(GEAR_SOURCE, _bind_gear)
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
@@ -128,5 +158,7 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 
 if __name__ == "__main__":
     library()
-    print(library_path())
+    gear_library()
+    for source in SOURCES:
+        print(library_path(source))
     print(build_log)

@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dragonfly2_tpu_torch.ops import _build
+from dragonfly2_tpu_torch.ops import _build, gear
 
 _MASK32 = 0xFFFFFFFF
 
@@ -294,6 +294,8 @@ land_and_checksum.launches = 0
 
 
 def launch_counts() -> dict:
-    """Each kernel's launches so far, as its wrapper counts them."""
+    """Each kernel's launches so far, as its wrapper counts them: K1, K2
+    and K3 (``ops/gear.py``)."""
     return {"chunk_checksums": chunk_checksums.launches,
-            "land_and_checksum": land_and_checksum.launches}
+            "land_and_checksum": land_and_checksum.launches,
+            "gear_candidates": gear.gear_candidates.launches}

@@ -84,10 +84,9 @@ async def serve_blobs(blobs: dict):
 async def main(device) -> int:
     from torch_fabric import start_daemon, start_scheduler, stop_daemon
 
-    from dragonfly2_tpu.delta.chunker import CDCParams
-    from dragonfly2_tpu.delta.resolver import publish_manifest_for
     from dragonfly2_tpu_torch.client import device as device_lib
     from dragonfly2_tpu_torch.daemon.peer.task_manager import FileTaskRequest
+    from dragonfly2_tpu_torch.delta import CDCParams, publish_manifest_for
     from dragonfly2_tpu_torch.ops.hbm_sink import DoubleBuffer
     from dragonfly2_tpu_torch.proto.common import UrlMeta
 
@@ -119,7 +118,7 @@ async def main(device) -> int:
 
         r1 = await land(f"{base_url}/v1", sha1)
         await publish_manifest_for(seed.task_manager, r1.task_id,
-                                   params=params)
+                                   params=params, device=device)
 
         # Serve version N from the device buffer.
         result = await device_lib.download_to_device(
@@ -133,7 +132,7 @@ async def main(device) -> int:
         # Version N+1 appears: publish + manifest.
         r2 = await land(f"{base_url}/v2", sha2)
         await publish_manifest_for(seed.task_manager, r2.task_id,
-                                   params=params)
+                                   params=params, device=device)
 
         # The hot swap: delta transfer + device-side reuse + atomic flip.
         swap = await device_lib.download_delta(

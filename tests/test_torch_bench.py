@@ -135,12 +135,14 @@ def test_bench_launch_constants_follow_the_bench_sizes():
 
 
 def test_launch_counts_reads_both_wrappers(monkeypatch):
-    from dragonfly2_tpu_torch.ops import checksum
+    from dragonfly2_tpu_torch.ops import checksum, gear
 
     monkeypatch.setattr(checksum.chunk_checksums, "launches", 5)
     monkeypatch.setattr(checksum.land_and_checksum, "launches", 7)
+    monkeypatch.setattr(gear.gear_candidates, "launches", 3)
     assert checksum.launch_counts() == {"chunk_checksums": 5,
-                                        "land_and_checksum": 7}
+                                        "land_and_checksum": 7,
+                                        "gear_candidates": 3}
 
 
 def test_cpu_sha256_baseline_is_a_rate():

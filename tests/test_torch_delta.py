@@ -4,9 +4,11 @@
 ``DoubleBuffer`` flip under reader threads, manifests and ``plan_delta``
 over manifests the JAX package built, the assembly's coalescing, the
 device half ``swap_generation`` (gate mismatch, out-of-memory degrade,
-kernel faults), and ``download_delta`` end to end on reference daemons,
-held against the JAX package's ``download_delta``. Tolerance 0
-everywhere: bytes, plans and byte counts are compared for equality.
+kernel faults), the base manifest built from the landed base when none
+was published (``local_base_manifest``), and ``download_delta`` end to
+end on reference daemons, held against the JAX package's
+``download_delta``, with both manifests published and with none. Tolerance
+0 everywhere: bytes, plans and byte counts are compared for equality.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 from dragonfly2_tpu.client import device as jdev
 from dragonfly2_tpu.delta.chunker import CDCParams as JParams
 from dragonfly2_tpu.delta.manifest import build_manifest
+from dragonfly2_tpu.delta.manifest import manifest_from_store as jfrom_store
 from dragonfly2_tpu.delta.resolver import plan_delta as jplan
 from dragonfly2_tpu.ops import checksum as jck
 from dragonfly2_tpu.ops import hbm_sink as jhbm
@@ -364,6 +367,33 @@ def test_swap_generation_without_manifests_stages_everything():
     np.testing.assert_array_equal(single.tensors["bias"].numpy(), v2["bias"])
 
 
+def test_local_base_manifest_equals_the_jax_fallback(tmp_path):
+    """No published base manifest: the landed base store chunked with the
+    new manifest's params, as the JAX download_delta does
+    (``manifest_from_store(base_store, url, new_m.params)``), the same JSON
+    bytes; the swap then reuses exactly the plan's bytes."""
+    v2, new, pn, pb, hot, plan = _hot_swap_inputs()
+    old = hot.buffer().numpy().tobytes()
+    piece = 64 << 10
+    base = LocalTaskStore(str(tmp_path / "base"), TaskStoreMetadata(
+        task_id="t-base", url="http://origin/v1", content_length=len(old),
+        piece_size=piece, total_piece_count=-(-len(old) // piece)))
+    for i in range(base.metadata.total_piece_count):
+        base.write_piece(i, old[i * piece:(i + 1) * piece])
+    got = pdev.local_base_manifest(base, pn, device="cpu")
+    want = jfrom_store(base, base.metadata.url, P)
+    assert got.to_json_bytes() == want.to_json_bytes()
+    assert got.name == "http://origin/v1" and got.chunks == pb.chunks
+    assert pdev.local_base_manifest(base, pn, pb) is pb
+    assert pdev.local_base_manifest(None, pn) is None
+    assert pdev.local_base_manifest(base, None) is None
+    r = pdev.swap_generation(_Store(new, piece), live_u8=hot.buffer(),
+                             new_m=pn, base_m=got, hot=hot, device="cpu")
+    assert (r.reused_device_bytes, r.staged_bytes) == (
+        plan.reused_bytes, plan.fetched_bytes)
+    assert r.reused_device_bytes > 0 and r.buffer.numpy().tobytes() == new
+
+
 def test_swap_generation_degrades_to_the_host_on_out_of_memory(monkeypatch):
     v2, new, pn, pb, hot, _ = _hot_swap_inputs()
 
@@ -531,3 +561,111 @@ def test_download_delta_hotswap_e2e_matches_the_reference(run_async,
             await origin.cleanup()
 
     run_async(body(), timeout=120)
+
+
+def _big_versions():
+    """Two generations of a safetensors file of 8 MiB and more, so the
+    default CDCParams cut several chunks; generation 2 changes two small
+    spans."""
+    rng = np.random.RandomState(11)
+    v1 = {"w1": rng.randn(1024, 1024).astype(np.float32),
+          "w2": rng.randn(1024, 1024).astype(np.float32),
+          "bias": rng.randn(4096).astype(np.float32)}
+    v2 = {k: v.copy() for k, v in v1.items()}
+    v2["bias"][7] += 1.0
+    v2["w2"][3, :8] *= 1.5
+    return v2, _make_safetensors(v1), _make_safetensors(v2)
+
+
+def test_download_delta_without_published_manifests_matches_the_reference(
+        run_async, tmp_path):
+    """The first delta of a series whose manifests were never published:
+    the daemon's delta engine misses the new manifest, lands the new
+    version in full and publishes only its manifest; the client then
+    misses the base manifest and chunks the landed base itself. The port
+    reuses and stages exactly the bytes the JAX download_delta does, with
+    reuse > 0, and flips to the same tensors."""
+    from dragonfly2_tpu.daemon.daemon import Daemon
+    from dragonfly2_tpu_torch.daemon.peer import device_sink as pds
+    from dragonfly2_tpu_torch.delta import resolver as pres
+    from tests import test_p2p_e2e as e2e
+    from tests.test_delta import _drain_task, _file_req, _two_blob_origin
+    from tests.test_device_sink import _start_sink_daemon
+
+    v2, old, new = _big_versions()
+    assert len(old) >= 8 << 20
+    sha1 = "sha256:" + hashlib.sha256(old).hexdigest()
+    sha2 = "sha256:" + hashlib.sha256(new).hexdigest()
+
+    async def body():
+        # One origin a pod, so that neither sees the manifests the other's
+        # daemon publishes.
+        origin, base_url, _ = await _two_blob_origin(old, new)
+        jorigin, jbase_url, _ = await _two_blob_origin(old, new)
+        sched = await e2e.start_scheduler()
+        daemons = []
+        try:
+            seed = await e2e.start_daemon(tmp_path, "seedd", sched.port(),
+                                          seed=True)
+            daemons.append(seed)
+            cfg = e2e.daemon_config(tmp_path, "portpod", sched.port())
+            cfg.tpu_sink.enabled = False
+            port_pod = Daemon(cfg)
+            port_pod.task_manager.device_sinks = pds.DeviceSinkManager(
+                device="cpu")
+            await port_pod.start()
+            daemons.append(port_pod)
+            jax_pod = await _start_sink_daemon(tmp_path, "jaxpod",
+                                               sched.port())
+            daemons.append(jax_pod)
+            for url in (base_url, jbase_url):
+                await _drain_task(seed.task_manager,
+                                  _file_req(f"{url}/v1", sha1))
+                await _drain_task(seed.task_manager,
+                                  _file_req(f"{url}/v2", sha2))
+
+            first = await pdev.download_to_device(port_pod, f"{base_url}/v1",
+                                                  digest=sha1)
+            hot = phbm.DoubleBuffer()
+            hot.flip(first.as_bytes_array(), first.load_safetensors())
+            swap = await pdev.download_delta(port_pod, f"{base_url}/v2",
+                                             base=first.task_id, hot=hot,
+                                             digest=sha2, device="cpu")
+
+            jfirst = await jdev.download_to_device(jax_pod, f"{jbase_url}/v1",
+                                                   digest=sha1)
+            jhot = jhbm.DoubleBuffer()
+            jhot.flip(jfirst.as_bytes_array(), jfirst.load_safetensors())
+            jswap = await jdev.download_delta(jax_pod, f"{jbase_url}/v2",
+                                              base=jfirst.task_id, hot=jhot,
+                                              digest=sha2)
+
+            # Each daemon landed the new version in full (no delta stats)
+            # and published its manifest alone; each client chunked its
+            # landed base.
+            for pod, base_id, new_id in (
+                    (port_pod, first.task_id, swap.task_id),
+                    (jax_pod, jfirst.task_id, jswap.task_id)):
+                storage = pod.task_manager.storage
+                assert storage.find_completed_task(
+                    pres.manifest_request(base_id).task_id()) is None
+                assert storage.find_completed_task(
+                    pres.manifest_request(new_id).task_id()) is not None
+            assert swap.stats == jswap.stats == {}
+            assert swap.flipped and swap.on_device and hot.generation == 2
+            assert swap.reused_device_bytes > 0.5 * len(new)
+            assert (swap.reused_device_bytes, swap.staged_bytes) == (
+                jswap.reused_device_bytes, jswap.staged_bytes)
+            assert swap.buffer.numpy().tobytes() == new
+            for name, want in v2.items():
+                got = hot.tensors()[name]
+                assert got.numpy().tobytes() == np.asarray(
+                    jhot.tensors()[name]).tobytes() == want.tobytes(), name
+        finally:
+            for d in daemons:
+                await d.stop()
+            await sched.stop()
+            await origin.cleanup()
+            await jorigin.cleanup()
+
+    run_async(body(), timeout=240)

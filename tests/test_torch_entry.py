@@ -189,7 +189,8 @@ def test_dryrun_matches_the_jax_step(worlds, n):
     assert got.fabric_s > 0 and got.step_s > 0
     # Summed over the ranks' own counts; the step lands through
     # collectives, and the CPU runs the plain versions, which never count.
-    assert got.launches == {"chunk_checksums": 0, "land_and_checksum": 0}
+    assert got.launches == {"chunk_checksums": 0, "land_and_checksum": 0,
+                            "gear_candidates": 0}
 
 
 @pytest.mark.parametrize("n", [4, 2])

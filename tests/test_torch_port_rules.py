@@ -26,9 +26,18 @@ import torch
 
 from dragonfly2_tpu.pkg import piece as jax_piece
 from dragonfly2_tpu_torch import default_device
-from dragonfly2_tpu_torch.client.device import swap_generation
+from dragonfly2_tpu_torch.client.device import (
+    local_base_manifest,
+    swap_generation,
+)
 from dragonfly2_tpu_torch.daemon.peer.device_sink import DeviceSinkManager
 from dragonfly2_tpu_torch.dataset.device_feed import DeviceFeed
+from dragonfly2_tpu_torch.delta import (
+    GearChunker,
+    build_manifest,
+    chunk_bytes,
+    manifest_from_store,
+)
 from dragonfly2_tpu_torch.ops import _build
 from dragonfly2_tpu_torch.ops.hbm_sink import HBMSink, assemble_delta_u8
 from dragonfly2_tpu_torch.parallel.ici import make_mesh
@@ -163,6 +172,18 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
 
     with pytest.raises(RuntimeError, match="CUDA"):
         swap_generation(Store())               # client/device.py hot-swap
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GearChunker()                          # delta/chunker.py
+    with pytest.raises(RuntimeError, match="CUDA"):
+        chunk_bytes(b"1234")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build_manifest(b"1234")                # delta/manifest.py
+    with pytest.raises(RuntimeError, match="CUDA"):
+        manifest_from_store(Store())
+    new_m = build_manifest(b"1234", device="cpu")
+    Store.metadata.url, Store.metadata.task_id = "http://o/x", "t"
+    with pytest.raises(RuntimeError, match="CUDA"):
+        local_base_manifest(Store(), new_m)    # download_delta's fallback
     import torch.distributed as dist
 
     with pytest.raises(RuntimeError, match="CUDA"):
@@ -176,10 +197,10 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
 
 
 def test_missing_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path))
     monkeypatch.setattr(_build, "library_path",
-                        lambda: str(tmp_path / "absent.so"))
+                        lambda source: str(tmp_path / "absent.so"))
     monkeypatch.setattr(_build, "nvcc_path", lambda: None)
     with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
         _build.library()
@@ -190,10 +211,10 @@ def test_failed_compile_raises_with_nvcc_output(monkeypatch, tmp_path):
     fake.write_text("#!/bin/sh\necho 'checksum.cu(1): error: boom' >&2\n"
                     "exit 2\n")
     fake.chmod(0o755)
-    monkeypatch.setattr(_build, "_lib", None)
+    monkeypatch.setattr(_build, "_libs", {})
     monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
     monkeypatch.setattr(_build, "library_path",
-                        lambda: str(tmp_path / "build" / "k.so"))
+                        lambda source: str(tmp_path / "build" / "k.so"))
     monkeypatch.setattr(_build, "nvcc_path", lambda: str(fake))
     with pytest.raises(_build.KernelBuildError, match="boom") as e:
         _build.library()
