@@ -53,7 +53,13 @@
    manifest of it was published, then ``swap_generation``), holding the
    bytes it reuses and stages to ``plan_delta`` of the two
    content-defined manifests exactly, with the checks of the fixed-chunk
-   swap;
+   swap; then serves generation 1 from a stand-in object gateway
+   (``StandInGateway``: the reference gateway's HEAD, GET, ranged-task GET
+   and PUT over host memory, HTTP/1.1 keep-alive) and builds its manifest
+   with ``fetch_or_build_manifest`` through the port's ``Dfstore``: a
+   miss that streams the object through the card's chunker (K3 once a
+   stream chunk), equal to ``manifest_from_store``'s manifest but for its
+   name and published beside the object, then a hit with no K3 launch;
 6. spreads the main path's verified sink over a device mesh (the
    ``mesh`` path, a world of one rank over NCCL: the card holds one
    GPU): ``initialize_distributed`` with explicit arguments,
@@ -69,7 +75,16 @@
    short batch of 17 through ``DeviceFeed``, some records zero-padded,
    and checks every batch against the host records; then runs a short
    feed window under ``torch.profiler`` and prints the device operations
-   it queued and K2's kernel time by name;
+   it queued and K2's kernel time by name; then the webdataset phase:
+   4 USTAR token shards of 10,000 samples (``<key>.tokens``, up to 8192
+   int32 ids, every seventh short; ``<key>.json``) written with
+   ``tarfile`` from ``--seed`` into the stand-in gateway, a
+   ``PodShardedLoader`` over the port's ``Dfstore`` whose ``prepare()``
+   builds every index by streaming its shard, a fresh loader's
+   ``prepare()`` that hits them all, the loader alone over a cut prefix of
+   epoch 1, then ``epoch(0)`` through ``DeviceFeed`` (625 batches of 64 x
+   32 KiB records, one K2 launch a batch), checking the order against
+   ``plan(0)`` and every batch against the host records;
 8. runs ``entry()`` (``dragonfly2_tpu_torch/entry.py``) at the JAX
    entry's shape and at ``bench.py``'s 512 MiB shape, each output held
    bit for bit against K2's plain version;
@@ -81,7 +96,8 @@
 10. runs the device bench's measurements (``dragonfly2_tpu_torch/
     bench.py``) and prints its JSON line;
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
-    feed, entry, train, bench, chunker, manifest, cdc_swap), prints one
+    feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
+    gateway_manifest), prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
 
@@ -93,14 +109,21 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import ctypes
+import dataclasses
 import hashlib
+import io
 import json
+import multiprocessing
 import os
 import sys
+import tarfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from urllib.parse import parse_qs, unquote, urlsplit
 
 import numpy as np
 import torch
@@ -124,13 +147,24 @@ from dragonfly2_tpu_torch.daemon.peer.device_sink import (
     DeviceSinkManager,
     TaskDeviceSink,
 )
+from dragonfly2_tpu_torch.client.dfstore import STREAM_CHUNK, Dfstore
+from dragonfly2_tpu_torch.dataset import tar_index
 from dragonfly2_tpu_torch.dataset.device_feed import DEVICE_BATCHES, DeviceFeed
+from dragonfly2_tpu_torch.dataset.loader import (
+    READAHEAD_DEPTH,
+    LoaderOptions,
+    PodShardedLoader,
+)
+from dragonfly2_tpu_torch.dataset.tar_index import INDEX_FETCHES
 from dragonfly2_tpu_torch.delta.chunker import GearChunker, chunk_bytes
 from dragonfly2_tpu_torch.delta.manifest import (
+    MANIFEST_FETCHES,
     CDCParams,
     Chunk,
     DeltaManifest,
+    fetch_or_build_manifest,
     manifest_from_store,
+    manifest_object_key,
 )
 from dragonfly2_tpu_torch.delta.resolver import plan_delta
 from dragonfly2_tpu_torch.ops import _build, checksum, gear
@@ -138,8 +172,13 @@ from dragonfly2_tpu_torch.ops.convert import placements_from_spec
 from dragonfly2_tpu_torch.ops.hbm_sink import DoubleBuffer, verify_u8_against_host
 from dragonfly2_tpu_torch.ops.safetensors import load_from_sink
 from dragonfly2_tpu_torch.parallel import ici, multihost
+from dragonfly2_tpu_torch.pkg import idgen
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
-from dragonfly2_tpu_torch.pkg.piece import compute_piece_count, compute_piece_size
+from dragonfly2_tpu_torch.pkg.piece import (
+    Range,
+    compute_piece_count,
+    compute_piece_size,
+)
 
 # Llama-3.1-8B (meta-llama/Llama-3.1-8B config.json): hidden 4096,
 # intermediate 14336, 32 heads / 8 KV heads of 128, vocab 128256.
@@ -823,9 +862,10 @@ def planned_k3(sizes) -> int:
     return sum(-(-n // GearChunker._SCAN_BLOCK) for n in sizes)
 
 
-def span_sizes(total: int) -> list[int]:
-    """The reads of ``manifest_from_store`` over ``total`` bytes."""
-    return [min(SPAN, total - off) for off in range(0, total, SPAN)]
+def span_sizes(total: int, span: int = SPAN) -> list[int]:
+    """The reads of ``manifest_from_store`` over ``total`` bytes (or the
+    chunks of a stream of ``span`` bytes each but the last)."""
+    return [min(span, total - off) for off in range(0, total, span)]
 
 
 def phase_gear(gen, device, bw: float) -> dict:
@@ -909,10 +949,11 @@ def phase_gear(gen, device, bw: float) -> dict:
 
     main = timed(big[:GEAR_MAIN], 31, 40)
     at_64 = timed(big, 31, 10)
+    at_stream = timed(big[:STREAM_CHUNK + gear.WINDOW - 1], 31, 40)
     del big
     return {**main, "max_abs_err": max_abs_err([(main_got, main_want)]),
-            "library_ms": None, "at_64_mib": at_64, "cases": cases,
-            "huge_s": huge_s}
+            "library_ms": None, "at_64_mib": at_64,
+            "at_stream_chunk": at_stream, "cases": cases, "huge_s": huge_s}
 
 
 def chunk_triples(chunks) -> list[tuple[int, int, str]]:
@@ -1307,6 +1348,604 @@ def profile_feed(seed: int, vocab: int, device: torch.device,
 
 
 # --------------------------------------------------------------------- #
+# The dataset plane over the object gateway
+# --------------------------------------------------------------------- #
+
+class StandInGateway:
+    """The object gateway's routes that the dataset plane and
+    ``fetch_or_build_manifest`` use, answered as the reference gateway
+    (``dragonfly2_tpu/daemon/objectstorage.py``) answers them, over objects
+    held in host memory and served without copies:
+
+    - ``HEAD`` of an object: 200 with ``Content-Length``,
+      ``X-Dragonfly-Digest``, ``ETag`` and ``Content-Type`` when known;
+      404 for a missing object;
+    - ``GET`` of an object, whole (200) or with ``Range`` (206 with
+      ``Content-Range``; 416 when unsatisfiable); 502 for a missing one;
+    - ``GET ...?ranged_task=1`` with ``Range``: the span as a ranged task
+      of its own, 200 with ``X-Dragonfly-Task-Id`` (the span's task id)
+      and ``X-Dragonfly-From-Reuse`` (1 once the span was served before);
+    - ``PUT`` of an object with a ``Content-Length`` body: 200 with
+      ``{"ok": true, "digest": "sha256:..."}``.
+
+    HTTP/1.1 with keep-alive, one thread a connection. ``counts`` holds
+    the requests and body bytes served, by kind."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._objects: dict[tuple[str, str], dict] = {}
+        self._served: set[str] = set()
+        self.counts: dict[str, list[int]] = {}
+        self._server = None
+        self._thread = None
+
+    def put(self, bucket: str, key: str, data, *, digest: str = "",
+            content_type: str = "") -> None:
+        """Hold ``data`` (bytes-like, not copied) as an object."""
+        with self._mu:
+            self._objects[(bucket, key)] = {
+                "data": memoryview(data).cast("B"), "digest": digest,
+                "content_type": content_type,
+                "etag": f"{time.time_ns() // 1000:x}"}
+
+    def object_bytes(self, bucket: str, key: str) -> bytes | None:
+        obj = self._get(bucket, key)
+        return None if obj is None else bytes(obj["data"])
+
+    def start(self) -> str:
+        """Serve on 127.0.0.1 at a free port; returns the endpoint."""
+        self._server = _GatewayServer(("127.0.0.1", 0), _GatewayHandler)
+        self._server.gateway = self
+        self._thread = threading.Thread(target=self._server.serve_forever,
+                                        name="df-standin-gateway",
+                                        daemon=True)
+        self._thread.start()
+        return f"http://127.0.0.1:{self._server.server_address[1]}"
+
+    def close(self) -> None:
+        if self._server is not None:
+            self._server.shutdown()
+            self._server.server_close()
+            self._thread.join(timeout=10)
+            self._server = None
+
+    def requests(self) -> dict:
+        with self._mu:
+            return {k: tuple(v) for k, v in self.counts.items()}
+
+    def _count(self, kind: str, nbytes: int) -> None:
+        with self._mu:
+            c = self.counts.setdefault(kind, [0, 0])
+            c[0] += 1
+            c[1] += nbytes
+
+    def _get(self, bucket: str, key: str):
+        with self._mu:
+            return self._objects.get((bucket, key))
+
+    def _served_before(self, task_id: str) -> bool:
+        with self._mu:
+            seen = task_id in self._served
+            self._served.add(task_id)
+            return seen
+
+
+class _GatewayServer(ThreadingHTTPServer):
+    # The reference gateway's listen backlog (aiohttp's default): a loader
+    # opens one connection a worker thread at once.
+    request_queue_size = 128
+
+    def handle_error(self, request, client_address):
+        # A client that cancels a read cuts its connection mid-body.
+        if not isinstance(sys.exc_info()[1], ConnectionError):
+            super().handle_error(request, client_address)
+
+
+class _GatewayHandler(BaseHTTPRequestHandler):
+    protocol_version = "HTTP/1.1"
+    disable_nagle_algorithm = True
+
+    def log_message(self, *args):
+        pass
+
+    def _route(self):
+        parts = urlsplit(self.path)
+        segs = parts.path.split("/", 4)
+        if len(segs) != 5 or segs[1] != "buckets" or segs[3] != "objects":
+            return None
+        return unquote(segs[2]), unquote(segs[4]), parse_qs(parts.query)
+
+    def _reply(self, status: int, body=b"", headers=None, *,
+               content_type: str = "text/plain; charset=utf-8") -> None:
+        self.send_response(status)
+        hdrs = {"Content-Type": content_type, **(headers or {})}
+        hdrs.setdefault("Content-Length", str(len(body)))
+        for k, v in hdrs.items():
+            self.send_header(k, v)
+        self.end_headers()
+        if self.command != "HEAD" and len(body):
+            self.wfile.write(body)
+
+    def do_HEAD(self):
+        route = self._route()
+        obj = None if route is None else self.server.gateway._get(*route[:2])
+        if obj is None:
+            self._reply(404)
+            return
+        self.server.gateway._count("head", 0)
+        headers = {"Content-Length": str(len(obj["data"])),
+                   "X-Dragonfly-Digest": obj["digest"], "ETag": obj["etag"]}
+        if obj["content_type"]:
+            headers["Content-Type"] = obj["content_type"]
+        self._reply(200, headers=headers)
+
+    def do_GET(self):
+        route = self._route()
+        if route is None:
+            self._reply(404, b"404: Not Found")
+            return
+        bucket, key, query = route
+        gw = self.server.gateway
+        obj = gw._get(bucket, key)
+        rng_header = self.headers.get("Range", "")
+        if rng_header and query.get("ranged_task"):
+            self._ranged_task(gw, bucket, key, obj, rng_header)
+            return
+        if obj is None:
+            self._reply(502, f"p2p fetch failed: no object {bucket}/{key}"
+                        .encode())
+            return
+        data = obj["data"]
+        if not rng_header:
+            gw._count("get", len(data))
+            self._reply(200, data, content_type="application/octet-stream")
+            return
+        try:
+            r = Range.parse_http(rng_header, len(data))
+        except ValueError as e:
+            self._reply(502, f"p2p fetch failed: {e}".encode())
+            return
+        n = min(r.length, max(len(data) - r.start, 0))
+        if n <= 0:
+            self._reply(416, b"416: Range Not Satisfiable",
+                        {"Content-Range": f"bytes */{len(data)}"})
+            return
+        gw._count("get_range", n)
+        self._reply(206, data[r.start:r.start + n],
+                    {"Content-Range":
+                     f"bytes {r.start}-{r.start + n - 1}/{len(data)}"},
+                    content_type="application/octet-stream")
+
+    def _ranged_task(self, gw, bucket: str, key: str, obj,
+                     rng_header: str) -> None:
+        try:
+            rng = Range.normalize_header(rng_header)
+        except ValueError as e:
+            self._reply(400, f"bad range {rng_header!r}: {e}".encode())
+            return
+        r = Range.parse_http(rng)
+        if obj is None or r.length < 0 or r.start + r.length > len(
+                obj["data"]):
+            self._reply(502, f"ranged task failed: no span {rng} of "
+                        f"{bucket}/{key}".encode())
+            return
+        task_id = idgen.task_id_v1(f"standin://{bucket}/{key}", tag=bucket,
+                                   range_header=rng)
+        reuse = gw._served_before(task_id)
+        gw._count("ranged_task", r.length)
+        self._reply(200, obj["data"][r.start:r.start + r.length],
+                    {"X-Dragonfly-Task-Id": task_id,
+                     "X-Dragonfly-From-Reuse": "1" if reuse else "0"},
+                    content_type="application/octet-stream")
+
+    def do_PUT(self):
+        route = self._route()
+        length = self.headers.get("Content-Length")
+        if route is None or length is None:
+            self._reply(404 if route is None else 411)
+            return
+        bucket, key, _ = route
+        body = self.rfile.read(int(length))
+        digest = "sha256:" + hashlib.sha256(body).hexdigest()
+        gw = self.server.gateway
+        gw.put(bucket, key, body, digest=digest,
+               content_type=self.headers.get("Content-Type")
+               or "application/octet-stream")
+        gw._count("put", 0)
+        self._reply(200, json.dumps({"ok": True, "digest": digest}).encode(),
+                    content_type="application/json; charset=utf-8")
+
+
+class StandInProcess:
+    """A ``StandInGateway`` in a child process of its own, as the daemon's
+    gateway is in a deployment: its request handling does not share the
+    client's interpreter lock. The child is spawned (it inherits no thread
+    or device state) and makes its objects itself, ``make(*args)`` ->
+    {(bucket, key): bytes-like}, from a seed: the objects never cross the
+    pipe."""
+
+    def __init__(self, make, *args):
+        self._make, self._args = make, args
+        self._conn = self._proc = None
+
+    def start(self) -> None:
+        """Spawn the child; it makes its objects while the caller goes on."""
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_stand_in_child,
+                                 args=(child, self._make, self._args),
+                                 daemon=True, name="df-standin-gateway")
+        self._proc.start()
+        child.close()
+
+    def endpoint(self) -> str:
+        """Wait until the child serves; its endpoint."""
+        if not self._conn.poll(600):
+            raise RuntimeError("the stand-in gateway's process did not start")
+        return self._conn.recv()
+
+    def _ask(self, *msg):
+        self._conn.send(msg)
+        return self._conn.recv()
+
+    def requests(self) -> dict:
+        return self._ask("requests")
+
+    def cpu_s(self) -> float:
+        """The child's CPU seconds so far, all its threads."""
+        return self._ask("cpu")
+
+    def object_bytes(self, bucket: str, key: str) -> bytes | None:
+        return self._ask("object", bucket, key)
+
+    def close(self) -> None:
+        if self._proc is None:
+            return
+        try:
+            self._ask("stop")
+        except (OSError, EOFError):
+            pass
+        self._proc.join(timeout=30)
+        if self._proc.is_alive():
+            self._proc.kill()
+            self._proc.join(timeout=10)
+        self._conn.close()
+        self._proc = None
+
+
+def _stand_in_child(conn, make, args) -> None:
+    """The body of ``StandInProcess``'s child: make the objects, serve
+    them, answer the parent until told to stop."""
+    gw = StandInGateway()
+    for (bucket, key), data in make(*args).items():
+        gw.put(bucket, key, data)
+    conn.send(gw.start())
+    try:
+        while True:
+            msg = conn.recv()
+            if msg[0] == "stop":
+                conn.send(None)
+                return
+            conn.send(gw.requests() if msg[0] == "requests"
+                      else time.process_time() if msg[0] == "cpu"
+                      else gw.object_bytes(*msg[1:]))
+    finally:
+        gw.close()
+
+
+# BASELINE.json's config4_webdataset (4 shards, loader readahead 16) as
+# token shards: img2dataset's default 10,000 samples a shard, each a
+# `<key>.tokens` of up to SEQ_TOKENS int32 ids and a `<key>.json`.
+WDS_BUCKET = "wds"
+WDS_SHARDS = 4
+WDS_PER_SHARD = 10_000
+WDS_READAHEAD = 16
+WDS_INTERLEAVE = 4
+# The loader alone, timed over this many samples of epoch 1, then cut.
+WDS_ALONE = 4096
+
+
+def wds_shards(seed: int, vocab: int, shards: int = WDS_SHARDS,
+               per_shard: int = WDS_PER_SHARD, tokens: int = SEQ_TOKENS
+               ) -> tuple[dict, np.ndarray]:
+    """USTAR webdataset shards written with ``tarfile`` from ``seed``:
+    sample ``<shard:05d><i:04d>`` holds ``.tokens`` (int32 ids of
+    ``vocab``; every seventh cut short, as in ``token_records``) and
+    ``.json`` (~100 B). Returns ({shard key: tar bytes}, the ids zero-padded
+    to ``tokens``, shaped (shards, per_shard, tokens))."""
+    rng = np.random.default_rng([seed, 4])
+    ids = rng.integers(0, vocab, (shards, per_shard, tokens), dtype=np.int32)
+    out = {}
+    for s in range(shards):
+        lengths = np.full(per_shard, tokens)
+        lengths[::7] = rng.integers(1, tokens, lengths[::7].size)
+        buf = io.BytesIO()
+        with tarfile.open(fileobj=buf, mode="w",
+                          format=tarfile.USTAR_FORMAT) as tar:
+            for i in range(per_shard):
+                n = int(lengths[i])
+                ids[s, i, n:] = 0
+                key = f"{s:05d}{i:04d}"
+                meta = json.dumps({"key": key, "shard": s, "tokens": n,
+                                   "vocab": vocab, "seed": seed,
+                                   "source": "chip_smoke"}).encode()
+                for name, data in ((f"{key}.tokens", ids[s, i, :n].tobytes()),
+                                   (f"{key}.json", meta)):
+                    info = tarfile.TarInfo(name)
+                    info.size = len(data)
+                    tar.addfile(info, io.BytesIO(data))
+        out[f"{s:05d}.tar"] = buf.getbuffer()
+    return out, ids
+
+
+def wds_objects(seed: int, vocab: int, shape: dict) -> dict:
+    """``wds_shards``' shards as the stand-in gateway's objects."""
+    return {(WDS_BUCKET, key): data
+            for key, data in wds_shards(seed, vocab, **shape)[0].items()}
+
+
+def _on_loop_wait(samples, waits: list, depth: list):
+    """``samples`` passed on, with the seconds the consumer waited for each
+    added to ``waits[0]`` and the readahead depth at each yield summed in
+    ``depth[0]``."""
+    async def gen():
+        it = samples.__aiter__()
+        try:
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    s = await anext(it)
+                except StopAsyncIteration:
+                    return
+                finally:
+                    waits[0] += time.perf_counter() - t0
+                depth[0] += READAHEAD_DEPTH.value()
+                yield s
+        finally:
+            await it.aclose()
+    return gen()
+
+
+async def _wds(endpoint: str, gw: StandInProcess, shard_keys: list,
+               ids: np.ndarray, seed: int, device: torch.device,
+               batch: int, alone: int) -> dict:
+    opts = LoaderOptions(seed=seed, num_hosts=1, interleave=WDS_INTERLEAVE,
+                         readahead=WDS_READAHEAD)
+    store = Dfstore(endpoint)
+    try:
+        before = {r: INDEX_FETCHES.value(r)
+                  for r in ("built", "hit", "stale", "corrupt")}
+        # prepare(): every index built by streaming its shard; the seconds
+        # in TarIndexer.feed (on the loop) are the index time.
+        index_s = [0.0]
+        index_feed = tar_index.TarIndexer.feed
+
+        def timed_feed(self, chunk):
+            t0 = time.perf_counter()
+            try:
+                index_feed(self, chunk)
+            finally:
+                index_s[0] += time.perf_counter() - t0
+
+        tar_index.TarIndexer.feed = timed_feed
+        try:
+            t0 = time.perf_counter()
+            await PodShardedLoader(store, WDS_BUCKET, shard_keys,
+                                   options=opts).prepare()
+            prepare_s = time.perf_counter() - t0
+        finally:
+            tar_index.TarIndexer.feed = index_feed
+        built = {r: INDEX_FETCHES.value(r) - v for r, v in before.items()}
+        t0 = time.perf_counter()
+        loader = await PodShardedLoader(store, WDS_BUCKET, shard_keys,
+                                        options=opts).prepare()
+        hit_s = time.perf_counter() - t0
+        fetched = {r: INDEX_FETCHES.value(r) - before[r] - built[r]
+                   for r in before}
+        n_shards = len(shard_keys)
+        if built != {"built": n_shards, "hit": 0, "stale": 0, "corrupt": 0} \
+                or fetched != {"built": 0, "hit": n_shards, "stale": 0,
+                               "corrupt": 0}:
+            raise AssertionError(f"wds: index resolutions {built} then "
+                                 f"{fetched}, want {n_shards} built then "
+                                 f"{n_shards} hits")
+        plan = [k for _, k in loader.plan(0)]
+        if len(plan) != ids.shape[0] * ids.shape[1]:
+            raise AssertionError(f"wds: plan of {len(plan)} samples")
+
+        # The loader alone, cut after `alone` samples (its readahead
+        # cancelled with its span buffers in flight).
+        t0 = time.perf_counter()
+        n_alone = 0
+        async with contextlib.aclosing(loader.epoch(1)) as samples:
+            async for _ in samples:
+                n_alone += 1
+                if n_alone == alone:
+                    break
+        alone_s = time.perf_counter() - t0
+        if loader.pool.stats()["outstanding"]:
+            raise AssertionError(f"wds: {loader.pool.stats()} after a cut "
+                                 "epoch")
+
+        record_bytes = ids.shape[2] * 4
+        feed = DeviceFeed("tokens", record_bytes, batch, pad=True,
+                          device=device)
+        got = torch.empty((len(plan), record_bytes), dtype=torch.uint8,
+                          pin_memory=_on_card(device))
+        keys, row, on_device = [], 0, True
+        waits, depth = [0.0], [0.0]
+        reqs = gw.requests()
+        paths0 = {p: DEVICE_BATCHES.value(p) for p in ("hbm", "numpy")}
+        if _on_card(device):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        zero_launches()
+        cpu0, gw_cpu0 = time.process_time(), gw.cpu_s()
+        t0 = time.perf_counter()
+        async for b in feed.batches(_on_loop_wait(loader.epoch(0), waits,
+                                                   depth)):
+            on_device &= b.on_device and b.array.device.type == device.type
+            got[row:row + len(b.keys)].copy_(b.array, non_blocking=True)
+            keys += b.keys
+            row += len(b.keys)
+        if _on_card(device):
+            torch.cuda.synchronize()
+        epoch_s = time.perf_counter() - t0
+        cpu_s, gw_cpu_s = time.process_time() - cpu0, gw.cpu_s() - gw_cpu0
+        launches = checksum.launch_counts()
+        peak = (torch.cuda.max_memory_allocated() if _on_card(device)
+                else None)
+        paths = {p: DEVICE_BATCHES.value(p) - v for p, v in paths0.items()}
+        after = gw.requests()
+    finally:
+        await store.close()
+
+    n = len(plan)
+    batches = -(-n // batch)
+    if keys != plan:
+        raise AssertionError("wds: the batches' samples are not in plan(0)'s "
+                             "order")
+    if not on_device:
+        raise AssertionError("wds: a batch did not land on the device")
+    if paths != {"hbm": batches, "numpy": 0}:
+        raise AssertionError(f"wds: batches by path {paths}")
+    order = np.array([[int(k[:5]), int(k[5:])] for k in keys])
+    for lo in range(0, n, 4096):
+        want = ids[order[lo:lo + 4096, 0], order[lo:lo + 4096, 1]]
+        if not np.array_equal(got[lo:lo + 4096].numpy(), want.view(np.uint8)):
+            raise AssertionError(f"wds: a batch in samples {lo}-{lo + 4096} "
+                                 "differs from the host records")
+    served = {k: (v[0] - reqs.get(k, (0, 0))[0], v[1] - reqs.get(k, (0, 0))[1])
+              for k, v in after.items()}
+    sent = sum(v[1] for v in served.values())
+    requests = sum(v[0] for v in served.values())
+    nbytes = n * record_bytes
+    return {"shards": n_shards, "samples": n, "batches": batches,
+            "record_bytes": record_bytes, "prepare_s": prepare_s,
+            "index_s": index_s[0], "stream_and_rest_s": prepare_s - index_s[0],
+            "prepare_hit_s": hit_s, "indexes": {"first": built,
+                                                "second": fetched},
+            "epoch_s": epoch_s, "samples_per_s": n / epoch_s,
+            "batches_per_s": batches / epoch_s,
+            "gb_per_s": nbytes / epoch_s / 1e9,
+            "loader_wait_s": waits[0], "feed_s": epoch_s - waits[0],
+            "cpu_s": cpu_s, "gateway_cpu_s": gw_cpu_s,
+            "mean_readahead_depth": depth[0] / n,
+            "loader_alone": {"samples": n_alone, "s": alone_s,
+                             "samples_per_s": n_alone / alone_s},
+            "requests": requests, "request_bytes": sent,
+            "mean_request_bytes": sent / max(requests, 1),
+            "requests_by_kind": served, "paths": paths,
+            "peak_device_bytes": peak, "launches": launches}
+
+
+def phase_wds(seed: int, vocab: int, device: torch.device, *,
+              batch: int = FEED_BATCH, alone: int = WDS_ALONE,
+              **shape) -> dict:
+    """Webdataset token shards through the whole dataset plane: the
+    shards in a stand-in gateway -> ``Dfstore`` -> ``prepare()`` (every
+    index built by streaming, then a fresh loader's all hits) ->
+    ``PodShardedLoader.epoch(0)`` with ranged reads -> ``DeviceFeed`` ->
+    one K2 launch a batch. Checks the order against ``plan(0)``, every
+    batch against the host records and the launches of the epoch."""
+    # The gateway's process makes the same shards from the seed while this
+    # one makes them for the host records (the epoch's check compares
+    # every record it served with them).
+    gw = StandInProcess(wds_objects, seed, vocab, shape)
+    try:
+        t0 = time.perf_counter()
+        gw.start()
+        shards, ids = wds_shards(seed, vocab, **shape)
+        endpoint = gw.endpoint()
+        make_s = time.perf_counter() - t0
+        out = asyncio.run(_wds(endpoint, gw, sorted(shards), ids, seed,
+                               device, batch, alone))
+    finally:
+        gw.close()
+    if _on_card(device) and out["launches"] != {
+            "chunk_checksums": 0, "land_and_checksum": out["batches"],
+            "gear_candidates": 0}:
+        raise AssertionError(f"wds: launches {out['launches']}")
+    return {"shard_bytes": sum(len(d) for d in shards.values()),
+            "make_s": make_s, **out}
+
+
+GATEWAY_BUCKET = "ckpt"
+GATEWAY_KEY = "model-00001-of-00004.safetensors"
+
+
+async def _gateway_manifest(endpoint: str, gw: StandInGateway,
+                            total: int, base_ref: DeltaManifest,
+                            device: torch.device) -> dict:
+    store = Dfstore(endpoint)
+    try:
+        before = {r: MANIFEST_FETCHES.value(r)
+                  for r in ("built", "hit", "stale", "corrupt")}
+        stats: dict = {}
+        if _on_card(device):
+            torch.cuda.synchronize()
+        zero_launches()
+        t0 = time.perf_counter()
+        m = await fetch_or_build_manifest(store, GATEWAY_BUCKET, GATEWAY_KEY,
+                                          params=base_ref.params,
+                                          device=device, stats=stats)
+        manifest_s = time.perf_counter() - t0
+        built = checksum.launch_counts()
+        zero_launches()
+        hit_stats: dict = {}
+        t0 = time.perf_counter()
+        again = await fetch_or_build_manifest(
+            store, GATEWAY_BUCKET, GATEWAY_KEY, params=base_ref.params,
+            device=device, stats=hit_stats)
+        hit_s = time.perf_counter() - t0
+        hit = checksum.launch_counts()
+        counts = {r: MANIFEST_FETCHES.value(r) - v for r, v in before.items()}
+    finally:
+        await store.close()
+    want = dataclasses.replace(base_ref, name=GATEWAY_KEY).to_json_bytes()
+    if m.to_json_bytes() != want:
+        raise AssertionError("gateway manifest: JSON differs from "
+                             "manifest_from_store's over the same content")
+    if gw.object_bytes(GATEWAY_BUCKET,
+                       manifest_object_key(GATEWAY_KEY)) != want:
+        raise AssertionError("gateway manifest: the published object differs")
+    if again.to_json_bytes() != want or hit_stats != {"result": "hit"}:
+        raise AssertionError(f"gateway manifest: second call {hit_stats}")
+    sizes = span_sizes(total, STREAM_CHUNK)
+    if (stats["result"] != "built" or stats["feeds"] != len(sizes)
+            or counts != {"built": 1, "hit": 1, "stale": 0, "corrupt": 0}):
+        raise AssertionError(f"gateway manifest: {stats['result']} over "
+                             f"{stats['feeds']} chunks, {counts}; want built "
+                             f"over {len(sizes)}, then a hit")
+    if _on_card(device) and (built["gear_candidates"] != planned_k3(sizes)
+                             or hit["gear_candidates"]):
+        raise AssertionError(f"gateway manifest: K3 launched "
+                             f"{built['gear_candidates']} times building, "
+                             f"{hit['gear_candidates']} on the hit; want "
+                             f"{planned_k3(sizes)}, then 0")
+    return {"bytes": total, "chunks": m.num_chunks, "manifest_s": manifest_s,
+            **stats, "hit_s": hit_s, "resolutions": counts,
+            "planned_k3": planned_k3(sizes),
+            "launches": {k: built[k] + hit[k] for k in built}}
+
+
+def phase_gateway_manifest(content: np.ndarray, base_ref: DeltaManifest,
+                           device: torch.device) -> dict:
+    """``fetch_or_build_manifest`` over the stand-in gateway serving
+    generation 1 of the shard: a miss that streams the object through the
+    card's chunker (K3 once a stream chunk) and publishes
+    ``.dfdelta/<key>.json``, equal to ``manifest_from_store``'s manifest of
+    the same content but for its name; then a hit with no K3 launch."""
+    gw = StandInGateway()
+    gw.put(GATEWAY_BUCKET, GATEWAY_KEY, content)
+    try:
+        return asyncio.run(_gateway_manifest(gw.start(), gw, content.size,
+                                             base_ref, device))
+    finally:
+        gw.close()
+
+
+# --------------------------------------------------------------------- #
 # The entry and bench pair: entry(), the train step, the device bench
 # --------------------------------------------------------------------- #
 
@@ -1441,17 +2080,20 @@ BENCH_LAUNCHES = {"chunk_checksums": 6 + 41 + 2,
 
 
 def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
-                   want_k3_chunker: int, want_k3_manifest: int) -> None:
+                   want_k3_chunker: int, want_k3_manifest: int,
+                   want_k2_wds: int, want_k3_gateway: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
-    flushed batch of the main path, once per feed batch and once per
-    batch of each ``entry()`` call, never on a hot swap; K1 twice in
-    each verify gate (whole pieces, then the short last piece), never in
-    the feed or ``entry()``; neither on the mesh path, which moves
-    verified bytes and folds nothing, nor in the train step, which lands
-    through collectives; the bench's ``BENCH_LAUNCHES``; K3 once for each
-    started scan block of each feed: of the chunker runs, and of the span
-    reads of a whole-shard manifest (the manifest path, and the cdc swap's
-    fallback); nowhere else."""
+    flushed batch of the main path, once per feed batch (the token feed's
+    and the webdataset epoch's) and once per batch of each ``entry()``
+    call, never on a hot swap; K1 twice in each verify gate (whole pieces,
+    then the short last piece), never in a feed or ``entry()``; neither on
+    the mesh path, which moves verified bytes and folds nothing, nor in
+    the train step, which lands through collectives; the bench's
+    ``BENCH_LAUNCHES``; K3 once for each started scan block of each feed:
+    of the chunker runs, of the span reads of a whole-shard manifest (the
+    manifest path, and the cdc swap's fallback) and of the stream chunks
+    of the gateway manifest's build (its hit launches none); nowhere
+    else."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -1462,7 +2104,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "bench": {**BENCH_LAUNCHES, "gear_candidates": 0},
             "chunker": k(0, 0, want_k3_chunker),
             "manifest": k(0, 0, want_k3_manifest),
-            "cdc_swap": k(2, 0, want_k3_manifest)}
+            "cdc_swap": k(2, 0, want_k3_manifest),
+            "wds": k(0, want_k2_wds),
+            "gateway_manifest": k(0, 0, want_k3_gateway)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -1730,6 +2374,22 @@ def main(argv=None) -> int:
           f"copies {ctm['assemble_device_ms']:.4f} ms on the card; swap "
           f"{cdc['swap_s']:.3f} s with the fallback; peak device memory "
           f"{cdc['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+    gwm = phase_gateway_manifest(content, base_ref, device)
+    torch.cuda.empty_cache()
+    k3s = k3["at_stream_chunk"]
+    print("gateway manifest:", json.dumps(gwm))
+    print(f"gateway manifest: fetch_or_build_manifest over the stand-in "
+          f"gateway built {gwm['bytes']} B into {gwm['chunks']} chunks, its "
+          f"JSON equal to manifest_from_store's, and published it; "
+          f"manifest_s {gwm['manifest_s']:.3f} s = stream "
+          f"{gwm['stream_s']:.3f} s + stage {gwm['stage_s']:.3f} s + scan "
+          f"{gwm['scan_s']:.3f} s + sha256 and emit {gwm['hash_s']:.3f} s + "
+          f"the rest, over {gwm['feeds']} stream chunks; "
+          f"{gwm['launches']['gear_candidates']} K3 launches, their device "
+          f"time estimated as that many x K3's {k3s['ms']:.5f} ms at "
+          f"{STREAM_CHUNK} + 31 B = "
+          f"{gwm['launches']['gear_candidates'] * k3s['ms']:.3f} ms; then a "
+          f"hit in {gwm['hit_s']:.4f} s with no K3 launch, on {smi}")
     mesh = phase_mesh(content, layout, taken, device)
     del taken, content
     torch.cuda.empty_cache()
@@ -1762,6 +2422,31 @@ def main(argv=None) -> int:
     print("feed window under the profiler:",
           json.dumps(profile_feed(args.seed, LLAMA_8B["vocab"], device)))
     torch.cuda.empty_cache()
+    wds = phase_wds(args.seed, LLAMA_8B["vocab"], device)
+    torch.cuda.empty_cache()
+    k2_wds_ms = wds["batches"] * k2_feed["ms"]
+    print("wds:", json.dumps(wds))
+    print(f"wds: {wds['shards']} shards, {wds['shard_bytes']} B in the "
+          f"stand-in gateway; prepare_s {wds['prepare_s']:.3f} s (index "
+          f"{wds['index_s']:.3f} s on the loop, streams and the rest "
+          f"{wds['stream_and_rest_s']:.3f} s), then all hits in "
+          f"{wds['prepare_hit_s']:.3f} s; epoch 0: {wds['samples']} samples "
+          f"in plan order, {wds['batches']} batches on the card equal to the "
+          f"host records, in {wds['epoch_s']:.3f} s: "
+          f"{wds['samples_per_s']:.0f} samples/s, "
+          f"{wds['batches_per_s']:.1f} batches/s, {wds['gb_per_s']:.3f} GB/s; "
+          f"{wds['requests']} requests of {wds['mean_request_bytes']:.0f} B "
+          f"mean; loader wait {wds['loader_wait_s']:.3f} s, feed "
+          f"{wds['feed_s']:.3f} s; CPU seconds in the epoch: this process "
+          f"{wds['cpu_s']:.3f}, the gateway's {wds['gateway_cpu_s']:.3f}; "
+          f"the loader alone "
+          f"{wds['loader_alone']['samples_per_s']:.0f} samples/s; K2 "
+          f"{wds['launches']['land_and_checksum']} launches, their device "
+          f"time estimated as that many x K2's {k2_feed['ms']:.5f} ms at the "
+          f"feed's shape = {k2_wds_ms:.3f} ms, "
+          f"{k2_wds_ms / 1e3 / wds['epoch_s']:.2%} of the epoch's wall time; "
+          f"peak device memory {wds['peak_device_bytes'] / 1e9:.3f} GB on "
+          f"{smi}")
 
     ent = phase_entry(device)
     torch.cuda.empty_cache()
@@ -1800,9 +2485,11 @@ def main(argv=None) -> int:
              "mesh": mesh["launches"], "feed": feed["launches"],
              "entry": ent["launches"], "train": train["launches"],
              "bench": ben["launches"], "chunker": chunker["launches"],
-             "manifest": man["launches"], "cdc_swap": cdc["launches"]}
+             "manifest": man["launches"], "cdc_swap": cdc["launches"],
+             "wds": wds["launches"], "gateway_manifest": gwm["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
-                   chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)))
+                   chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
+                   wds["batches"], gwm["planned_k3"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",
@@ -1849,7 +2536,8 @@ def main(argv=None) -> int:
         **{key: k3[key] for key in (
             "max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
             "bound_by", "library_ms", "shape")},
-        "at_64_mib": k3["at_64_mib"], "match": True})
+        "at_64_mib": k3["at_64_mib"],
+        "at_stream_chunk": k3["at_stream_chunk"], "match": True})
     print(f"total {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": kernels}))

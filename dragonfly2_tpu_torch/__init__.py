@@ -5,8 +5,9 @@ through two Pallas kernels. This package does the same on an NVIDIA
 Hopper card with two hand-written CUDA C++ kernels, and imports nothing
 from the JAX package (nor JAX itself):
 
-- ``pkg/``     own copies of the logger, a stdlib counter registry, the
-               piece-size math and ``Range``, task ids and coded errors.
+- ``pkg/``     own copies of the logger, a stdlib registry of counters
+               and gauges, the piece-size math and ``Range``, task ids,
+               coded errors and the span-buffer pool.
 - ``proto/``   ``UrlMeta``, the request metadata the daemon reads.
 - ``csrc/``    the CUDA C++ kernels (``sm_90a``), built by nvcc at first use.
 - ``ops/``     checksum wrappers, the device sink (``HBMSink``), the
@@ -19,8 +20,11 @@ from the JAX package (nor JAX itself):
 - ``delta/``   chunk manifests and the delta plan of a hot-swap.
 - ``client/``  the user's entry points: ``download_to_device``,
                ``download_sharded``, ``download_global``,
-               ``download_delta``.
-- ``dataset/`` ``DeviceFeed``: loader samples into record batches on the card.
+               ``download_delta``; and ``Dfstore``, the object gateway's
+               HTTP client (standard library only).
+- ``dataset/`` webdataset tar shards into record batches on the card: the
+               tar index, sample-ranged reads, the pod-sharded loader and
+               ``DeviceFeed``.
 - ``parallel/`` placement on a device mesh over ``torch.distributed``
                (one rank per card; NCCL, or gloo on a ``cpu`` mesh):
                process groups, ``DeviceMesh``es, ``DTensor`` placements,

@@ -12,6 +12,7 @@ from dragonfly2_tpu_torch.delta.manifest import (
     DeltaManifest,
     ManifestError,
     build_manifest,
+    fetch_or_build_manifest,
     manifest_from_store,
     manifest_object_key,
 )
@@ -26,7 +27,7 @@ from dragonfly2_tpu_torch.delta.resolver import (
 __all__ = [
     "CDCParams", "Chunk", "GearChunker", "chunk_bytes",
     "DeltaManifest", "ManifestError", "build_manifest",
-    "manifest_from_store", "manifest_object_key",
+    "fetch_or_build_manifest", "manifest_from_store", "manifest_object_key",
     "DeltaPlan", "fetch_manifest", "manifest_url", "plan_delta",
     "publish_manifest_for",
 ]

@@ -1,6 +1,7 @@
 """Chunk manifests: the port's own copy of
 ``dragonfly2_tpu/delta/manifest.py``'s ``DeltaManifest``,
-``build_manifest``, ``manifest_from_store`` and ``manifest_object_key``.
+``build_manifest``, ``manifest_from_store``, ``manifest_object_key`` and
+``fetch_or_build_manifest``.
 
 A manifest lists one content version's chunks ``{offset, length,
 sha256}`` and the chunking geometry that cut them (``CDCParams`` and
@@ -8,7 +9,9 @@ sha256}`` and the chunking geometry that cut them (``CDCParams`` and
 port builds manifests with its own chunker, whose scan runs on the card,
 and reads the manifests other hosts publish (``from_json_bytes``); a
 device hot-swap plans from two of them. Its manifests are the JAX
-package's, byte for byte.
+package's, byte for byte. Over the object gateway a manifest is cached
+beside its object as ``.dfdelta/<key>.json`` (``fetch_or_build_manifest``,
+the pattern of the dataset plane's ``fetch_or_build_index``).
 """
 
 from __future__ import annotations
@@ -17,8 +20,11 @@ import json
 import time
 from dataclasses import dataclass, field
 
+from dragonfly2_tpu_torch.client.dfstore import DfstoreError
 from dragonfly2_tpu_torch.delta.chunker import CDCParams, Chunk, GearChunker
-from dragonfly2_tpu_torch.pkg import metrics
+from dragonfly2_tpu_torch.pkg import dflog, metrics
+
+log = dflog.get("delta.manifest")
 
 MANIFEST_VERSION = 1
 # Hidden bucket prefix of gateway-cached manifests, beside the object.
@@ -152,3 +158,76 @@ def manifest_from_store(store, name: str = "",
 def manifest_object_key(key: str) -> str:
     """The gateway object key of the manifest cached beside ``key``."""
     return f"{MANIFEST_PREFIX}{key}.json"
+
+
+async def fetch_or_build_manifest(store, bucket: str, key: str, *,
+                                  params: CDCParams | None = None,
+                                  publish: bool = True, device=None,
+                                  stats: dict | None = None) -> DeltaManifest:
+    """The pod-wide manifest contract over the object gateway (``store``
+    a ``Dfstore``): try the cached manifest object first (chunked once,
+    fetched everywhere); on a miss, stream the object ONE pass through the
+    chunker, its scan on ``device``, and publish the result back (best
+    effort; hosts racing to build it converge on identical bytes). A cached
+    manifest whose recorded size disagrees with the object's current
+    length, or whose params differ from ``params``, is stale and rebuilt.
+
+    ``stats``, when given, gets the outcome (``result``: hit, or built
+    after a miss, a stale or a corrupt manifest) and, for a build, the
+    host seconds spent awaiting the stream (``stream_s``), the number of
+    ``feeds`` and the chunker's ``timings``."""
+    meta = await store.stat_object(bucket, key)    # missing object raises
+    result = "built"
+    try:
+        raw = await store.get_object(bucket, manifest_object_key(key))
+        m = DeltaManifest.from_json_bytes(raw)
+        if m.content_length == meta.content_length and (
+                params is None or m.params == params):
+            MANIFEST_FETCHES.labels("hit").inc()
+            if stats is not None:
+                stats.update(result="hit")
+            return m
+        log.info("cached delta manifest stale; rebuilding", key=key,
+                 cached=m.content_length, actual=meta.content_length)
+        MANIFEST_FETCHES.labels("stale").inc()
+        result = "stale"
+    except DfstoreError:
+        pass
+    except ManifestError as e:
+        log.warning("cached delta manifest corrupt; rebuilding",
+                    key=key, error=str(e)[:200])
+        MANIFEST_FETCHES.labels("corrupt").inc()
+        result = "corrupt"
+    ch = GearChunker(params, device=device)
+    stream_s = 0.0
+    feeds = 0
+    chunks = await store.stream_object(bucket, key)
+    try:
+        while True:
+            t0 = time.perf_counter()
+            try:
+                chunk = await anext(chunks)
+            except StopAsyncIteration:
+                break
+            finally:
+                stream_s += time.perf_counter() - t0
+            ch.feed(chunk)
+            feeds += 1
+    finally:
+        await chunks.aclose()
+    ch.finish()
+    m = DeltaManifest(name=key, content_length=ch.consumed,
+                      chunks=ch.chunks, params=ch.params)
+    m.validate()
+    MANIFEST_FETCHES.labels("built").inc()
+    if stats is not None:
+        stats.update(result=result, stream_s=stream_s, feeds=feeds,
+                     **ch.timings)
+    if publish:
+        try:
+            await store.put_object(bucket, manifest_object_key(key),
+                                   m.to_json_bytes())
+        except DfstoreError as e:
+            log.warning("delta manifest publish failed (non-fatal)",
+                        key=key, error=str(e)[:200])
+    return m

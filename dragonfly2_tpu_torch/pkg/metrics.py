@@ -1,11 +1,15 @@
-"""Get-or-create counters with the JAX package's family names, stdlib only.
+"""Get-or-create counters and gauges with the JAX package's family names,
+stdlib only.
 
 The JAX package wraps ``prometheus_client`` (``dragonfly2_tpu/pkg/metrics.py``).
 The port runs where that package is not installed, so it keeps a small
-thread-safe registry of labeled counters with the same family names
-(``device_sink_landed_bytes_total``, ``device_sink_verify_total{result}``).
-Declaring a family twice returns the first declaration, as in the JAX
-package; declaring it with other labels is a programming error.
+thread-safe registry of labeled counters and gauges with the same family
+names (``device_sink_landed_bytes_total``, ``dataset_readahead_depth``,
+``bufpool_retained_bytes{pool}``). Declaring a family twice returns the
+first declaration, as in the JAX package; declaring it again as another
+kind or with other labels is a programming error. The registry is the
+port's own: it never touches ``prometheus_client``'s, so a process that
+imports both packages holds two families of one name, one in each.
 """
 
 from __future__ import annotations
@@ -13,11 +17,11 @@ from __future__ import annotations
 import threading
 
 _lock = threading.Lock()
-_metrics: dict[str, "Counter"] = {}
+_metrics: dict[str, "Counter | Gauge"] = {}
 
 
-class Counter:
-    """A monotonically increasing counter, optionally labeled."""
+class _Metric:
+    """A family of float values keyed by label values."""
 
     def __init__(self, name: str, doc: str, labelnames: tuple[str, ...] = ()):
         self.name = name
@@ -32,14 +36,12 @@ class Counter:
                 f"{self.name}: expected labels {self.labelnames}, got {values}")
         return _Child(self, tuple(str(v) for v in values))
 
-    def inc(self, amount: float = 1.0) -> None:
+    def _unlabeled(self) -> tuple[str, ...]:
         if self.labelnames:
             raise ValueError(f"{self.name} is labeled; call labels() first")
-        self._add((), amount)
+        return ()
 
     def _add(self, key: tuple[str, ...], amount: float) -> None:
-        if amount < 0:
-            raise ValueError("counters only increase")
         with self._lock:
             self._values[key] = self._values.get(key, 0.0) + amount
 
@@ -48,27 +50,78 @@ class Counter:
             return self._values.get(tuple(str(v) for v in labelvalues), 0.0)
 
 
-class _Child:
-    __slots__ = ("_counter", "_key")
+class Counter(_Metric):
+    """A monotonically increasing counter, optionally labeled."""
 
-    def __init__(self, counter: Counter, key: tuple[str, ...]):
-        self._counter = counter
+    def inc(self, amount: float = 1.0) -> None:
+        self._add(self._unlabeled(), amount)
+
+    def _add(self, key: tuple[str, ...], amount: float) -> None:
+        if amount < 0:
+            raise ValueError("counters only increase")
+        super()._add(key, amount)
+
+
+class Gauge(_Metric):
+    """A value that goes up and down, optionally labeled."""
+
+    def set(self, value: float) -> None:
+        self._set(self._unlabeled(), value)
+
+    def inc(self, amount: float = 1.0) -> None:
+        self._add(self._unlabeled(), amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        self._add(self._unlabeled(), -amount)
+
+    def _set(self, key: tuple[str, ...], value: float) -> None:
+        with self._lock:
+            self._values[key] = float(value)
+
+
+class _Child:
+    __slots__ = ("_metric", "_key")
+
+    def __init__(self, metric: _Metric, key: tuple[str, ...]):
+        self._metric = metric
         self._key = key
 
     def inc(self, amount: float = 1.0) -> None:
-        self._counter._add(self._key, amount)
+        self._metric._add(self._key, amount)
+
+    def dec(self, amount: float = 1.0) -> None:
+        if not isinstance(self._metric, Gauge):
+            raise ValueError(f"{self._metric.name}: counters only increase")
+        self._metric._add(self._key, -amount)
+
+    def set(self, value: float) -> None:
+        if not isinstance(self._metric, Gauge):
+            raise ValueError(f"{self._metric.name}: a counter cannot be set")
+        self._metric._set(self._key, value)
 
 
-def counter(name: str, doc: str, labels: tuple[str, ...] = ()) -> Counter:
+def _get_or_create(kind: type, name: str, doc: str,
+                   labels: tuple[str, ...]):
     with _lock:
         existing = _metrics.get(name)
         if existing is not None:
+            if type(existing) is not kind:
+                raise ValueError(
+                    f"metric {name!r} already registered as a "
+                    f"{type(existing).__name__}")
             if existing.labelnames != tuple(labels):
                 raise ValueError(
                     f"metric {name!r} already registered with labels "
                     f"{existing.labelnames}")
             return existing
-        c = Counter(name, doc, labels)
-        _metrics[name] = c
-        return c
+        m = kind(name, doc, labels)
+        _metrics[name] = m
+        return m
 
+
+def counter(name: str, doc: str, labels: tuple[str, ...] = ()) -> Counter:
+    return _get_or_create(Counter, name, doc, labels)
+
+
+def gauge(name: str, doc: str, labels: tuple[str, ...] = ()) -> Gauge:
+    return _get_or_create(Gauge, name, doc, labels)

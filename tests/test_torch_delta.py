@@ -7,8 +7,11 @@ device half ``swap_generation`` (gate mismatch, out-of-memory degrade,
 kernel faults), the base manifest built from the landed base when none
 was published (``local_base_manifest``), and ``download_delta`` end to
 end on reference daemons, held against the JAX package's
-``download_delta``, with both manifests published and with none. Tolerance
-0 everywhere: bytes, plans and byte counts are compared for equality.
+``download_delta``, with both manifests published and with none, and
+``fetch_or_build_manifest`` over a reference object gateway (built after a
+miss, a stale, a corrupt or another params' manifest; then a hit).
+Tolerance 0 everywhere: bytes, plans, byte counts and resolution counts
+are compared for equality.
 """
 
 from __future__ import annotations
@@ -18,20 +21,25 @@ import os
 import random
 import sys
 import threading
+from urllib.parse import unquote, urlsplit
 
 import numpy as np
 import pytest
 import torch
 
 from dragonfly2_tpu.client import device as jdev
+from dragonfly2_tpu.client.dfstore import Dfstore as JStore
+from dragonfly2_tpu.delta import manifest as jman
 from dragonfly2_tpu.delta.chunker import CDCParams as JParams
 from dragonfly2_tpu.delta.manifest import build_manifest
 from dragonfly2_tpu.delta.manifest import manifest_from_store as jfrom_store
 from dragonfly2_tpu.delta.resolver import plan_delta as jplan
 from dragonfly2_tpu.ops import checksum as jck
 from dragonfly2_tpu.ops import hbm_sink as jhbm
+from dragonfly2_tpu.pkg.testing import start_gateway_fixture
 from dragonfly2_tpu.storage.local_store import LocalTaskStore, TaskStoreMetadata
 from dragonfly2_tpu_torch.client import device as pdev
+from dragonfly2_tpu_torch.client.dfstore import Dfstore as PStore
 from dragonfly2_tpu_torch.delta import manifest as pman
 from dragonfly2_tpu_torch.delta.resolver import plan_delta as pplan
 from dragonfly2_tpu_torch.ops import _build
@@ -669,3 +677,92 @@ def test_download_delta_without_published_manifests_matches_the_reference(
             await jorigin.cleanup()
 
     run_async(body(), timeout=240)
+
+
+# ------------------------------------------------------------------ #
+# The gateway-cached manifest (fetch_or_build_manifest)
+# ------------------------------------------------------------------ #
+
+def _fetches(counter, read) -> dict:
+    return {r: read(counter.labels(r))
+            for r in ("built", "hit", "stale", "corrupt")}
+
+
+@pytest.mark.parametrize("cached", ["none", "published", "stale", "corrupt",
+                                    "other params"])
+def test_fetch_or_build_manifest_matches_the_reference(run_async, tmp_path,
+                                                       cached):
+    """Each package's function over its own bucket of one reference
+    gateway, the same object and the same cached manifest beside it: the
+    same manifest bytes, the same published object and the same
+    resolution counts, then a hit each."""
+    content = _versions(8)[0] * 3
+    key = "ckpt/model.safetensors"
+    pp = pman.CDCParams(P.mask_bits, P.min_size, P.max_size)
+    seed = {"none": None,
+            "published": build_manifest(content, key, P).to_json_bytes(),
+            "stale": build_manifest(content[:-4096], key, P).to_json_bytes(),
+            "corrupt": b"{not a manifest",
+            "other params": build_manifest(
+                content, key, JParams(P.mask_bits - 1, P.min_size,
+                                      P.max_size)).to_json_bytes()}[cached]
+
+    async def run():
+        fx = await start_gateway_fixture(tmp_path)
+        js, ps = JStore(fx.endpoint), PStore(fx.endpoint)
+        try:
+            for b in ("j", "p"):
+                await js.create_bucket(b)
+                await js.put_object(b, key, content, mode="write_back")
+                if seed is not None:
+                    await js.put_object(b, pman.manifest_object_key(key), seed,
+                                        mode="write_back")
+            j0 = _fetches(jman.MANIFEST_FETCHES, lambda c: c._value.get())
+            p0 = _fetches(pman.MANIFEST_FETCHES,
+                          lambda c: c._metric.value(*c._key))
+            stats: dict = {}
+            jm = await jman.fetch_or_build_manifest(js, "j", key, params=P)
+            pm = await pman.fetch_or_build_manifest(ps, "p", key, params=pp,
+                                                    device="cpu", stats=stats)
+            assert pm.to_json_bytes() == jm.to_json_bytes()
+            jd = {r: v - j0[r] for r, v in _fetches(
+                jman.MANIFEST_FETCHES, lambda c: c._value.get()).items()}
+            pd = {r: v - p0[r] for r, v in _fetches(
+                pman.MANIFEST_FETCHES,
+                lambda c: c._metric.value(*c._key)).items()}
+            assert pd == jd
+            want = {"none": "built", "published": "hit",
+                    "other params": "stale"}.get(cached, cached)
+            assert stats["result"] == want
+            assert pd[want] == 1 and pd["built"] == (want != "hit")
+            if want != "hit":
+                assert stats["feeds"] == -(-len(content) // (1 << 20))
+            # What each published, read from the gateway's backend (a GET
+            # through the gateway may still be served the overwritten
+            # object from the daemon's task store).
+            published = []
+            for b in ("j", "p"):
+                path = urlsplit(fx.object_url(b, pman.manifest_object_key(key)))
+                with open(unquote(path.path), "rb") as f:
+                    published.append(f.read())
+            assert published[1] == published[0] == jm.to_json_bytes()
+            if cached in ("none", "published"):
+                stats.clear()
+                again = await pman.fetch_or_build_manifest(
+                    ps, "p", key, params=pp, device="cpu", stats=stats)
+                assert again.to_json_bytes() == jm.to_json_bytes()
+                assert stats == {"result": "hit"}
+            with pytest.raises(Exception) as je:
+                await jman.fetch_or_build_manifest(js, "j", "absent")
+            with pytest.raises(Exception) as pe:
+                await pman.fetch_or_build_manifest(ps, "j", "absent",
+                                                   device="cpu")
+            assert (type(pe.value).__name__, pe.value.status,
+                    str(pe.value)) == (type(je.value).__name__,
+                                       je.value.status, str(je.value))
+        finally:
+            await ps.close()
+            await js.close()
+            await fx.aclose()
+
+    run_async(run(), timeout=120)

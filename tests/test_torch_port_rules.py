@@ -4,12 +4,16 @@
   (checked in a subprocess, since ``tests/conftest.py`` imports jax into
   every test process, and by an AST scan of the sources); nor does a
   rank process of ``dryrun_multichip``. The example twins import no JAX.
+  The dataset plane and the object-gateway client import without
+  ``aiohttp`` (the card machine has none).
+- Every thread the port or ``chip_smoke.py`` starts carries a ``df-``
+  name (the profiler attributes by thread name).
 - Its entry points run on the card unless told ``device="cpu"``: without
   CUDA they raise instead of quietly using the CPU.
 - The kernels build with nvcc or raise with nvcc's output; nothing falls
   back to the plain versions.
-- Its copies of the piece math and the counter registry agree with the
-  JAX package's. Tolerance 0: these are integers.
+- Its copies of the piece math and the metric registry (counters and
+  gauges) agree with the JAX package's. Tolerance 0: these are integers.
 """
 
 from __future__ import annotations
@@ -83,6 +87,60 @@ def test_importing_the_port_loads_no_jax():
             "dragonfly2_tpu_torch.entry",
             "dragonfly2_tpu_torch.bench"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_dataset_plane_imports_without_aiohttp():
+    code = ("import json, sys\n"
+            "sys.modules['aiohttp'] = None\n"
+            "import dragonfly2_tpu_torch.dataset\n"
+            "import dragonfly2_tpu_torch.client.dfstore\n"
+            "import dragonfly2_tpu_torch.delta.manifest\n"
+            "from dragonfly2_tpu_torch.dataset import PodShardedLoader\n"
+            "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+            "                        if v is not None)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.dataset.loader",
+            "dragonfly2_tpu_torch.dataset.shard_reader",
+            "dragonfly2_tpu_torch.dataset.tar_index",
+            "dragonfly2_tpu_torch.client.dfstore"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.startswith("aiohttp")] \
+        == []
+
+
+def _thread_names(path: str) -> list[tuple[int, str | None]]:
+    """(line, leading literal of the name) of each Thread(...) and
+    ThreadPoolExecutor(...) call in ``path``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    out = []
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call):
+            continue
+        func = node.func
+        callee = func.attr if isinstance(func, ast.Attribute) \
+            else getattr(func, "id", "")
+        key = {"Thread": "name",
+               "ThreadPoolExecutor": "thread_name_prefix"}.get(callee)
+        if key is None:
+            continue
+        value = {k.arg: k.value for k in node.keywords}.get(key)
+        if isinstance(value, ast.JoinedStr) and value.values:
+            value = value.values[0]
+        out.append((node.lineno, value.value if isinstance(
+            value, ast.Constant) and isinstance(value.value, str) else None))
+    return out
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_threads_carry_a_df_name(path):
+    bad = [(line, name) for line, name in _thread_names(path)
+           if name is None or not name.startswith("df-")]
+    assert bad == []
 
 
 def test_a_dryrun_rank_loads_no_jax(tmp_path):
@@ -263,6 +321,33 @@ def test_metrics_registry_get_or_create_and_labels():
         c.labels("a", "b")
     c.labels("a").inc(2)
     assert c.value("a") == 2 and c.value("b") == 0
+
+
+def test_gauges_set_inc_dec_and_labels():
+    g = metrics.gauge("port_test_depth", "test")
+    assert metrics.gauge("port_test_depth", "test") is g
+    g.set(5)
+    g.inc(2)
+    g.dec()
+    assert g.value() == 6
+    lg = metrics.gauge("port_test_bytes", "test", ("pool",))
+    lg.labels("a").set(10)
+    lg.labels("a").dec(4)
+    lg.labels("b").inc()
+    assert (lg.value("a"), lg.value("b"), lg.value("c")) == (6, 1, 0)
+    with pytest.raises(ValueError):
+        lg.set(1)                     # labeled: needs labels()
+    with pytest.raises(ValueError):
+        metrics.counter("port_test_depth", "test")   # a gauge already
+    with pytest.raises(ValueError):
+        metrics.gauge("port_test_events_total", "test", ("kind",))
+    c = metrics.counter("port_test_events_total", "test", ("kind",))
+    with pytest.raises(ValueError):
+        c.labels("a").set(3)          # counters are never set
+    with pytest.raises(ValueError):
+        c.labels("a").dec()
+    with pytest.raises(ValueError):
+        c.labels("a").inc(-1)
 
 
 def test_device_sink_metric_families_keep_the_jax_names():
