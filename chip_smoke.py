@@ -5,8 +5,8 @@
 
 1. prints the card's name and power limit (nvidia-smi);
 2. builds the CUDA kernels from ``dragonfly2_tpu_torch/csrc`` with nvcc
-   (one nvcc a source, started together) and prints each kernel's
-   registers, shared memory and spills;
+   (one nvcc a source, started together, K3's read floor too) and prints
+   each kernel's registers, shared memory and spills;
 3. holds each kernel against its plain PyTorch version on the card, bit
    for bit, at the main path's shapes, at the feed's shape (K2: 64 token
    records into 64 slots) and at odd shapes (K2 also: one piece, a piece
@@ -21,8 +21,13 @@
    plans; holds K3 (the gear scan of content-defined chunking) against
    its plain version at 64 MiB (ctx 0 and 31), at the manifest's 8 MiB
    spans, with dense candidates, at 1-33 bytes and 4 MiB + 3, at starts
-   off a 16-byte boundary, through its second launch, and over 2^31 +
-   4099 bytes, and times it beside its bound and its plain version; with
+   off a 16-byte boundary, at the edges of its tiles and runs (both of
+   its run lengths, starts 0, 1, 8 and 15 bytes past a 16-byte boundary,
+   dense candidates across tile edges), at regions ending on the last
+   byte of their allocation, through its second launch, and over 2^31 +
+   4099 bytes, and times it beside its bound, its plain version, a
+   ``copy_`` of the same bytes and a coalesced read of them (the read
+   floor, ``csrc/read_floor.cu``); with
    ``--parent DIR`` also times the kernels of the checkout in DIR against
    this tree's, in turns;
 4. lands one checkpoint shard the size of Llama-3.1-8B's
@@ -875,9 +880,16 @@ def phase_gear(gen, device, bw: float) -> dict:
     regions of 1, 31, 32, 33 and 4 MiB + 3 bytes, starts 1-15 bytes past
     a 16-byte boundary, 4 MiB of a 32-byte window repeated (a candidate
     every 32 bytes: more than the first launch has room for, so a second
-    launch), and one region of 2^31 + 4099 bytes. Then K3 timed by
-    ``device_time`` at the main path's shape and at 64 MiB (launches with
-    no read-back between them), beside the plain version and the bound."""
+    launch), and one region of 2^31 + 4099 bytes. At the kernel's edges
+    (its tile T and run R, ``gear.geometry()``): T - 1, T, T + 1, T + 31,
+    3T + 17, R - 1, R and R + 1 bytes, each at starts 0, 1, 8 and 15 bytes
+    past a 16-byte boundary; regions ending on the last byte of their own
+    allocation with n % 16 != 0; dense candidates across tile edges. Then
+    K3 timed by ``device_time`` at the main path's shape, at 64 MiB and at
+    a gateway stream chunk (launches with no read-back between them),
+    beside the plain version, the bound, a ``copy_`` of the same bytes and
+    the read floor (``csrc/read_floor.cu``: a coalesced read of the same
+    words, what reading alone costs)."""
     big = torch.randint(0, 256, (64 << 20,), dtype=torch.uint8, device=device,
                         generator=gen)
     cases = []
@@ -911,6 +923,46 @@ def phase_gear(gen, device, bw: float) -> dict:
     for off in (1, 3, 8, 15):
         case(f"start {off} bytes past 16", big[off:off + (1 << 20) + 5], 31,
              10)
+    # The kernel's edges, for each of its two runs (``gear.geometry``: the
+    # short one for small regions, the long one at the main path's 8 MiB):
+    # a tile's and a run's ends, the halo, a tile holding a few bytes, at
+    # starts off a 16-byte boundary; mask_bits 6 (a candidate every 64
+    # positions or so).
+    short, long_ = gear.geometry(1), gear.geometry(GEAR_MAIN)
+    geometries = {"short": (short, 0),
+                  "long": (long_, (SPAN // long_[0] - 1) * long_[0])}
+    for name, ((tile, run), base) in geometries.items():
+        for x in (tile - 1, tile, tile + 1, tile + 31, 3 * tile + 17, run - 1,
+                  run, run + 1):
+            n = base + x
+            if gear.geometry(n) != (tile, run):
+                raise AssertionError(f"gear_candidates: {n} bytes do not "
+                                     f"take the {name} run")
+            for off in (0, 1, 8, 15):
+                for ctx in (0, 31):
+                    case(f"{n} bytes at +{off}, ctx {ctx} ({name} run: T="
+                         f"{tile}, R={run})", big[off:off + n], ctx, 6)
+        case(f"dense across tile edges, mask_bits 1 ({name} run)",
+             big[7:7 + base + 3 * tile + 17], 0, 1)
+        case(f"dense across tile edges, mask_bits 4 ({name} run)",
+             big[7:7 + base + 3 * tile + 17], 0, 4)
+    tile = short[0]
+    # Regions that end on the last byte of their own allocation: a copy of
+    # 12 MiB (over PyTorch's 10 MiB, a segment of its own once the cache is
+    # empty; copied, so that the generator, and the shard drawn from it
+    # later, stay as they were), its last T + 5 bytes and all of it but its
+    # first 5.
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    own = big[:12 << 20].clone()
+    for what, region in ((f"last {tile + 5} bytes", own[-(tile + 5):]),
+                         ("12 MiB less its first 5 bytes", own[5:])):
+        if not region.numel() % 16 or (region.data_ptr() + region.numel()
+                                       != own.data_ptr() + own.numel()):
+            raise AssertionError(f"gear_candidates {what}: not at the "
+                                 "allocation's end with n % 16 != 0")
+        case(f"{what} of an allocation", region, 0, 6)
+    del own
     # The window ending at a candidate, repeated: every 32nd position is a
     # candidate, 32768 a MiB against the first launch's room of
     # 4 x 2^-20 a byte plus _SPARE_SLOTS.
@@ -940,9 +992,15 @@ def phase_gear(gen, device, bw: float) -> dict:
         plain, _ = device_time(
             lambda j: gear.gear_candidates_torch(region, ctx, GEAR_BITS), 2,
             windows=1)
+        dst = torch.empty_like(region)
+        copy_ms, _ = device_time(lambda j: dst.copy_(region), n)
+        folds = torch.empty(bench.READ_FLOOR_BLOCKS, dtype=torch.int32,
+                            device=device)
+        read_ms, _ = device_time(lambda j: bench.read_floor(region, folds), n)
         cands = gear.gear_candidates(region, ctx, GEAR_BITS).numel()
         bound, by = gear_bound_ms(region.numel(), cands, bw)
         return {"ms": ms, "call_us": call_us, "plain_ms": plain,
+                "copy_ms": copy_ms, "read_ms": read_ms,
                 "bound_ms": bound, "bound_by": by, "candidates": cands,
                 "shape": f"n={region.numel()} ctx={ctx} "
                          f"mask_bits={GEAR_BITS}"}
@@ -952,7 +1010,9 @@ def phase_gear(gen, device, bw: float) -> dict:
     at_stream = timed(big[:STREAM_CHUNK + gear.WINDOW - 1], 31, 40)
     del big
     return {**main, "max_abs_err": max_abs_err([(main_got, main_want)]),
-            "library_ms": None, "at_64_mib": at_64,
+            "library_ms": None, "geometries": {k: v[0] for k, v in
+                                               geometries.items()},
+            "at_64_mib": at_64,
             "at_stream_chunk": at_stream, "cases": cases, "huge_s": huge_s}
 
 
@@ -2223,14 +2283,19 @@ def sweep_plans(n_pieces: int, pw: int, gen, device) -> dict:
 
 def ptxas_lines(log: str) -> list[str]:
     """Each kernel's registers, shared memory and spills from nvcc's
-    ``-Xptxas -v`` output."""
+    ``-Xptxas -v`` output; K3's two instances by their run (16-byte words
+    a lane)."""
     out, kernel = [], ""
     for line in log.splitlines():
         if "Function properties for" in line:
             kernel = next((k for k in ("chunk_checksums_kernel",
                                        "land_checksum_kernel",
-                                       "gear_scan_kernel") if k in line),
+                                       "gear_scan_kernel",
+                                       "read_floor_kernel") if k in line),
                           line.split()[-1])
+            run = line.partition("gear_scan_kernelILi")[2].partition("E")[0]
+            if run:
+                kernel += f"<{run}>"
         elif kernel and ("spill" in line or "Used" in line):
             out.append(f"{kernel}: {line.split(' : ')[-1].strip()}")
     return out
@@ -2259,8 +2324,10 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     with ThreadPoolExecutor(max_workers=len(_build.SOURCES),
                             thread_name_prefix="df-nvcc") as ex:
-        # One nvcc for each source, started together.
-        for f in [ex.submit(_build.library), ex.submit(_build.gear_library)]:
+        # One nvcc for each source, started together; the third builds
+        # K3's yardstick, the read floor.
+        for f in [ex.submit(_build.library), ex.submit(_build.gear_library),
+                  ex.submit(_build.read_floor_library)]:
             f.result()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s ("
           + ", ".join(_build.library_path(src) for src in _build.SOURCES)
@@ -2296,12 +2363,17 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("kernel gear_candidates:", json.dumps(k3))
     print(f"gear: K3 equal to its plain version bit for bit in "
-          f"{len(k3['cases'])} cases, the largest {GEAR_HUGE} bytes (over "
-          f"2^31); at the main path's shape ({k3['shape']}) "
-          f"{k3['ms']:.5f} ms against a {k3['bound_ms']:.5f} ms bound "
-          f"({k3['bound_by']}), plain {k3['plain_ms']:.4f} ms; at 64 MiB "
-          f"{k3['at_64_mib']['ms']:.5f} ms against "
-          f"{k3['at_64_mib']['bound_ms']:.5f} ms on {smi}")
+          f"{len(k3['cases'])} cases (its (tile, run) in bytes: "
+          f"{k3['geometries']}), the largest {GEAR_HUGE} bytes (over 2^31); "
+          + "; ".join(
+              f"{label} ({r['shape']}) {r['ms']:.5f} ms against a "
+              f"{r['bound_ms']:.5f} ms bound ({r['bound_by']}), copy_ "
+              f"{r['copy_ms']:.5f} ms, read floor {r['read_ms']:.5f} ms, "
+              f"plain {r['plain_ms']:.4f} ms"
+              for label, r in (("at the main path's shape", k3),
+                               ("at 64 MiB", k3["at_64_mib"]),
+                               ("at a stream chunk", k3["at_stream_chunk"])))
+          + f" on {smi}")
     if args.parent:
         print("against the parent:", json.dumps(compare_parent(
             args.parent, n_pieces, pw, gen, device)))
@@ -2535,7 +2607,8 @@ def main(argv=None) -> int:
         "launches": sum(by_path.values()), "launches_by_path": by_path,
         **{key: k3[key] for key in (
             "max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
-            "bound_by", "library_ms", "shape")},
+            "bound_by", "library_ms", "copy_ms", "read_ms", "shape",
+            "geometries")},
         "at_64_mib": k3["at_64_mib"],
         "at_stream_chunk": k3["at_stream_chunk"], "match": True})
     print(f"total {time.perf_counter() - t_start:.1f} s")

@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from dragonfly2_tpu_torch.entry import entry, land_batches
+from dragonfly2_tpu_torch.ops import _build
 from dragonfly2_tpu_torch.ops.checksum import (
     checksum_numpy,
     chunk_checksums,
@@ -69,6 +70,8 @@ GATE_ITERS = 5        # host-clock calls of the swap gate
 # Clock of the card's spin (torch.cuda._sleep counts SM cycles; an H100's
 # SM clock is at most 1.98 GHz, so this overstates the spin's length).
 SPIN_HZ = 2.0e9
+# Blocks of the read floor's grid (it strides over the rest): 31 an SM.
+READ_FLOOR_BLOCKS = 4096
 
 
 def card_bandwidth(name: str) -> float:
@@ -115,6 +118,17 @@ def device_time(fn, n: int, windows: int = 3) -> tuple[float, float]:
         ms.append(start.elapsed_time(end) / n)
         us.append(call_s / n * 1e6)
     return statistics.median(ms), statistics.median(us)
+
+
+def read_floor(region: torch.Tensor, folds: torch.Tensor) -> None:
+    """One launch of K3's yardstick ``csrc/read_floor.cu`` over ``region``
+    (CUDA uint8): a coalesced read of its 16-byte words folded by XOR into
+    ``folds`` (int32, one a block, ``READ_FLOOR_BLOCKS`` will do), what
+    reading the bytes alone costs. On no path and counted nowhere."""
+    lib = _build.read_floor_library()
+    _build.check(lib, lib.df_read_floor(
+        region.data_ptr(), region.numel(), folds.data_ptr(), folds.numel(),
+        torch.cuda.current_stream().cuda_stream), "read floor")
 
 
 def host_ms(fn, iters: int) -> float:

@@ -1,5 +1,6 @@
 """Build and bind the port's CUDA kernels: ``csrc/checksum.cu`` (K1, K2)
-and ``csrc/gear.cu`` (K3).
+and ``csrc/gear.cu`` (K3), and K3's yardstick ``csrc/read_floor.cu`` (a
+plain coalesced read of the same bytes, timed beside K3, on no path).
 
 ``nvcc`` compiles each source into a shared library of its own with a
 plain C interface, bound with ``ctypes``: every pointer and the stream as
@@ -7,8 +8,8 @@ plain C interface, bound with ``ctypes``: every pointer and the stream as
 the repository root, named by its source's name and a hash of the source
 and the flags, so an edited source rebuilds and an unchanged one loads at
 once. It is built at first use, never at import; each library has a lock
-of its own, so ``library()`` and ``gear_library()`` called on two threads
-run their two nvcc at once. A missing compiler or a failed compile raises
+of its own, so ``library()``, ``gear_library()`` and
+``read_floor_library()`` called on three threads run their nvcc at once. A missing compiler or a failed compile raises
 ``KernelBuildError`` carrying nvcc's own output, and a launch that returns
 a CUDA error raises ``KernelLaunchError``: there is no fallback. Both are ``KernelError``, which the device sink manager never
 turns into a disk-only landing.
@@ -30,15 +31,17 @@ import time
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = os.path.join(_PKG_DIR, "csrc", "checksum.cu")        # K1, K2
 GEAR_SOURCE = os.path.join(_PKG_DIR, "csrc", "gear.cu")       # K3
-SOURCES = (SOURCE, GEAR_SOURCE)
+READ_FLOOR_SOURCE = os.path.join(_PKG_DIR, "csrc", "read_floor.cu")
+SOURCES = (SOURCE, GEAR_SOURCE, READ_FLOOR_SOURCE)
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_locks = {source: threading.Lock() for source in SOURCES}
+_locks: dict[str, threading.Lock] = {}  # source -> the lock of its build
 _log_lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}      # source -> its loaded library
 build_log = ""          # nvcc's output of the builds this process made
+build_logs: dict[str, str] = {}         # source -> nvcc's output, if built
 build_seconds = 0.0     # this process's builds and loads, summed
 
 
@@ -98,7 +101,9 @@ def _load(source: str, bind) -> ctypes.CDLL:
     """The library of ``source``, built first if missing, loaded once and
     handed to ``bind`` to declare its launchers."""
     global build_log, build_seconds
-    with _locks[source]:
+    with _log_lock:
+        lock = _locks.setdefault(source, threading.Lock())
+    with lock:
         lib = _libs.get(source)
         if lib is not None:
             return lib
@@ -115,6 +120,7 @@ def _load(source: str, bind) -> ctypes.CDLL:
         _libs[source] = lib
         with _log_lock:
             build_log = "\n".join(x for x in (build_log, log) if x)
+            build_logs[source] = log
             build_seconds += time.perf_counter() - t0
         return lib
 
@@ -137,6 +143,15 @@ def _bind_gear(lib: ctypes.CDLL) -> None:
     # data, n, ctx, gear, mask_bits, out, cap, count, stream
     lib.df_gear_candidates.argtypes = [p, i64, i64, p, i32, p, i64, p, p]
     lib.df_gear_candidates.restype = i32
+    lib.df_gear_geometry.argtypes = [i64, p, p]
+    lib.df_gear_geometry.restype = i32
+
+
+def _bind_read_floor(lib: ctypes.CDLL) -> None:
+    p, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # data, n, out, blocks, stream
+    lib.df_read_floor.argtypes = [p, i64, p, i64, p]
+    lib.df_read_floor.restype = i32
 
 
 def library() -> ctypes.CDLL:
@@ -149,6 +164,12 @@ def gear_library() -> ctypes.CDLL:
     return _load(GEAR_SOURCE, _bind_gear)
 
 
+def read_floor_library() -> ctypes.CDLL:
+    """The loaded read floor (K3's yardstick), building it first if
+    needed."""
+    return _load(READ_FLOOR_SOURCE, _bind_read_floor)
+
+
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:
     """Raise if a launcher returned a CUDA error code."""
     if code != 0:
@@ -159,6 +180,7 @@ def check(lib: ctypes.CDLL, code: int, what: str) -> None:
 if __name__ == "__main__":
     library()
     gear_library()
+    read_floor_library()
     for source in SOURCES:
         print(library_path(source))
     print(build_log)

@@ -11,8 +11,10 @@ four bytes of sha256 of each byte value, little-endian). Position i is a
 cut candidate when the top ``mask_bits`` of H[i] are zero. The first
 ``ctx`` bytes of a region are left context: hashed, never reported.
 
-K3, ``gear_candidates``, is hand-written in CUDA C++ (``csrc/gear.cu``).
-It is the port's counterpart of the JAX package's host scan
+K3, ``gear_candidates``, is hand-written in CUDA C++ (``csrc/gear.cu``;
+tiles through shared memory, a run of bytes a lane whose length follows
+the region's size, ``geometry``). It is the port's counterpart of the
+JAX package's host scan
 ``df_chunk_scan`` (``dragonfly2_tpu/native/src/dfchunk.cc:46``), not of a
 Pallas kernel. Its plain version ``gear_candidates_torch`` sits beside
 it: the log-doubling of ``dragonfly2_tpu/delta/chunker.py``'s
@@ -24,6 +26,7 @@ tensor on the host, where the chunker uses them.
 
 from __future__ import annotations
 
+import ctypes
 import hashlib
 import threading
 
@@ -104,6 +107,18 @@ def _table(device: torch.device) -> torch.Tensor:
             words = np.array(GEAR_LIST, dtype=np.uint32).view(np.int32)
             t = _tables[device] = torch.from_numpy(words).to(device)
         return t
+
+
+def geometry(n: int) -> tuple[int, int]:
+    """K3's (tile, run) in bytes for a region of n bytes on the current
+    card: the bytes a warp takes at a time and the bytes a lane hashes of
+    them, where the kernel's edges lie (it takes a shorter run while a
+    region is small)."""
+    tile, run = ctypes.c_int64(), ctypes.c_int64()
+    lib = _build.gear_library()
+    _build.check(lib, lib.df_gear_geometry(n, ctypes.byref(tile),
+                                           ctypes.byref(run)), "gear geometry")
+    return tile.value, run.value
 
 
 def gear_scan(region: torch.Tensor, ctx: int, mask_bits: int,

@@ -14,7 +14,9 @@ Inputs are bytes made from a seed; everything runs on the CPU
 
 from __future__ import annotations
 
+import os
 import random
+import re
 
 import numpy as np
 import pytest
@@ -113,6 +115,68 @@ def test_plain_scan_blocks_do_not_move_candidates(monkeypatch):
         monkeypatch.setattr(gear, "_PLAIN_BLOCK", block)
         assert gear.gear_candidates_torch(_region(part), 7, 6).tolist() == \
             jchk._scan_numpy(part, 7, 6), block
+
+
+def _kernel_geometries() -> list[tuple[int, int]]:
+    """K3's (tile, run) in bytes for its long and its short run, from
+    ``csrc/gear.cu``'s constants (a lane's run is that many 16-byte
+    words, a warp's tile 32 runs; on the card ``gear.geometry(n)`` reports
+    the one a region of n bytes takes)."""
+    src = os.path.join(os.path.dirname(gear.__file__), os.pardir, "csrc",
+                       "gear.cu")
+    with open(src) as f:
+        text = f.read()
+    out = []
+    for name in ("kLongRunWords", "kShortRunWords"):
+        found = re.search(rf"constexpr int {name} = (\d+);", text)
+        assert found, f"{name} not found in csrc/gear.cu"
+        run = 16 * int(found.group(1))
+        out.append((32 * run, run))
+    return out
+
+
+GEOMETRIES = _kernel_geometries()
+# K3's edges for each run: a tile and a run less one byte, exact, and one
+# byte over; a tile and its 31 bytes of window; three tiles and a few bytes.
+EDGE_SIZES = sorted({x for tile, run in GEOMETRIES
+                     for x in (tile - 1, tile, tile + 1, tile + 31,
+                               3 * tile + 17, run - 1, run, run + 1)})
+LONG_TILE, LONG_RUN = GEOMETRIES[0]
+
+
+@pytest.mark.parametrize("n", EDGE_SIZES)
+def test_plain_scan_at_the_kernels_edges(n):
+    """The plain version, which the card holds K3 to, against both JAX
+    scans at the sizes around K3's tile and run, at ctx 0 and 31 and at
+    sparse and dense masks."""
+    data = random.Random(1000 + n).randbytes(n)
+    t = _region(data)
+    for ctx in (0, min(31, n)):
+        for mask_bits in (1, 4, 6, 20):
+            got = gear.gear_candidates_torch(t, ctx, mask_bits).tolist()
+            assert got == jchk._scan_python(data, ctx, mask_bits), \
+                (ctx, mask_bits)
+            assert got == jchk._scan_numpy(data, ctx, mask_bits), \
+                (ctx, mask_bits)
+
+
+@pytest.mark.parametrize("start", range(1, 16))
+def test_plain_scan_at_starts_inside_a_larger_tensor(start):
+    """Regions that start 1-15 bytes into a larger tensor (a view with a
+    storage offset, as the card's regions start off a 16-byte boundary),
+    at the tile-edge sizes, against both JAX scans."""
+    base = random.Random(start).randbytes(3 * LONG_TILE + 64)
+    t = _region(base)
+    for n in sorted({x for tile, run in GEOMETRIES
+                     for x in (tile + 31, 3 * tile + 17, run + 1)}):
+        region = t[start:start + n]
+        data = base[start:start + n]
+        for ctx, mask_bits in ((0, 6), (31, 4)):
+            got = gear.gear_candidates_torch(region, ctx, mask_bits).tolist()
+            assert got == jchk._scan_python(data, ctx, mask_bits), \
+                (n, ctx, mask_bits)
+            assert got == jchk._scan_numpy(data, ctx, mask_bits), \
+                (n, ctx, mask_bits)
 
 
 def test_scan_refuses_what_the_kernel_refuses():

@@ -1,6 +1,7 @@
 """Rules the PyTorch port keeps, and its small own copies.
 
-- The port and ``chip_smoke.py`` import neither JAX nor the JAX package
+- The port, its tools (``tools/``) and ``chip_smoke.py`` import neither
+  JAX nor the JAX package
   (checked in a subprocess, since ``tests/conftest.py`` imports jax into
   every test process, and by an AST scan of the sources); nor does a
   rank process of ``dryrun_multichip``. The example twins import no JAX.
@@ -50,12 +51,14 @@ from dragonfly2_tpu_torch.pkg import metrics, piece
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "dragonfly2_tpu_torch")
+TOOLS = os.path.join(REPO, "tools")     # the port's tools outside the package
 
 
 def _port_sources() -> list[str]:
     out = [os.path.join(REPO, "chip_smoke.py")]
-    for root, _, files in os.walk(PKG):
-        out += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for top in (PKG, TOOLS):
+        for root, _, files in os.walk(top):
+            out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(out)
 
 
