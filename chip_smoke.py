@@ -38,7 +38,20 @@
    ``load_from_sink``; checks every landed byte and tensor, and that the
    path launched both kernels; splits the landing's host time and the
    verify gate's time into their parts; then checks that a corrupt piece
-   fails verification by name;
+   fails verification by name; then serves the same shard over HTTP from
+   a process of its own (a stand-in origin over the shard's file in a
+   temporary directory, HEAD and ranged GET, its requests counted) and
+   fetches it through the port's daemon piece path (``StandInDaemon``:
+   ``TaskManager`` -> ``PieceManager`` -> the ``http`` origin client ->
+   ``LocalTaskStore``, CRC-32C fused into the write by the host library ->
+   ``DeviceSinkManager``, K2 per batch -> ``finalize``): a cold
+   ``download_to_device`` (every piece from the origin), a warm one (the
+   completed task reused and backfilled from the store, no origin
+   request) and ``download_sharded`` of the first quarter of the tensors
+   (ranged tasks imported from the local parent, no origin request);
+   checks every byte and tensor, the store's digest against the shard's
+   sha256, and splits each landing's host time into origin wait, store
+   write, host checksums and staging;
 5. hot-swaps the landed shard to a second generation (the last two
    layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
    through ``swap_generation``, the device half of ``download_delta``:
@@ -102,7 +115,7 @@
     bench.py``) and prints its JSON line;
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
-    gateway_manifest), prints one
+    gateway_manifest, daemon), prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
 
@@ -120,10 +133,13 @@ import dataclasses
 import hashlib
 import io
 import json
+import mmap
 import multiprocessing
 import os
+import shutil
 import sys
 import tarfile
+import tempfile
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -144,6 +160,9 @@ from dragonfly2_tpu_torch.bench import (
     smi_line,
 )
 from dragonfly2_tpu_torch.client.device import (
+    PREFIX_GUESS,
+    download_sharded,
+    download_to_device,
     local_base_manifest,
     swap_generation,
 )
@@ -151,6 +170,14 @@ from dragonfly2_tpu_torch.daemon.peer.device_sink import (
     DeviceSinkError,
     DeviceSinkManager,
     TaskDeviceSink,
+)
+from dragonfly2_tpu_torch.daemon.peer.piece_manager import (
+    PieceManager,
+    PieceManagerOption,
+)
+from dragonfly2_tpu_torch.daemon.peer.task_manager import (
+    COMPLETION_REHASH,
+    TaskManager,
 )
 from dragonfly2_tpu_torch.client.dfstore import STREAM_CHUNK, Dfstore
 from dragonfly2_tpu_torch.dataset import tar_index
@@ -184,6 +211,8 @@ from dragonfly2_tpu_torch.pkg.piece import (
     compute_piece_count,
     compute_piece_size,
 )
+from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
+from dragonfly2_tpu_torch.storage import StorageManager, StorageOption
 
 # Llama-3.1-8B (meta-llama/Llama-3.1-8B config.json): hidden 4096,
 # intermediate 14336, 32 heads / 8 KV heads of 128, vocab 128256.
@@ -2006,6 +2035,324 @@ def phase_gateway_manifest(content: np.ndarray, base_ref: DeltaManifest,
 
 
 # --------------------------------------------------------------------- #
+# The daemon's back-to-source piece path: an origin in a process of its
+# own -> the port's TaskManager -> PieceManager -> LocalTaskStore (CRC-32C
+# fused into the write) -> on_piece -> DeviceSinkManager (K2) -> finalize
+# --------------------------------------------------------------------- #
+
+ORIGIN_BUCKET = "origin"
+
+
+def origin_objects(path: str) -> dict:
+    """The stand-in origin's one object: the shard's file, mapped (the
+    bytes never cross the pipe)."""
+    with open(path, "rb") as f:
+        data = mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ)
+    return {(ORIGIN_BUCKET, GATEWAY_KEY): data}
+
+
+class TimedSinks(DeviceSinkManager):
+    """The daemon's device sink manager, with the host times of a
+    request's landing: its first sink call (a piece, or a finalize that
+    backfills), the return of its last piece's landing, the start of its
+    last finalize and that finalize's return; and the seconds the
+    manager's own ``busy_s`` counted on its one ``df-device-sink`` worker
+    meanwhile (each piece read back from the store, its host checksum,
+    staging, the K2 launches)."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        self.reset()
+
+    def reset(self) -> None:
+        self.first = self.last_piece = self.finalize_start = None
+        self.finalized = None
+        self.busy_from = self.busy_s
+
+    async def on_piece(self, task_id, store, rec) -> None:
+        if self.first is None:
+            self.first = time.perf_counter()
+        await super().on_piece(task_id, store, rec)
+        self.last_piece = time.perf_counter()
+
+    async def finalize(self, task_id, store):
+        self.finalize_start = time.perf_counter()
+        if self.first is None:
+            self.first = self.finalize_start
+        try:
+            return await super().finalize(task_id, store)
+        finally:
+            self.finalized = time.perf_counter()
+
+
+class StandInDaemon:
+    """The daemon as the client's entry points reach it (``task_manager``),
+    its parts built as ``dragonfly2_tpu/daemon/daemon.py`` builds them:
+    a ``StorageManager`` over ``data_dir`` (reloaded), a ``PieceManager``
+    under an unbounded limiter, the device sink manager, and the
+    ``TaskManager`` over them, with no scheduler."""
+
+    def __init__(self, data_dir: str, device: torch.device):
+        self.storage = StorageManager(StorageOption(data_dir=data_dir))
+        self.storage.reload()
+        self.piece_manager = PieceManager(PieceManagerOption(),
+                                          limiter=Limiter())
+        self.device_sinks = TimedSinks(batch_pieces=BATCH_PIECES,
+                                       device=device)
+        self.task_manager = TaskManager(self.storage, self.piece_manager,
+                                        device_sinks=self.device_sinks)
+
+    def close(self) -> None:
+        self.device_sinks.close()
+        self.storage.close()
+
+
+def quarter_names(layout) -> list[str]:
+    """The first quarter of the shard's tensors by bytes, in file order
+    (at least one): those ending within a quarter of all tensor bytes."""
+    sizes = [(name, int(np.prod(shape)) * 2) for name, shape in layout]
+    quarter = sum(n for _, n in sizes) // 4
+    names, end = [], 0
+    for name, n in sizes:
+        end += n
+        if names and end > quarter:
+            break
+        names.append(name)
+    return names
+
+
+def sharded_k2(content_length: int, names: list[str], spans: dict,
+               prefix_guess: int = PREFIX_GUESS) -> int:
+    """K2 launches of ``download_sharded(names)``: the header's ranged
+    task (its guessed prefix) and one ranged task for the selected
+    tensors, which lie back to back: each lands in batches of
+    BATCH_PIECES."""
+    def launches(n: int) -> int:
+        pieces = compute_piece_count(n, compute_piece_size(n))
+        return -(-pieces // BATCH_PIECES)
+
+    lo, hi = spans[names[0]][0], spans[names[-1]][1]
+    return launches(min(prefix_guess, content_length)) + launches(hi - lo)
+
+
+def _origin_delta(before: dict, after: dict) -> dict:
+    out = {}
+    for kind, (n, b) in after.items():
+        n0, b0 = before.get(kind, (0, 0))
+        if n != n0:
+            out[kind] = [n - n0, b - b0]
+    return out
+
+
+async def _daemon_requests(d: StandInDaemon, url: str, sha: str,
+                           gw: StandInProcess, host: torch.Tensor,
+                           spans: dict, layout, names: list[str],
+                           device) -> dict:
+    """Cold, warm, sharded and digest requests through the client's entry
+    points; each checked, counted and timed. The cold request carries no
+    digest, so that it is the local parent of the sharded request's
+    ranged tasks (which carry none); the digest request carries the
+    shard's sha256, a task of its own fetched from the origin again, with
+    the store's prefix hasher beside the landing and the completion
+    re-hash before the finalize."""
+    sinks, pm = d.device_sinks, d.piece_manager
+    out = {}
+    result = u8 = None
+
+    def check_tensors(tensors: dict, want: list[str], what: str) -> None:
+        if set(tensors) != set(want):
+            raise AssertionError(f"daemon {what}: tensors {sorted(tensors)}")
+        for name in want:
+            t = tensors[name]
+            b, e = spans[name]
+            if t.dtype != torch.bfloat16 or not torch.equal(
+                    t.reshape(-1).view(torch.uint8), host[b:e]):
+                raise AssertionError(f"daemon {what}: {name} differs from "
+                                     "the shard")
+
+    for what in ("cold", "warm", "sharded", "digest"):
+        # One turn of the loop drops the last landing's sink (a finished
+        # executor future still holds it), so each request's peak counts
+        # its own memory only.
+        await asyncio.sleep(0)
+        sinks.reset()
+        rehash_before = COMPLETION_REHASH.value("hashed")
+        pm_before = dict(pm.timings)
+        origin_before = gw.requests()
+        _sync(device)
+        base = _memory_mark(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        if what == "sharded":
+            tensors = await download_sharded(d, url, names=names)
+            _sync(device)
+            wall = time.perf_counter() - t0
+            peak = _memory_mark(device, peak=True) - base
+            sink = None
+            check_tensors(tensors, names, what)
+            rec = {"tensors": len(tensors),
+                   "bytes": spans[names[-1]][1] - spans[names[0]][0]}
+        else:
+            result = await download_to_device(
+                d, url, digest=sha if what == "digest" else "")
+            sink = result.sink
+            u8 = result.as_bytes_array()
+            # The gate a consumer runs after take (K1 over the pieces).
+            verify_u8_against_host(u8, sink.sink.piece_size,
+                                   sink.sink.host_checksums)
+            tensors = result.load_safetensors()
+            _sync(device)
+            wall = time.perf_counter() - t0
+            peak = _memory_mark(device, peak=True) - base
+            if not torch.equal(u8, host):
+                raise AssertionError(f"daemon {what}: landed bytes differ "
+                                     "from the shard")
+            check_tensors(tensors, [n for n, _ in layout], what)
+            if result.from_reuse != (what == "warm"):
+                raise AssertionError(f"daemon {what}: from_reuse "
+                                     f"{result.from_reuse}")
+            rec = {"tensors": len(tensors), "bytes": int(u8.numel()),
+                   "task_id": result.task_id,
+                   "from_reuse": result.from_reuse}
+        launches = checksum.launch_counts()
+        rec.update({
+            "wall_s": wall, "launches": launches,
+            "peak_device_bytes": peak,
+            "origin": _origin_delta(origin_before, gw.requests()),
+            "land_s": sinks.finalized - sinks.first,
+            # From the last piece landed to the finalize: the completion
+            # re-hash of a request with a digest.
+            "last_piece_to_finalize_s": (
+                None if sinks.last_piece is None
+                else sinks.finalize_start - sinks.last_piece),
+            "rehash": COMPLETION_REHASH.value("hashed") - rehash_before,
+            "sink_busy_s": sinks.busy_s - sinks.busy_from,
+            "origin_wait_s": pm.timings["origin_wait_s"]
+            - pm_before["origin_wait_s"],
+            "store_write_s": pm.timings["store_write_s"]
+            - pm_before["store_write_s"]})
+        if sink is not None:
+            rec.update({key: getattr(sink.sink, key) for key in (
+                "host_checksum_s", "stage_s", "stage_wait_s")})
+        out[what] = rec
+        tensors = sink = result = u8 = None   # each landing goes in turn
+    return out
+
+
+def _sync(device: torch.device) -> None:
+    if _on_card(device):
+        torch.cuda.synchronize()
+
+
+def _memory_mark(device: torch.device, peak: bool = False) -> int:
+    """Device bytes allocated now, its peak reset from here; with
+    ``peak``, the peak since the last mark. 0 off the card."""
+    if not _on_card(device):
+        return 0
+    if peak:
+        return torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def phase_daemon(content: np.ndarray, spans: dict, layout,
+                 device: torch.device) -> dict:
+    """The shard served over HTTP from a process of its own (the phase's
+    temporary directory holds its file and the daemon's store), fetched
+    through the port's daemon piece path: a cold request (every piece
+    from the origin, landed by K2 as it arrives), a warm one (the
+    completed task reused, the sink backfilled from the store, no origin
+    request) and a sharded one (the first quarter of the tensors as
+    ranged tasks that import from the local parent, no origin request).
+    Checks every byte and tensor, the store's digest against the shard's
+    sha256, the origin's requests and each request's launches."""
+    tmp = tempfile.mkdtemp(prefix="df-chip-daemon-")
+    gw = d = None
+    try:
+        # The origin's file, the cold and the digest request's stores, and
+        # the sharded request's ranged stores, with a GiB to spare.
+        need = 3 * content.size + content.size // 4 + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(
+                f"the daemon phase needs {need} B free under {tmp} (the "
+                f"origin's file and the daemon's stores); {free} B are")
+        path = os.path.join(tmp, GATEWAY_KEY)
+        t0 = time.perf_counter()
+        content.tofile(path)
+        origin_write_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sha = "sha256:" + hashlib.sha256(memoryview(content)).hexdigest()
+        sha_s = time.perf_counter() - t0
+        gw = StandInProcess(origin_objects, path)
+        gw.start()
+        url = (f"{gw.endpoint()}/buckets/{ORIGIN_BUCKET}/objects/"
+               f"{GATEWAY_KEY}")
+        d = StandInDaemon(os.path.join(tmp, "data"), device)
+        host = torch.from_numpy(content).to(device)
+        names = quarter_names(layout)
+        out = asyncio.run(_daemon_requests(d, url, sha, gw, host, spans,
+                                           layout, names, device))
+        del host
+        cold_store = d.storage.find_completed_task(out["cold"]["task_id"])
+        t0 = time.perf_counter()
+        got = cold_store.validate_digest(sha)
+        validate_s = time.perf_counter() - t0
+        store_bytes = d.storage.total_disk_usage()
+        cold = out["cold"]
+        piece_size = compute_piece_size(content.size)
+        n_pieces = compute_piece_count(content.size, piece_size)
+        k2 = -(-n_pieces // BATCH_PIECES)
+        want = {"cold": (2, k2), "warm": (2, k2),
+                "sharded": (0, sharded_k2(content.size, names, spans)),
+                "digest": (2, k2)}
+        # The origin: one probe and one ranged GET a piece group for each
+        # fetch, nothing for the others.
+        groups = min(PieceManagerOption().concurrency, n_pieces)
+        for what in ("cold", "digest"):
+            if out[what]["origin"] != {"get_range": [1 + groups,
+                                                     1 + content.size]}:
+                raise AssertionError(f"daemon {what}: origin saw "
+                                     f"{out[what]['origin']}")
+        for what in ("warm", "sharded"):
+            if out[what]["origin"]:
+                raise AssertionError(f"daemon {what}: origin saw "
+                                     f"{out[what]['origin']}")
+        # The completion re-hash runs for the digest request only.
+        rehash = {w: out[w]["rehash"] for w in out}
+        if rehash != {"cold": 0, "warm": 0, "sharded": 0, "digest": 1}:
+            raise AssertionError(f"daemon: completion re-hashes {rehash}")
+        digest_store = d.storage.find_completed_task(
+            out["digest"]["task_id"])
+        if digest_store is None or digest_store.metadata.digest != sha:
+            raise AssertionError("daemon digest: the store holds no "
+                                 "checked digest")
+        if _on_card(device):
+            for what, (k1_n, k2_n) in want.items():
+                if out[what]["launches"] != {"chunk_checksums": k1_n,
+                                             "land_and_checksum": k2_n,
+                                             "gear_candidates": 0}:
+                    raise AssertionError(
+                        f"daemon {what}: launches {out[what]['launches']}, "
+                        f"want K1 {k1_n}, K2 {k2_n}")
+        launches = {k: sum(out[w]["launches"][k] for w in out)
+                    for k in cold["launches"]}
+        return {**out, "launches": launches, "sha256": sha, "validated": got,
+                "sharded_names": len(names), "origin_write_s": origin_write_s,
+                "sha256_s": sha_s, "validate_s": validate_s,
+                "origin_file_bytes": content.size, "store_bytes": store_bytes,
+                "piece_size": piece_size,
+                "pieces": n_pieces, "want_k2": {w: v[1] for w, v in
+                                                want.items()}}
+    finally:
+        if gw is not None:
+            gw.close()
+        if d is not None:
+            d.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 # The entry and bench pair: entry(), the train step, the device bench
 # --------------------------------------------------------------------- #
 
@@ -2141,7 +2488,8 @@ BENCH_LAUNCHES = {"chunk_checksums": 6 + 41 + 2,
 
 def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k3_chunker: int, want_k3_manifest: int,
-                   want_k2_wds: int, want_k3_gateway: int) -> None:
+                   want_k2_wds: int, want_k3_gateway: int,
+                   want_k2_daemon: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -2153,7 +2501,10 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     of the chunker runs, of the span reads of a whole-shard manifest (the
     manifest path, and the cdc swap's fallback) and of the stream chunks
     of the gateway manifest's build (its hit launches none); nowhere
-    else."""
+    else. The daemon path: K2 once per batch of each of its landings (the
+    cold request's, the warm one's backfill, the sharded one's ranged
+    tasks, the digest request's), K1 twice in the gate after each of its
+    three whole landings."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -2166,7 +2517,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "manifest": k(0, 0, want_k3_manifest),
             "cdc_swap": k(2, 0, want_k3_manifest),
             "wds": k(0, want_k2_wds),
-            "gateway_manifest": k(0, 0, want_k3_gateway)}
+            "gateway_manifest": k(0, 0, want_k3_gateway),
+            "daemon": k(6, want_k2_daemon)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -2322,15 +2674,19 @@ def main(argv=None) -> int:
           f"{bw / 1e12:.2f} TB/s")
 
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=len(_build.SOURCES),
+    with ThreadPoolExecutor(max_workers=len(_build.SOURCES) + 1,
                             thread_name_prefix="df-nvcc") as ex:
         # One nvcc for each source, started together; the third builds
-        # K3's yardstick, the read floor.
+        # K3's yardstick, the read floor; g++ builds the host library
+        # beside them.
         for f in [ex.submit(_build.library), ex.submit(_build.gear_library),
-                  ex.submit(_build.read_floor_library)]:
+                  ex.submit(_build.read_floor_library),
+                  ex.submit(_build.host_library)]:
             f.result()
-    print(f"kernels built in {time.perf_counter() - t0:.1f} s ("
-          + ", ".join(_build.library_path(src) for src in _build.SOURCES)
+    print(f"kernels and the host library built in "
+          f"{time.perf_counter() - t0:.1f} s ("
+          + ", ".join(_build.library_path(src)
+                      for src in (*_build.SOURCES, _build.HOST_SOURCE))
           + ")")
     if _build.build_log:
         print(_build.build_log)
@@ -2407,6 +2763,48 @@ def main(argv=None) -> int:
           f"work, estimated as {launches_k2} x (one pinned batch copy + one "
           f"K2) = {device_s:.4f} s")
     print("corruption:", phase_corruption(device))
+    dmn = phase_daemon(content, spans, layout, device)
+    torch.cuda.empty_cache()
+    print("daemon:", json.dumps(dmn))
+    cold, warm, shd = dmn["cold"], dmn["warm"], dmn["sharded"]
+    dig = dmn["digest"]
+    print(f"daemon: cold request {cold['bytes']} B from the stand-in "
+          f"origin ({cold['origin']['get_range'][0]} ranged GETs, "
+          f"{cold['origin']['get_range'][1]} B) in {cold['wall_s']:.3f} s, "
+          f"{cold['tensors']} tensors equal to the shard, validate_digest() "
+          f"== the shard's sha256; land_s {cold['land_s']:.4f} s (first on_piece to "
+          f"finalize returned) beside, summed over the piece groups' "
+          f"streams, origin wait {cold['origin_wait_s']:.4f} s and store "
+          f"write (CRC-32C fused) {cold['store_write_s']:.4f} s; the sink's "
+          f"worker busy {cold['sink_busy_s']:.4f} s of it: host checksum "
+          f"{cold['host_checksum_s']:.4f} s, staging "
+          f"{cold['stage_s']:.4f} s, the rest (reads from the store, "
+          f"launches) {cold['sink_busy_s'] - cold['host_checksum_s'] - cold['stage_s']:.4f} s; K2 "
+          f"{cold['launches']['land_and_checksum']} x {k2['ms']:.4f} ms = "
+          f"{cold['launches']['land_and_checksum'] * k2['ms']:.2f} ms on the "
+          f"card; warm request (reused, no origin request) "
+          f"{warm['wall_s']:.3f} s, land_s {warm['land_s']:.4f} s, the "
+          f"sink's worker busy {warm['sink_busy_s']:.4f} s of it = host "
+          f"checksum {warm['host_checksum_s']:.4f} s + staging "
+          f"{warm['stage_s']:.4f} s + the rest; sharded request "
+          f"{shd['tensors']} tensors ({shd['bytes']} B) in "
+          f"{shd['wall_s']:.3f} s off the local parent, no origin request; "
+          f"digest request (sha256, fetched again, prefix hasher on) "
+          f"{dig['wall_s']:.3f} s, land_s {dig['land_s']:.4f} s, last piece "
+          f"to finalize (the completion re-hash) "
+          f"{dig['last_piece_to_finalize_s']:.4f} s against the cold "
+          f"request's {cold['last_piece_to_finalize_s']:.4f} s, origin wait "
+          f"{dig['origin_wait_s']:.4f} s, store write "
+          f"{dig['store_write_s']:.4f} s, the sink's worker busy "
+          f"{dig['sink_busy_s']:.4f} s: host checksum "
+          f"{dig['host_checksum_s']:.4f} s, staging {dig['stage_s']:.4f} s; "
+          f"written to disk {dmn['origin_file_bytes']} B (the origin's "
+          f"file) + {dmn['store_bytes']} B (the stores); a landing's peak "
+          f"device memory above what was allocated before it: cold "
+          f"{cold['peak_device_bytes'] / 1e9:.3f} GB, warm "
+          f"{warm['peak_device_bytes'] / 1e9:.3f} GB, sharded "
+          f"{shd['peak_device_bytes'] / 1e9:.3f} GB, digest "
+          f"{dig['peak_device_bytes'] / 1e9:.3f} GB, on {smi}")
 
     swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
                                    piece_size, gen, device)
@@ -2558,10 +2956,12 @@ def main(argv=None) -> int:
              "entry": ent["launches"], "train": train["launches"],
              "bench": ben["launches"], "chunker": chunker["launches"],
              "manifest": man["launches"], "cdc_swap": cdc["launches"],
-             "wds": wds["launches"], "gateway_manifest": gwm["launches"]}
+             "wds": wds["launches"], "gateway_manifest": gwm["launches"],
+             "daemon": dmn["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
-                   wds["batches"], gwm["planned_k3"])
+                   wds["batches"], gwm["planned_k3"],
+                   sum(dmn["want_k2"].values()))
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

@@ -83,6 +83,9 @@ from dragonfly2_tpu_torch.proto.common import UrlMeta
 
 log = dflog.get("client.device")
 
+# The first ranged pull of a safetensors header: its guessed size.
+PREFIX_GUESS = 256 << 10
+
 
 @dataclass
 class DeviceResult:
@@ -207,7 +210,7 @@ async def download_to_device(daemon, url: str, *, digest: str = "",
 async def fetch_safetensors_header(daemon, url: str, *, tag: str = "",
                                    application: str = "",
                                    header: dict | None = None,
-                                   prefix_guess: int = 256 << 10):
+                                   prefix_guess: int = PREFIX_GUESS):
     """The checkpoint's parsed safetensors header through one ranged pull
     of a guessed size (a second exact pull covers a header larger than
     the guess). Returns ``(header_dict, data_start_abs, prefix_u8)``:
@@ -301,7 +304,7 @@ async def download_sharded(daemon, url: str, *,
                            tag: str = "", application: str = "",
                            header: dict | None = None,
                            coalesce_gap: int = 4 << 20,
-                           prefix_guess: int = 256 << 10) -> dict:
+                           prefix_guess: int = PREFIX_GUESS) -> dict:
     """Pull only some tensors of a safetensors checkpoint, as ranged
     device tasks: the pipeline stage or expert shard a host needs, not
     the whole file. Hosts that pick the same tensors send byte-identical
@@ -436,7 +439,7 @@ def plan_global(header: dict, data_start: int, layouts: dict) -> list:
 async def download_global(daemon, url: str, shardings: dict, *,
                           tag: str = "", application: str = "",
                           header: dict | None = None,
-                          prefix_guess: int = 256 << 10) -> dict:
+                          prefix_guess: int = PREFIX_GUESS) -> dict:
     """Global sharded checkpoint load through the fabric: for each tensor
     of ``shardings`` (name -> ``(DeviceMesh, placements)``; tensors not
     named are not loaded), this rank pulls only the bytes of its own

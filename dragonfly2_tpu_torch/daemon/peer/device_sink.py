@@ -17,6 +17,8 @@ this host's ranks is ``DeviceSinkManager.default_mesh``).
 
 Threading: every sink mutation runs on one ``df-device-sink`` worker
 thread, so host-to-device copies never stall the daemon's event loop.
+``busy_s`` counts the seconds that worker has spent on landings and
+finalizes (store reads, host checksums, staging, launches).
 ``take`` and the views run on the caller's thread; each view waits on the
 CUDA event recorded by the last landing.
 
@@ -145,6 +147,7 @@ class DeviceSinkManager:
         # and keeps device copies off the event loop.
         self._exec = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="df-device-sink")
+        self.busy_s = 0.0   # written by the worker only
 
     def admit(self):
         """Admission bound for client-API device pulls: an async context
@@ -159,7 +162,14 @@ class DeviceSinkManager:
 
     async def _run(self, fn, *args):
         return await asyncio.get_running_loop().run_in_executor(
-            self._exec, fn, *args)
+            self._exec, self._timed, fn, *args)
+
+    def _timed(self, fn, *args):
+        t0 = time.perf_counter()
+        try:
+            return fn(*args)
+        finally:
+            self.busy_s += time.perf_counter() - t0
 
     # -- landing ----------------------------------------------------------
 

@@ -1,4 +1,5 @@
-"""Coded errors: the port's own copy of ``Code`` and ``DfError``
+"""Coded errors: the port's own copy of ``Code``, ``DfError``,
+``StorageError``, ``SourceError`` and ``describe``
 (``dragonfly2_tpu/pkg/errors.py``).
 
 The daemon reports a failed task as a wire dict (``progress.error``); the
@@ -64,6 +65,12 @@ class Code(enum.IntEnum):
     SourceRangeUnsupported = 9416
 
 
+def describe(e: BaseException) -> str:
+    """Never-empty error text: a bare TimeoutError or CancelledError
+    stringifies to ''."""
+    return str(e) or type(e).__name__
+
+
 class DfError(Exception):
     """A coded error: ``code``, a human ``message`` and JSON-safe
     ``metadata``. An unknown code (a newer peer) decodes as
@@ -90,3 +97,19 @@ class DfError(Exception):
     def from_wire(cls, d: dict[str, Any]) -> "DfError":
         return cls(d.get("code", Code.UnknownError), d.get("message", ""),
                    d.get("metadata") or {})
+
+
+class StorageError(DfError):
+    def __init__(self, message: str = "", code: Code = Code.StorageError):
+        super().__init__(code, message)
+
+
+class SourceError(DfError):
+    """An origin fetch failed; ``temporary`` says whether a retry may
+    succeed."""
+
+    def __init__(self, message: str = "",
+                 code: Code = Code.BackToSourceAborted,
+                 temporary: bool = False):
+        super().__init__(code, message, {"temporary": temporary})
+        self.temporary = temporary

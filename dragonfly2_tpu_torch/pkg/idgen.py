@@ -1,5 +1,5 @@
-"""Task ids: the port's own copy of ``task_id_v1`` and its helpers
-(``dragonfly2_tpu/pkg/idgen.py``).
+"""Task and peer ids: the port's own copy of ``task_id_v1``,
+``peer_id_v1`` and their helpers (``dragonfly2_tpu/pkg/idgen.py``).
 
 A task id is a content address: sha256 over the filtered URL plus the
 metadata that distinguishes one task from another. The daemon keys its
@@ -11,6 +11,8 @@ a different id protects nothing.
 from __future__ import annotations
 
 import hashlib
+import os
+import uuid
 from urllib.parse import parse_qsl, urlencode, urlsplit, urlunsplit
 
 FILTERED_QUERY_PARAMS_SEPARATOR = "&"
@@ -64,3 +66,8 @@ def parent_task_id_v1(url: str, **kwargs) -> str:
     request's slice belongs to."""
     kwargs["ignore_range"] = True
     return task_id_v1(url, **kwargs)
+
+
+def peer_id_v1(ip: str) -> str:
+    """``ip-pid-uuid``: one download attempt of one daemon."""
+    return f"{ip}-{os.getpid()}-{uuid.uuid4()}"

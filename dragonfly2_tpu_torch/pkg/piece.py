@@ -1,6 +1,6 @@
-"""Piece-size math and byte ranges: the port's own copy of
-``compute_piece_size``, ``compute_piece_count`` and ``Range``
-(``dragonfly2_tpu/pkg/piece.py``). The piece math sizes the device sink's
+"""Piece-size math, piece records and byte ranges: the port's own copy of
+``compute_piece_size``, ``compute_piece_count``, ``piece_length``,
+``PieceInfo`` and ``Range`` (``dragonfly2_tpu/pkg/piece.py``). The piece math sizes the device sink's
 slots exactly as the daemon sizes its pieces; the reference daemon reads
 a port request's ``Range`` directly (``start``, ``length``)."""
 
@@ -32,6 +32,48 @@ def compute_piece_size(length: int) -> int:
 def compute_piece_count(length: int, piece_size: int) -> int:
     """ceil(length / piece_size)."""
     return math.ceil(length / piece_size)
+
+
+def piece_length(piece_num: int, piece_size: int, content_length: int) -> int:
+    """Length of piece ``piece_num`` given the content length (a whole
+    piece while the length is unknown)."""
+    start = piece_num * piece_size
+    if content_length < 0:
+        return piece_size
+    return max(0, min(piece_size, content_length - start))
+
+
+@dataclass
+class PieceInfo:
+    """One piece's wire record."""
+
+    piece_num: int
+    range_start: int
+    range_size: int
+    digest: str = ""            # "crc32c:..." / "md5:..."
+    download_cost_ms: int = 0
+    dst_peer_id: str = ""       # the parent that served it
+
+    def to_wire(self) -> dict:
+        return {
+            "piece_num": self.piece_num,
+            "range_start": self.range_start,
+            "range_size": self.range_size,
+            "digest": self.digest,
+            "download_cost_ms": self.download_cost_ms,
+            "dst_peer_id": self.dst_peer_id,
+        }
+
+    @classmethod
+    def from_wire(cls, d: dict) -> "PieceInfo":
+        return cls(
+            piece_num=d["piece_num"],
+            range_start=d["range_start"],
+            range_size=d["range_size"],
+            digest=d.get("digest", ""),
+            download_cost_ms=d.get("download_cost_ms", 0),
+            dst_peer_id=d.get("dst_peer_id", ""),
+        )
 
 
 @dataclass

@@ -22,6 +22,7 @@ from __future__ import annotations
 import ast
 import json
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -112,6 +113,97 @@ def test_the_dataset_plane_imports_without_aiohttp():
             "dragonfly2_tpu_torch.client.dfstore"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m.startswith("aiohttp")] \
         == []
+
+
+def test_the_daemon_piece_path_imports_without_aiohttp():
+    code = ("import json, sys\n"
+            "sys.modules['aiohttp'] = None\n"
+            "import dragonfly2_tpu_torch.storage\n"
+            "import dragonfly2_tpu_torch.source\n"
+            "from dragonfly2_tpu_torch.source import get_client\n"
+            "get_client('http://o/x'); get_client('file:///x')\n"
+            "import dragonfly2_tpu_torch.daemon.peer.task_manager\n"
+            "import dragonfly2_tpu_torch.daemon.peer.traffic_shaper\n"
+            "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+            "                        if v is not None)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.storage.local_store",
+            "dragonfly2_tpu_torch.storage.io_ring",
+            "dragonfly2_tpu_torch.source.clients.http",
+            "dragonfly2_tpu_torch.source.clients.file",
+            "dragonfly2_tpu_torch.daemon.peer.piece_manager",
+            "dragonfly2_tpu_torch.daemon.peer.broker",
+            "dragonfly2_tpu_torch.daemon.peer.traffic_shaper",
+            "dragonfly2_tpu_torch.pkg.dfhost"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.startswith("aiohttp")] \
+        == []
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_aiohttp(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert [n for n in names if n.split(".")[0] == "aiohttp"] == []
+
+
+# The JAX package's native library by any name a program could load it by:
+# its built library, its package, its binding or its build directory. Its
+# sources (``dragonfly2_tpu/native/src/...``) may be named as provenance.
+_NATIVE_LIB = re.compile(
+    r"libdfnative|dragonfly2_tpu\.native|dragonfly2_tpu/native(?!/src/)")
+
+
+def _port_files() -> list[str]:
+    out = list(_port_sources())
+    for root, _, files in os.walk(os.path.join(PKG, "csrc")):
+        out += [os.path.join(root, f) for f in files]
+    return sorted(out)
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_no_port_source_names_the_jax_native_library(path):
+    with open(path, encoding="utf-8") as f:
+        text = f.read()
+    assert _NATIVE_LIB.findall(text) == []
+    if (path.startswith(PKG) and path.endswith(".py")
+            and os.path.basename(path) != "_build.py"):
+        assert "CDLL(" not in text     # the package loads in ops/_build
+
+
+def test_the_store_path_maps_no_jax_native_library(tmp_path):
+    """A process that hashes, writes and re-verifies pieces through the
+    port maps the port's host library and nothing of the JAX package's."""
+    code = ("import sys\n"
+            "from dragonfly2_tpu_torch.pkg import digest\n"
+            "from dragonfly2_tpu_torch.storage import LocalTaskStore, "
+            "TaskStoreMetadata\n"
+            "s = LocalTaskStore.create(sys.argv[1], TaskStoreMetadata(\n"
+            "    task_id='t', piece_size=4096, content_length=8192))\n"
+            "s.write_piece(0, b'a' * 4096); s.write_piece_chunks(1, "
+            "[b'b' * 96, b'c' * 4000])\n"
+            "assert s.reverify_pieces() == []\n"
+            "assert digest.crc32c(b'123456789') == 0xe3069283\n"
+            "print(open('/proc/self/maps').read())\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code, str(tmp_path / "s")],
+                          cwd=REPO, env=env, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    maps = proc.stdout
+    assert os.path.basename(_build.library_path(_build.HOST_SOURCE)) in maps
+    assert "dfnative" not in maps and "dragonfly2_tpu/native" not in maps
 
 
 def _thread_names(path: str) -> list[tuple[int, str | None]]:
@@ -327,6 +419,8 @@ def test_metrics_registry_get_or_create_and_labels():
 
 
 def test_gauges_set_inc_dec_and_labels():
+    # Registered here too, so that the test stands alone.
+    metrics.counter("port_test_events_total", "test", ("kind",))
     g = metrics.gauge("port_test_depth", "test")
     assert metrics.gauge("port_test_depth", "test") is g
     g.set(5)
