@@ -51,7 +51,19 @@
    (ranged tasks imported from the local parent, no origin request);
    checks every byte and tensor, the store's digest against the shard's
    sha256, and splits each landing's host time into origin wait, store
-   write, host checksums and staging;
+   write, host checksums and staging; then pulls the shard from a parent
+   daemon in a process of its own (``P2PParent``: a stand-in origin, the
+   port's daemon fetching the shard back-to-source twice, its
+   ``UploadManager`` and ``DaemonRpcServer``, and ``StandInScheduler``)
+   through the port's P2P path (``StandInDaemon`` with a
+   ``SchedulerClient``: ``PeerTaskConductor`` registers, syncs the
+   parent's pieces, fetches them in runs of ranged GETs into the store,
+   CRC-32C checked against the parent's digests, K2 per batch, reports
+   every piece): ``download_to_device`` with no digest and with the
+   shard's sha256 (its completion re-hash skipped, certified by the
+   parent's digests); checks every byte and tensor, no origin request,
+   the bytes the parent served, the reports the scheduler saw and the
+   digest store against the shard's sha256;
 5. hot-swaps the landed shard to a second generation (the last two
    layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
    through ``swap_generation``, the device half of ``download_delta``:
@@ -115,7 +127,7 @@
     bench.py``) and prints its JSON line;
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
-    gateway_manifest, daemon), prints one
+    gateway_manifest, daemon, p2p), prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
 
@@ -175,9 +187,18 @@ from dragonfly2_tpu_torch.daemon.peer.piece_manager import (
     PieceManager,
     PieceManagerOption,
 )
+from dragonfly2_tpu_torch.daemon.peer.conductor import conductor_factory
 from dragonfly2_tpu_torch.daemon.peer.task_manager import (
     COMPLETION_REHASH,
+    FileTaskRequest,
     TaskManager,
+)
+from dragonfly2_tpu_torch.daemon.rpcserver import DaemonRpcServer
+from dragonfly2_tpu_torch.daemon.schedulerclient import SchedulerClient
+from dragonfly2_tpu_torch.daemon.upload import (
+    UPLOAD_BYTES,
+    UPLOAD_REQUESTS,
+    UploadManager,
 )
 from dragonfly2_tpu_torch.client.dfstore import STREAM_CHUNK, Dfstore
 from dragonfly2_tpu_torch.dataset import tar_index
@@ -212,6 +233,9 @@ from dragonfly2_tpu_torch.pkg.piece import (
     compute_piece_size,
 )
 from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
+from dragonfly2_tpu_torch.pkg.types import NetAddr
+from dragonfly2_tpu_torch.proto.common import UrlMeta
+from dragonfly2_tpu_torch.rpc import Server
 from dragonfly2_tpu_torch.storage import StorageManager, StorageOption
 
 # Llama-3.1-8B (meta-llama/Llama-3.1-8B config.json): hidden 4096,
@@ -2090,17 +2114,34 @@ class StandInDaemon:
     its parts built as ``dragonfly2_tpu/daemon/daemon.py`` builds them:
     a ``StorageManager`` over ``data_dir`` (reloaded), a ``PieceManager``
     under an unbounded limiter, the device sink manager, and the
-    ``TaskManager`` over them, with no scheduler."""
+    ``TaskManager`` over them; with ``scheduler`` (an address), a
+    ``SchedulerClient`` on it and the port's conductor factory (each
+    conductor built is kept in ``conductors``), else no scheduler."""
 
-    def __init__(self, data_dir: str, device: torch.device):
+    def __init__(self, data_dir: str, device: torch.device,
+                 scheduler: str = ""):
         self.storage = StorageManager(StorageOption(data_dir=data_dir))
         self.storage.reload()
         self.piece_manager = PieceManager(PieceManagerOption(),
                                           limiter=Limiter())
         self.device_sinks = TimedSinks(batch_pieces=BATCH_PIECES,
                                        device=device)
-        self.task_manager = TaskManager(self.storage, self.piece_manager,
-                                        device_sinks=self.device_sinks)
+        self.scheduler_client = factory = None
+        self.conductors: list = []
+        if scheduler:
+            self.scheduler_client = SchedulerClient([scheduler])
+            make = conductor_factory(
+                scheduler_client=self.scheduler_client,
+                piece_manager=self.piece_manager,
+                host_wire=lambda: host_record("chip-child"))
+
+            def factory(**kw):
+                self.conductors.append(make(**kw))
+                return self.conductors[-1]
+        self.task_manager = TaskManager(
+            self.storage, self.piece_manager,
+            scheduler_client=self.scheduler_client,
+            conductor_factory=factory, device_sinks=self.device_sinks)
 
     def close(self) -> None:
         self.device_sinks.close()
@@ -2353,6 +2394,372 @@ def phase_daemon(content: np.ndarray, spans: dict, layout,
 
 
 # --------------------------------------------------------------------- #
+# The P2P half: the shard pulled from a parent daemon in a process of its
+# own (stand-in origin, the port's daemon with its upload server and
+# DaemonRpcServer, a stand-in scheduler) -> the port's PeerTaskConductor
+# -> PieceTaskSynchronizer -> PieceDispatcher -> PieceDownloader ->
+# LocalTaskStore -> DeviceSinkManager (K2) -> certification -> finalize
+# --------------------------------------------------------------------- #
+
+P2P_HOST = "127.0.0.1"
+
+
+def host_record(name: str, port: int = 0, upload_port: int = 0,
+                host_type: int = 0) -> dict:
+    """A daemon's host record as the JAX scheduler's ``Host.to_wire``
+    gives it (its id is the JAX announcer's: hostname-port)."""
+    return {"id": f"{name}-{port}", "hostname": name, "ip": P2P_HOST,
+            "port": port, "upload_port": upload_port, "type": host_type,
+            "idc": "", "location": "", "tpu_slice": "",
+            "tpu_worker_index": -1}
+
+
+class StandInScheduler:
+    """``Scheduler.AnnouncePeer`` on the port's drpc server: a stand-in for
+    the JAX scheduler (``dragonfly2_tpu/scheduler/service.py``), not a port
+    of it. A registration (or a reschedule) for a task that ``storage``
+    holds complete is answered with ``normal_task`` naming that store's
+    peer as the one parent, in the JAX scheduler's wire shape: the task's
+    wire form, the parent's id, host record, state, finished pieces and
+    its first 512 piece digests, ``sched_wall`` and ``packed_reports``
+    (False: the stand-in takes piece reports as dict lists only); any
+    other with ``need_back_source``. Every message is recorded by task id:
+    its kind, and the pieces reported."""
+
+    def __init__(self, storage, host: dict):
+        self.storage = storage
+        self.host = host
+        self.server = Server("standin.scheduler")
+        self.server.register_stream("Scheduler.AnnouncePeer", self._announce)
+        self.records: dict[str, dict] = {}
+        self._ended: dict[str, asyncio.Event] = {}
+
+    async def serve(self) -> str:
+        await self.server.serve(NetAddr.tcp(P2P_HOST, 0))
+        return f"{P2P_HOST}:{self.server.port()}"
+
+    def answer(self, body: dict) -> dict:
+        task_id = body["task_id"]
+        task = {"id": task_id, "url": body.get("url", ""),
+                "tag": body.get("tag", ""),
+                "application": body.get("application", ""),
+                "tenant": body.get("tenant", ""), "state": "pending",
+                "content_length": -1, "piece_size": 0,
+                "total_piece_count": -1, "peer_count": 1,
+                "size_scope": "unknow"}
+        store = self.storage.find_completed_task(task_id)
+        if store is None:
+            return {"type": "need_back_source", "reason": "no parent",
+                    "task": task, "sched_wall": time.time(),
+                    "packed_reports": False}
+        m = store.metadata
+        nums = sorted(m.pieces)
+        task.update(state="succeeded", content_length=m.content_length,
+                    piece_size=m.piece_size,
+                    total_piece_count=m.total_piece_count, peer_count=2,
+                    size_scope="normal")
+        parent = {"id": m.peer_id, "task_id": task_id, "host": self.host,
+                  "state": "succeeded", "finished_pieces": nums,
+                  "piece_digests": {n: m.pieces[n].digest for n in nums[:512]
+                                    if m.pieces[n].digest},
+                  "is_seed": True, "priority": 3}
+        return {"type": "normal_task", "task": task, "parents": [parent],
+                "sched_wall": time.time(), "packed_reports": False}
+
+    async def _announce(self, stream, ctx) -> None:
+        body = stream.open_body or {}
+        rec = self.records.setdefault(body.get("task_id", ""), {
+            "messages": {}, "reported": 0, "pieces": set()})
+        while True:
+            msg = await stream.recv()
+            if msg is None:
+                return
+            kind = msg.get("type", "")
+            rec["messages"][kind] = rec["messages"].get(kind, 0) + 1
+            reported = ([msg["piece"]] if kind == "piece_finished"
+                        else msg.get("pieces") or []
+                        if kind == "pieces_finished" else [])
+            rec["reported"] += len(reported)
+            rec["pieces"].update(p["piece_num"] for p in reported)
+            if kind in ("register", "reschedule"):
+                await stream.send(self.answer(body))
+            elif kind in ("download_finished", "download_failed"):
+                self._ended.setdefault(body.get("task_id", ""),
+                                       asyncio.Event()).set()
+                return
+
+    async def summary(self, task_id: str = "",
+                      timeout: float = 10.0) -> dict:
+        """What was recorded, by task id. With ``task_id``, once that task's
+        terminal message has been read (or ``timeout`` passed): a child's
+        last messages are sent, not yet read here, when its request
+        returns."""
+        if task_id:
+            ended = self._ended.setdefault(task_id, asyncio.Event())
+            try:
+                await asyncio.wait_for(ended.wait(), timeout)
+            except asyncio.TimeoutError:
+                pass
+        return {t: {"messages": dict(r["messages"]),
+                    "reported": r["reported"], "pieces": len(r["pieces"])}
+                for t, r in self.records.items()}
+
+
+class P2PParentDaemon:
+    """The parent's daemon: the port's ``StorageManager``, ``PieceManager``
+    and ``TaskManager`` (no scheduler: it fetches back-to-source), its
+    ``UploadManager`` and ``DaemonRpcServer``, and the stand-in scheduler
+    over its storage."""
+
+    async def start(self, data_dir: str) -> str:
+        self.storage = StorageManager(StorageOption(data_dir=data_dir))
+        self.task_manager = TaskManager(
+            self.storage, PieceManager(PieceManagerOption(),
+                                       limiter=Limiter()))
+        self.upload = UploadManager(self.storage)
+        upload_port = self.upload.serve(P2P_HOST)
+        self.rpc = DaemonRpcServer(self.task_manager)
+        await self.rpc.serve_peer(NetAddr.tcp(P2P_HOST, 0))
+        self.scheduler = StandInScheduler(self.storage, host_record(
+            "chip-parent", self.rpc.peer_server.port(), upload_port,
+            host_type=1))
+        return await self.scheduler.serve()
+
+    async def fetch(self, url: str, digest: str) -> float:
+        t0 = time.perf_counter()
+        req = FileTaskRequest(url=url, output="", meta=UrlMeta(digest=digest))
+        last = [p async for p in self.task_manager.start_file_task(req)][-1]
+        if last.state != "done" or last.from_p2p:
+            raise AssertionError(f"p2p parent: fetch {last.to_wire()}")
+        return time.perf_counter() - t0
+
+    async def close(self) -> None:
+        await self.scheduler.server.close()
+        await self.rpc.close()
+        self.upload.close()
+        self.storage.close()
+
+
+def _p2p_parent(conn, path: str, data_dir: str, sha: str) -> None:
+    """The body of ``P2PParent``'s process: a stand-in origin over the
+    shard's file, the parent's daemon fetching the shard from it twice
+    (with no digest and with ``sha``: two tasks, both done, their piece
+    digests their own), then answers to the measured process until told
+    to stop. Its event loop runs on a thread of its own; the pipe is
+    served here."""
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever, name="df-p2p-parent",
+                              daemon=True)
+    thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result()
+
+    gw = StandInGateway()
+    for (bucket, key), data in origin_objects(path).items():
+        gw.put(bucket, key, data)
+    url = f"{gw.start()}/buckets/{ORIGIN_BUCKET}/objects/{GATEWAY_KEY}"
+    daemon = P2PParentDaemon()
+    try:
+        scheduler = run(daemon.start(data_dir))
+        fetch_s = [run(daemon.fetch(url, digest)) for digest in ("", sha)]
+        conn.send({"url": url, "scheduler": scheduler, "fetch_s": fetch_s})
+        while True:
+            msg = conn.recv()
+            if msg[0] == "stop":
+                conn.send(None)
+                return
+            scheduler = run(daemon.scheduler.summary(msg[1]))
+            conn.send({"origin": gw.requests(),
+                       "upload_bytes": UPLOAD_BYTES.value(),
+                       "upload_requests": UPLOAD_REQUESTS.value("ok"),
+                       "scheduler": scheduler,
+                       "cpu_s": time.process_time()})
+    finally:
+        run(daemon.close())
+        gw.close()
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10)
+
+
+class P2PParent(StandInProcess):
+    """``P2PParentDaemon`` and its stand-in origin in a process of its own
+    (spawned), as a parent is another host: its serving does not share the
+    measured child's interpreter lock. ``endpoint()`` waits for its two
+    fetches and gives the origin's URL and the scheduler's address;
+    ``stats()`` the origin's requests, the upload server's served bytes
+    and requests, and what the stand-in scheduler recorded."""
+
+    def __init__(self, path: str, data_dir: str, sha: str):
+        super().__init__(None, path, data_dir, sha)
+
+    def start(self) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_p2p_parent,
+                                 args=(child, *self._args), daemon=True,
+                                 name="df-p2p-parent")
+        self._proc.start()
+        child.close()
+
+    def stats(self, task_id: str = "") -> dict:
+        """With ``task_id``, once the scheduler has read that task's
+        terminal message."""
+        return self._ask("stats", task_id)
+
+
+async def _p2p_requests(d: StandInDaemon, url: str, sha: str,
+                        parent: P2PParent, host: torch.Tensor, spans: dict,
+                        layout, device) -> dict:
+    """The two requests of the P2P phase through ``download_to_device``:
+    with no digest, then with the shard's sha256; each checked, counted
+    and timed."""
+    sinks = d.device_sinks
+    out = {}
+    for what in ("plain", "digest"):
+        await asyncio.sleep(0)
+        sinks.reset()
+        rehash = (COMPLETION_REHASH.value("skipped"),
+                  COMPLETION_REHASH.value("hashed"))
+        before = parent.stats()
+        _sync(device)
+        base = _memory_mark(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        result = await download_to_device(
+            d, url, digest=sha if what == "digest" else "")
+        u8 = result.as_bytes_array()
+        verify_u8_against_host(u8, result.sink.sink.piece_size,
+                               result.sink.sink.host_checksums)
+        tensors = result.load_safetensors()
+        _sync(device)
+        wall = time.perf_counter() - t0
+        peak = _memory_mark(device, peak=True) - base
+        launches = checksum.launch_counts()
+        after = parent.stats(result.task_id)
+        if not torch.equal(u8, host):
+            raise AssertionError(f"p2p {what}: landed bytes differ from the "
+                                 "shard")
+        if set(tensors) != {n for n, _ in layout}:
+            raise AssertionError(f"p2p {what}: tensors {sorted(tensors)}")
+        for name, t in tensors.items():
+            b, e = spans[name]
+            if t.dtype != torch.bfloat16 or not torch.equal(
+                    t.reshape(-1).view(torch.uint8), host[b:e]):
+                raise AssertionError(f"p2p {what}: {name} differs from the "
+                                     "shard")
+        if not result.from_p2p or result.from_reuse:
+            raise AssertionError(f"p2p {what}: from_p2p {result.from_p2p}, "
+                                 f"from_reuse {result.from_reuse}")
+        timings = d.conductors[-1].downloader.timings
+        out[what] = {
+            "task_id": result.task_id, "bytes": int(u8.numel()),
+            "tensors": len(tensors), "wall_s": wall, "launches": launches,
+            "peak_device_bytes": peak,
+            "origin": _origin_delta(before["origin"], after["origin"]),
+            "upload_bytes": after["upload_bytes"] - before["upload_bytes"],
+            "upload_requests": after["upload_requests"]
+            - before["upload_requests"],
+            "scheduler": after["scheduler"].get(result.task_id, {}),
+            "rehash": {"skipped": COMPLETION_REHASH.value("skipped")
+                       - rehash[0],
+                       "hashed": COMPLETION_REHASH.value("hashed")
+                       - rehash[1]},
+            "land_s": sinks.finalized - sinks.first,
+            "last_piece_to_finalize_s": sinks.finalize_start
+            - sinks.last_piece,
+            "sink_busy_s": sinks.busy_s - sinks.busy_from,
+            "get_wait_s": timings["get_wait_s"],
+            "store_write_s": timings["store_write_s"],
+            "parent_cpu_s": after["cpu_s"] - before["cpu_s"],
+            **{key: getattr(result.sink.sink, key) for key in (
+                "host_checksum_s", "stage_s", "stage_wait_s")}}
+        tensors = result = u8 = None   # each landing goes in turn
+    await d.scheduler_client.close()
+    return out
+
+
+def phase_p2p(content: np.ndarray, spans: dict, layout,
+              device: torch.device) -> dict:
+    """The shard pulled from a parent on this host, in a process of its
+    own, through the port's P2P path: two ``download_to_device`` requests
+    (no digest; the shard's sha256), each registered with the stand-in
+    scheduler, every piece fetched from the parent's upload server in
+    runs and landed by K2 as it arrives. Checks every byte and tensor, no
+    origin request, the bytes the parent served, the reports the
+    scheduler saw, each request's launches, the digest request's skipped
+    re-hash, and (after the timed window) that store's digest against the
+    shard's sha256."""
+    tmp = tempfile.mkdtemp(prefix="df-chip-p2p-")
+    parent = d = None
+    try:
+        # The origin's file, the parent's two stores and the child's two,
+        # with a GiB to spare.
+        need = 5 * content.size + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(
+                f"the p2p phase needs {need} B free under {tmp} (the "
+                f"origin's file and four stores); {free} B are")
+        path = os.path.join(tmp, GATEWAY_KEY)
+        content.tofile(path)
+        sha = "sha256:" + hashlib.sha256(memoryview(content)).hexdigest()
+        parent = P2PParent(path, os.path.join(tmp, "parent"), sha)
+        parent.start()
+        info = parent.endpoint()
+        d = StandInDaemon(os.path.join(tmp, "child"), device,
+                          scheduler=info["scheduler"])
+        host = torch.from_numpy(content).to(device)
+        out = asyncio.run(_p2p_requests(d, info["url"], sha, parent, host,
+                                        spans, layout, device))
+        del host
+        n_pieces = compute_piece_count(content.size,
+                                       compute_piece_size(content.size))
+        k2 = -(-n_pieces // BATCH_PIECES)
+        for what, r in out.items():
+            if r["origin"]:
+                raise AssertionError(f"p2p {what}: origin saw {r['origin']}")
+            if r["upload_bytes"] != content.size:
+                raise AssertionError(f"p2p {what}: the parent served "
+                                     f"{r['upload_bytes']} B")
+            sched = r["scheduler"]
+            msgs = sched.get("messages", {})
+            if (sched.get("reported") != n_pieces
+                    or sched.get("pieces") != n_pieces
+                    or msgs.get("download_finished") != 1
+                    or msgs.get("register") != 1
+                    or "download_failed" in msgs or "reschedule" in msgs):
+                raise AssertionError(f"p2p {what}: the scheduler saw {sched}")
+            want_rehash = {"skipped": int(what == "digest"), "hashed": 0}
+            if r["rehash"] != want_rehash:
+                raise AssertionError(f"p2p {what}: completion re-hash "
+                                     f"{r['rehash']}, want {want_rehash}")
+            if _on_card(device) and r["launches"] != {
+                    "chunk_checksums": 2, "land_and_checksum": k2,
+                    "gear_candidates": 0}:
+                raise AssertionError(f"p2p {what}: launches {r['launches']}, "
+                                     f"want K1 2, K2 {k2}")
+        store = d.storage.find_completed_task(out["digest"]["task_id"])
+        t0 = time.perf_counter()
+        got = store.validate_digest(sha)
+        validate_s = time.perf_counter() - t0
+        if got != sha or store.metadata.digest != sha:
+            raise AssertionError(f"p2p digest: the child's store holds {got}")
+        launches = {k: sum(r["launches"][k] for r in out.values())
+                    for k in out["plain"]["launches"]}
+        return {**out, "launches": launches, "sha256": sha,
+                "validated": got, "validate_s": validate_s,
+                "parent_fetch_s": info["fetch_s"], "pieces": n_pieces,
+                "want_k2": 2 * k2}
+    finally:
+        if d is not None:
+            d.close()
+        if parent is not None:
+            parent.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 # The entry and bench pair: entry(), the train step, the device bench
 # --------------------------------------------------------------------- #
 
@@ -2489,7 +2896,7 @@ BENCH_LAUNCHES = {"chunk_checksums": 6 + 41 + 2,
 def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k3_chunker: int, want_k3_manifest: int,
                    want_k2_wds: int, want_k3_gateway: int,
-                   want_k2_daemon: int) -> None:
+                   want_k2_daemon: int, want_k2_p2p: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -2504,7 +2911,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     else. The daemon path: K2 once per batch of each of its landings (the
     cold request's, the warm one's backfill, the sharded one's ranged
     tasks, the digest request's), K1 twice in the gate after each of its
-    three whole landings."""
+    three whole landings. The p2p path: K2 once per batch of each of its
+    two landings from the parent, K1 twice in the gate after each."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -2518,7 +2926,7 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "cdc_swap": k(2, 0, want_k3_manifest),
             "wds": k(0, want_k2_wds),
             "gateway_manifest": k(0, 0, want_k3_gateway),
-            "daemon": k(6, want_k2_daemon)}
+            "daemon": k(6, want_k2_daemon), "p2p": k(4, want_k2_p2p)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -2805,6 +3213,35 @@ def main(argv=None) -> int:
           f"{warm['peak_device_bytes'] / 1e9:.3f} GB, sharded "
           f"{shd['peak_device_bytes'] / 1e9:.3f} GB, digest "
           f"{dig['peak_device_bytes'] / 1e9:.3f} GB, on {smi}")
+    p2p = phase_p2p(content, spans, layout, device)
+    torch.cuda.empty_cache()
+    print("p2p:", json.dumps(p2p))
+    for what, r in (("no digest", p2p["plain"]), ("sha256", p2p["digest"])):
+        print(f"p2p {what}: {r['bytes']} B pulled from the parent process "
+              f"({r['upload_requests']:.0f} upload requests, "
+              f"{r['upload_bytes']:.0f} B served, no origin request; "
+              f"{r['scheduler']['reported']} pieces reported, "
+              f"{r['scheduler']['messages'].get('download_finished')} "
+              f"download_finished) in {r['wall_s']:.3f} s, {r['tensors']} "
+              f"tensors equal to the shard; land_s {r['land_s']:.4f} s "
+              f"(first on_piece to finalize returned); the sink's worker "
+              f"busy {r['sink_busy_s']:.4f} s of it (host checksum "
+              f"{r['host_checksum_s']:.4f} s, staging {r['stage_s']:.4f} s); "
+              f"summed over the piece workers, GET wait "
+              f"{r['get_wait_s']:.4f} s and store write "
+              f"{r['store_write_s']:.4f} s; last piece to finalize "
+              f"{r['last_piece_to_finalize_s']:.4f} s (re-hash skipped "
+              f"{r['rehash']['skipped']:.0f}, hashed "
+              f"{r['rehash']['hashed']:.0f}); K2 "
+              f"{r['launches']['land_and_checksum']}, K1 "
+              f"{r['launches']['chunk_checksums']}; the parent's CPU "
+              f"{r['parent_cpu_s']:.3f} s; peak device memory "
+              f"{r['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+    print(f"p2p: the parent fetched the shard back-to-source in "
+          f"{p2p['parent_fetch_s'][0]:.3f} s and (with the sha256) "
+          f"{p2p['parent_fetch_s'][1]:.3f} s; after the requests the "
+          f"child's digest store validate_digest() == the shard's sha256 "
+          f"in {p2p['validate_s']:.3f} s")
 
     swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
                                    piece_size, gen, device)
@@ -2957,11 +3394,11 @@ def main(argv=None) -> int:
              "bench": ben["launches"], "chunker": chunker["launches"],
              "manifest": man["launches"], "cdc_swap": cdc["launches"],
              "wds": wds["launches"], "gateway_manifest": gwm["launches"],
-             "daemon": dmn["launches"]}
+             "daemon": dmn["launches"], "p2p": p2p["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
-                   sum(dmn["want_k2"].values()))
+                   sum(dmn["want_k2"].values()), p2p["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

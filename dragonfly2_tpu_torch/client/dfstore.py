@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import http.client
 import json
-import socket
 import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
@@ -33,7 +32,7 @@ from dataclasses import dataclass
 from typing import AsyncIterator
 from urllib.parse import quote, urlencode, urlsplit
 
-from dragonfly2_tpu_torch.pkg.bufpool import await_worker
+from dragonfly2_tpu_torch.pkg.bufpool import WorkerCall, await_worker
 
 # Bytes a streamed read hands out at a time (the JAX client's
 # ``iter_chunked(1 << 20)``). Each chunk is exactly this long but the last.
@@ -60,49 +59,6 @@ class ObjectInfo:
     content_type: str = ""
     etag: str = ""
     digest: str = ""
-
-
-class _Aborted(Exception):
-    """The caller was cancelled; its worker stops."""
-
-
-class _Call:
-    """The connections one call's worker is using, so the caller can cut
-    them when it is cancelled."""
-
-    def __init__(self):
-        self._mu = threading.Lock()
-        self._conns: list[http.client.HTTPConnection] = []
-        self.stopped = False
-
-    def attach(self, conn) -> None:
-        with self._mu:
-            if self.stopped:
-                raise _Aborted()
-            self._conns.append(conn)
-
-    def detach(self, conn) -> None:
-        """The worker is done with ``conn``. A cancel may have cut its
-        socket after the worker's last read, so a stopped call closes it:
-        the worker's next request opens a fresh connection."""
-        with self._mu:
-            self._conns.remove(conn)
-            if self.stopped:
-                conn.close()
-
-    def abort(self) -> None:
-        with self._mu:
-            self.stopped = True
-            for conn in self._conns:
-                if conn.sock is not None:
-                    try:
-                        conn.sock.shutdown(socket.SHUT_RDWR)
-                    except OSError:
-                        pass
-
-    def check(self) -> None:
-        if self.stopped:
-            raise _Aborted()
 
 
 def _text(raw: bytes) -> str:
@@ -158,12 +114,12 @@ class Dfstore:
     async def _run(self, fn, *args):
         """``fn(call, *args)`` on a worker; a cancel cuts its connections
         and waits for it to stop."""
-        call = _Call()
+        call = WorkerCall()
         fut = self._executor().submit(fn, call, *args)
         return await await_worker(fut, call.abort)
 
     @staticmethod
-    def _send(conn, call: _Call, method: str, path: str, headers: dict,
+    def _send(conn, call: WorkerCall, method: str, path: str, headers: dict,
               body, timeout):
         """Send one request and read its status line and headers:
         ``(resp, sock)``, each socket wait bounded by ``timeout``. A
@@ -205,8 +161,8 @@ class Dfstore:
                 return b"".join(parts)
             parts.append(chunk)
 
-    def _roundtrip(self, call: _Call, method: str, path: str, headers: dict,
-                   body):
+    def _roundtrip(self, call: WorkerCall, method: str, path: str,
+                   headers: dict, body):
         """One request on this worker's connection, bounded by
         ``timeout``: ``(status, headers, body bytes)``. The body is read
         to its end, so the connection stays alive."""
@@ -286,7 +242,7 @@ class Dfstore:
             raise DfstoreError(_text(raw), status)
         return raw
 
-    def _open_stream(self, call: _Call, path: str, headers: dict):
+    def _open_stream(self, call: WorkerCall, path: str, headers: dict):
         """A GET on a connection of the stream's own, its status and
         headers read: ``(conn, resp)``."""
         conn = self._new_conn()
@@ -304,7 +260,7 @@ class Dfstore:
             call.detach(conn)
 
     @staticmethod
-    def _read_chunk(call: _Call, conn, resp) -> bytes:
+    def _read_chunk(call: WorkerCall, conn, resp) -> bytes:
         call.attach(conn)
         try:
             chunk = resp.read(STREAM_CHUNK)
@@ -340,8 +296,8 @@ class Dfstore:
 
         return chunks()
 
-    def _read_range(self, call: _Call, path: str, headers: dict, start: int,
-                    end: int, buf):
+    def _read_range(self, call: WorkerCall, path: str, headers: dict,
+                    start: int, end: int, buf):
         n = end - start
         conn = self._thread_conn()
         call.attach(conn)
@@ -437,7 +393,7 @@ class Dfstore:
         if status != 200:
             raise DfstoreError(_text(raw), status)
 
-    def _copy(self, call: _Call, src_path: str, dst_path: str):
+    def _copy(self, call: WorkerCall, src_path: str, dst_path: str):
         src, resp = self._open_stream(call, src_path, {})
 
         def body():

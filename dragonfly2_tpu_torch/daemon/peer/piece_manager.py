@@ -76,6 +76,12 @@ class PieceManager:
         # exceed the wall time of a download.
         self.timings = {"origin_wait_s": 0.0, "store_write_s": 0.0}
 
+    @property
+    def limiter(self) -> Limiter:
+        """The daemon's download limiter (a P2P pull's conductor shares
+        it)."""
+        return self._limiter
+
     async def _timed(self, body):
         """``body``'s chunks, the time spent waiting for each counted."""
         t = time.perf_counter()

@@ -1,5 +1,5 @@
-"""The daemon's task manager on its back-to-source path: the port's copy
-of ``dragonfly2_tpu/daemon/peer/task_manager.py``.
+"""The daemon's task manager: the port's copy of
+``dragonfly2_tpu/daemon/peer/task_manager.py``.
 
 ``start_file_task`` runs a file task and yields its progress:
 
@@ -7,13 +7,19 @@ of ``dragonfly2_tpu/daemon/peer/task_manager.py``.
 2. a ranged request for a file whose slice a local parent task covers:
    exported from the parent (``output`` set, no device);
 3. dedup: a request for a task already running waits for it;
-4. a fresh download: a ranged task whose slice a local parent covers
-   imports it (``import_range_from_local_parent``); any other goes to the
-   origin (``PieceManager.download_source``). Each landed piece is
-   published on the broker and, for ``device="tpu"``, landed in the
+4. a fresh download: with a scheduler client and a conductor factory,
+   a ``PeerTaskConductor`` (``daemon/peer/conductor.py``) registers with
+   the scheduler and pulls the pieces from parents (or demotes to the
+   origin); without them, a ranged task whose slice a local parent covers
+   imports it (``import_range_from_local_parent``) and any other goes to
+   the origin (``PieceManager.download_source``). Each landed piece is
+   published on the broker with its digest (a child's sync stream reads
+   them, ``daemon/rpcserver.py``) and, for ``device="tpu"``, landed in the
    device sink as it arrives; at completion the whole-content digest is
-   checked, the output stored, and the device sink finalized (backfill
-   plus the on-card check).
+   checked, unless a done parent's digest map certifies every piece
+   (``peer_completion_rehash_total{result="skipped"}``), the output
+   stored, and the device sink finalized (backfill plus the on-card
+   check).
 
 The wire value that asks for the device sink stays ``device="tpu"``, the
 literal the JAX daemon tests for: the port's client sends it. A device
@@ -22,13 +28,15 @@ corruption of the device copy fails the request with
 ``ClientPieceDownloadFail`` while the disk store stays complete and
 reusable, and a kernel fault (``KernelError``) propagates.
 
-Not ported yet: the P2P conductor and PEX (a task manager here has no
-scheduler, so ``disable_back_source`` fails a task that no local parent
-covers), stream and seed tasks, the delta task, ranged prefetch, the
-flight recorder, the quarantine, and the traffic shaper's wiring (it
-comes with the daemon's config and loop; origin reads go through the
-piece manager's one limiter). ``import_task(persistent=True)``
-needs a scheduler and raises as the JAX task manager does without one.
+An imported task is announced to the scheduler (``AnnounceTask``), so
+that it can be handed out as a parent.
+
+Not ported yet: PEX (a task manager without a scheduler fails a
+``disable_back_source`` task that no local parent covers), stream and
+seed tasks, the delta task, ranged prefetch, the flight recorder, the
+quarantine, the persistent import (``import_task(persistent=True)``
+raises), and the traffic shaper's wiring (it comes with the daemon's
+config and loop; downloads go through the piece manager's one limiter).
 """
 
 from __future__ import annotations
@@ -69,8 +77,8 @@ log = dflog.get("peer.task_manager")
 # The daemon's wire value for "also land the pieces in device memory".
 DEVICE_SINK = "tpu"
 
-# Completion-time whole-content digest decisions, by result: "hashed" when
-# the re-hash ran. ("skipped", a certified piece chain, needs the P2P path.)
+# Completion-time whole-content digest decisions: "skipped" when a done
+# parent's digest map certified every piece, "hashed" when the re-hash ran.
 COMPLETION_REHASH = metrics.counter(
     "peer_completion_rehash_total",
     "Completion-time whole-content digest decisions", ("result",))
@@ -155,6 +163,9 @@ class TaskManager:
         piece_manager: PieceManager,
         *,
         host_ip: str = "127.0.0.1",
+        scheduler_client=None,
+        conductor_factory=None,
+        host_wire=None,
         device_sinks=None,
     ):
         self.storage = storage
@@ -163,6 +174,14 @@ class TaskManager:
         # DeviceSinkManager), chosen per task by FileTaskRequest.device.
         self.device_sinks = device_sinks
         self.host_ip = host_ip
+        self.scheduler_client = scheduler_client
+        # conductor_factory(task_id=, peer_id=, request=, store=,
+        # on_piece=, limiter=) -> a conductor with run() and
+        # from_p2p (daemon/peer/conductor.conductor_factory).
+        self.conductor_factory = conductor_factory
+        # () -> the host's AnnounceHost-shaped dict: the identity imported
+        # tasks are announced under.
+        self.host_wire = host_wire
         self.broker = PieceBroker()
         self._running: dict[str, _RunningTask] = {}
         # The last delta landing's accounting by task id (the delta plane
@@ -174,9 +193,9 @@ class TaskManager:
     async def _run_download(self, task_id: str, peer_id: str,
                             req: FileTaskRequest, store,
                             progress_q: "_ProgressAggregator | None") -> bool:
-        """Download into ``store``; returns from_p2p (always False here).
-        Each piece is published on the broker and, for a device request,
-        landed in the device sink as it arrives."""
+        """Download into ``store``; returns from_p2p. Each piece is
+        published on the broker and, for a device request, landed in the
+        device sink as it arrives."""
         # Ranged tasks land too: the store's piece grid is slice-relative,
         # so the sink's geometry is the slice's (download_sharded).
         sink_wanted = req.device == DEVICE_SINK and self.device_sinks is not None
@@ -191,6 +210,13 @@ class TaskManager:
             if progress_q is not None:
                 await progress_q.on_piece(st, rec)
 
+        if (self.scheduler_client is not None
+                and self.conductor_factory is not None):
+            conductor = self.conductor_factory(
+                task_id=task_id, peer_id=peer_id, request=req, store=store,
+                on_piece=on_piece, limiter=self.piece_manager.limiter)
+            await conductor.run()
+            return conductor.from_p2p
         # A ranged task whose slice a local parent covers imports it
         # without touching the origin (allowed even with the origin off the
         # table). Origin reads go through the piece manager's own limiter.
@@ -214,10 +240,10 @@ class TaskManager:
     async def import_task(self, path: str, req: FileTaskRequest, *,
                           persistent: bool = False, replica_count: int = 1,
                           ttl: float = 0.0) -> dict:
-        """Import a local file as a completed task. A persistent import
-        registers with the scheduler, which this task manager has none of:
-        it raises ``DfError(BadRequest)`` as the JAX one does without a
-        scheduler connection."""
+        """Import a local file as a completed task and announce it to the
+        scheduler. The persistent import is not ported: it raises
+        ``DfError(BadRequest)``, as the JAX one does without a scheduler
+        connection."""
         if persistent:
             raise DfError(Code.BadRequest,
                           "persistent import needs a scheduler connection")
@@ -240,11 +266,35 @@ class TaskManager:
                     # A half-imported store must not be resumed by a retry.
                     store.mark_invalid()
                     raise
+        await self._announce_local_task(store, task_id, peer_id)
         return {"task_id": task_id, "peer_id": peer_id,
                 "pieces": len(store.metadata.pieces),
                 "piece_size": store.metadata.piece_size,
                 "total_piece_count": store.metadata.total_piece_count,
                 "content_length": store.metadata.content_length}
+
+    async def _announce_local_task(self, store, task_id: str,
+                                   peer_id: str) -> None:
+        """Tell the scheduler this host holds the complete task, so that it
+        can be scheduled as a parent (``Scheduler.AnnounceTask``)."""
+        if self.scheduler_client is None or self.host_wire is None:
+            return
+        try:
+            host_info = dict(self.host_wire())
+            if not host_info:
+                return
+            host_info.pop("telemetry", None)
+            m = store.metadata
+            await self.scheduler_client.announce_task({
+                "task_id": task_id, "peer_id": peer_id, "url": m.url,
+                "tag": m.tag, "application": m.application, "host": host_info,
+                "content_length": m.content_length, "piece_size": m.piece_size,
+                "total_piece_count": m.total_piece_count,
+                "piece_nums": sorted(m.pieces.keys()),
+            })
+        except Exception as e:
+            log.warning("announce_task failed", task_id=task_id[:16],
+                        error=str(e))
 
     # -- file task ---------------------------------------------------------
 
@@ -393,6 +443,9 @@ class TaskManager:
 
     # -- helpers -----------------------------------------------------------
 
+    def is_task_running(self, task_id: str) -> bool:
+        return task_id in self._running
+
     def _final_progress(self, store, task_id: str, peer_id: str, *,
                         from_reuse: bool = False, from_p2p: bool = False,
                         device_verified: bool = False) -> FileTaskProgress:
@@ -491,14 +544,19 @@ class TaskManager:
     async def _finalize_content_digest(self, req: FileTaskRequest,
                                        store) -> None:
         """The one completion-digest decision: none for a ranged task (the
-        digest names the whole object); else the whole-content re-hash,
+        digest names the whole object); else skipped when every piece's
+        verified-against digest matches a done parent's map (its own
+        completion gate anchors the chain), or the whole-content re-hash,
         off the loop. A back-to-source task's piece digests are its own,
-        so no certified piece chain can skip it."""
+        so no certified chain can skip it."""
         if not LocalTaskStore.completion_digest_applies(
                 req.meta.digest, req.range is not None):
             return
-        COMPLETION_REHASH.labels("hashed").inc()
-        await asyncio.to_thread(store.validate_digest, req.meta.digest)
+        if store.pieces_all_digest_verified():
+            COMPLETION_REHASH.labels("skipped").inc()
+        else:
+            COMPLETION_REHASH.labels("hashed").inc()
+            await asyncio.to_thread(store.validate_digest, req.meta.digest)
         store.metadata.digest = req.meta.digest
 
     async def _finalize_device(self, req: FileTaskRequest, task_id: str,

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import asyncio
 import concurrent.futures
+import socket
 import threading
 
 from dragonfly2_tpu_torch.pkg import metrics
@@ -138,3 +139,50 @@ async def await_worker(future, abort=None):
             if not waiter.cancelled():
                 waiter.exception()   # retrieved: the caller gets the cancel
         raise
+
+
+class CallAborted(Exception):
+    """The caller was cancelled; its worker stops."""
+
+
+class WorkerCall:
+    """The connections one call's worker is using, so that a cancelled
+    caller can cut them: ``abort`` is the abort to hand ``await_worker``.
+    The HTTP clients on worker threads (the origin's, the object
+    gateway's and the piece downloader's) share it."""
+
+    def __init__(self):
+        self._mu = threading.Lock()
+        self._conns: list = []
+        self.stopped = False
+
+    def attach(self, conn) -> None:
+        with self._mu:
+            if self.stopped:
+                raise CallAborted()
+            self._conns.append(conn)
+
+    def detach(self, conn) -> None:
+        """The worker is done with ``conn``. A cancel may have cut its
+        socket after the worker's last read, so a stopped call closes it:
+        the worker's next request opens a fresh connection. A ``conn``
+        whose attach was refused is not on the list."""
+        with self._mu:
+            if conn in self._conns:
+                self._conns.remove(conn)
+            if self.stopped:
+                conn.close()
+
+    def abort(self) -> None:
+        with self._mu:
+            self.stopped = True
+            for conn in self._conns:
+                if conn.sock is not None:
+                    try:
+                        conn.sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
+
+    def check(self) -> None:
+        if self.stopped:
+            raise CallAborted()

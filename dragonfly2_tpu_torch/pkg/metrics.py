@@ -125,3 +125,22 @@ def counter(name: str, doc: str, labels: tuple[str, ...] = ()) -> Counter:
 
 def gauge(name: str, doc: str, labels: tuple[str, ...] = ()) -> Gauge:
     return _get_or_create(Gauge, name, doc, labels)
+
+
+def render() -> tuple[bytes, str]:
+    """Every family in the Prometheus text format, and its content type
+    (the upload server's ``/metrics``)."""
+    lines = []
+    with _lock:
+        families = sorted(_metrics.items())
+    for name, m in families:
+        kind = "counter" if isinstance(m, Counter) else "gauge"
+        lines += [f"# HELP {name} {m.doc}", f"# TYPE {name} {kind}"]
+        with m._lock:
+            values = sorted(m._values.items())
+        for key, value in values:
+            labels = ",".join(f'{k}="{v}"' for k, v in zip(m.labelnames, key))
+            lines.append(f"{name}{{{labels}}} {value}" if labels
+                         else f"{name} {value}")
+    return ("\n".join(lines) + "\n").encode(), \
+        "text/plain; version=0.0.4; charset=utf-8"

@@ -8,6 +8,7 @@ gives the reference's piece manager, upload manager and traffic shaper.
 from __future__ import annotations
 
 import asyncio
+import threading
 import time
 
 INF = float("inf")
@@ -109,3 +110,38 @@ class Limiter:
                 self._tokens += n
                 raise
         return time.monotonic() - start
+
+
+class BlockingLimiter:
+    """The same token bucket for worker threads: ``wait`` sleeps the
+    calling thread, and one lock held through the sleep keeps waiters in
+    order (the upload server's threads share one)."""
+
+    def __init__(self, limit: float = INF):
+        self._limit = limit
+        # A second's worth of tokens, as Limiter's default burst.
+        self._burst = max(1, int(limit)) if limit != INF else 1 << 62
+        self._tokens = float(self._burst)
+        self._last = time.monotonic()
+        self._lock = threading.Lock()
+
+    def wait(self, n: int = 1) -> float:
+        """Block until ``n`` tokens are available; returns seconds waited.
+        A request larger than the bucket pays across several fills."""
+        if self._limit == INF:
+            return 0.0
+        waited = 0.0
+        while n > 0:
+            take = min(n, self._burst)
+            n -= take
+            with self._lock:
+                now = time.monotonic()
+                self._tokens = min(float(self._burst), self._tokens
+                                   + (now - self._last) * self._limit)
+                self._last = now
+                self._tokens -= take
+                if self._tokens < 0:
+                    delay = -self._tokens / self._limit
+                    time.sleep(delay)
+                    waited += delay
+        return waited

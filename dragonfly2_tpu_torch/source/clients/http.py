@@ -32,7 +32,6 @@ from __future__ import annotations
 import html.parser
 import http.client
 import os
-import socket
 import ssl
 import threading
 import time
@@ -40,7 +39,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import AsyncIterator
 from urllib.parse import urljoin, urlsplit
 
-from dragonfly2_tpu_torch.pkg.bufpool import await_worker
+from dragonfly2_tpu_torch.pkg.bufpool import WorkerCall, await_worker
 from dragonfly2_tpu_torch.pkg.errors import Code, SourceError, describe
 from dragonfly2_tpu_torch.source.client import (
     UNKNOWN_SOURCE_FILE_LEN,
@@ -91,40 +90,6 @@ def _ssl_config() -> ssl.SSLContext:
     return ctx
 
 
-class _Aborted(Exception):
-    """The caller was cancelled; its worker stops."""
-
-
-class _Call:
-    """The connection one call's worker is using, so that a cancelled
-    caller can cut it."""
-
-    def __init__(self):
-        self._mu = threading.Lock()
-        self._conn = None
-        self.stopped = False
-
-    def attach(self, conn) -> None:
-        with self._mu:
-            if self.stopped:
-                raise _Aborted()
-            self._conn = conn
-
-    def detach(self) -> None:
-        with self._mu:
-            self._conn = None
-
-    def abort(self) -> None:
-        with self._mu:
-            self.stopped = True
-            conn = self._conn
-            if conn is not None and conn.sock is not None:
-                try:
-                    conn.sock.shutdown(socket.SHUT_RDWR)
-                except OSError:
-                    pass
-
-
 class _Exchange:
     """One response and the connection it arrived on."""
 
@@ -157,7 +122,7 @@ class HTTPSourceClient(ResourceClient):
     async def _run(self, fn, *args):
         """``fn(call, *args)`` on a worker; a cancel cuts the call's
         connection and waits for the worker to stop."""
-        call = _Call()
+        call = WorkerCall()
         fut = self._executor().submit(fn, call, *args)
         return await await_worker(fut, call.abort)
 
@@ -204,7 +169,7 @@ class HTTPSourceClient(ResourceClient):
             raise TimeoutError("request timed out")
         return min(READ_TIMEOUT, left)
 
-    def _exchange(self, call: _Call, method: str, url: str, headers: dict,
+    def _exchange(self, call: WorkerCall, method: str, url: str, headers: dict,
                   total: float) -> _Exchange:
         """Send ``method url`` and read the status line and headers,
         following redirects. A kept-alive connection that proves stale is
@@ -222,8 +187,8 @@ class HTTPSourceClient(ResourceClient):
                                           else "")
             while True:
                 conn, reused = self._checkout(key)
-                call.attach(conn)
                 try:
+                    call.attach(conn)
                     if reused:
                         conn.sock.settimeout(self._wait_budget(deadline))
                     conn.request(method, path, headers=headers)
@@ -238,7 +203,7 @@ class HTTPSourceClient(ResourceClient):
                     conn.close()
                     raise
                 finally:
-                    call.detach()
+                    call.detach(conn)
             ex = _Exchange(key, conn, resp, url, deadline)
             location = resp.getheader("Location")
             if resp.status not in _REDIRECTS or not location:
@@ -250,7 +215,7 @@ class HTTPSourceClient(ResourceClient):
         raise SourceError(f"origin {url}: too many redirects",
                           Code.BackToSourceAborted)
 
-    def _read(self, call: _Call, ex: _Exchange, amt: int | None) -> bytes:
+    def _read(self, call: WorkerCall, ex: _Exchange, amt: int | None) -> bytes:
         """Up to ``amt`` body bytes (None: the rest); b"" at the end. A
         body cut before its declared length raises IncompleteRead."""
         call.attach(ex.conn)
@@ -262,7 +227,7 @@ class HTTPSourceClient(ResourceClient):
                 raise http.client.IncompleteRead(b"", ex.resp.length)
             return data
         finally:
-            call.detach()
+            call.detach(ex.conn)
 
     @staticmethod
     def _check_encoding(ex: _Exchange) -> None:
@@ -275,7 +240,7 @@ class HTTPSourceClient(ResourceClient):
 
     # -- the protocol --------------------------------------------------------
 
-    def _open(self, call: _Call, request: Request) -> _Exchange:
+    def _open(self, call: WorkerCall, request: Request) -> _Exchange:
         try:
             ex = self._exchange(call, "GET", request.url,
                                 dict(request.header), request.timeout)
@@ -287,7 +252,7 @@ class HTTPSourceClient(ResourceClient):
         self._check_encoding(ex)
         return ex
 
-    def _read_chunk(self, call: _Call, ex: _Exchange) -> bytes:
+    def _read_chunk(self, call: WorkerCall, ex: _Exchange) -> bytes:
         try:
             return self._read(call, ex, CHUNK)
         except (OSError, http.client.HTTPException) as e:
@@ -321,7 +286,7 @@ class HTTPSourceClient(ResourceClient):
             close=close,
         )
 
-    def _probe(self, call: _Call, request: Request) -> tuple[int, bool]:
+    def _probe(self, call: WorkerCall, request: Request) -> tuple[int, bool]:
         headers = {**request.header, "Range": "bytes=0-0"}
         try:
             ex = self._exchange(call, "GET", request.url, headers,
@@ -362,7 +327,7 @@ class HTTPSourceClient(ResourceClient):
         _, support = await self.probe(request)
         return support
 
-    def _last_modified(self, call: _Call, request: Request) -> str:
+    def _last_modified(self, call: WorkerCall, request: Request) -> str:
         try:
             ex = self._exchange(call, "HEAD", request.url,
                                 dict(request.header), PROBE_TIMEOUT)
@@ -375,7 +340,7 @@ class HTTPSourceClient(ResourceClient):
     async def get_last_modified(self, request: Request) -> str:
         return await self._run(self._last_modified, request)
 
-    def _page(self, call: _Call, request: Request) -> str:
+    def _page(self, call: WorkerCall, request: Request) -> str:
         try:
             ex = self._exchange(call, "GET", request.url,
                                 dict(request.header), LIST_TIMEOUT)

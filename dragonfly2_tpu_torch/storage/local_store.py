@@ -17,6 +17,13 @@ Read buffers: ``read_range`` hands out views of pooled buffers
 ``release_read_buffer`` is ever reused, so a view a caller still holds is
 never recycled under it. ``read_piece`` returns fresh ``bytes`` (the
 device sink keeps them until its batch flushes).
+
+Certification, as in the JAX store: each write remembers the digest a
+piece was checked AGAINST (a parent's advertised one); a done parent's
+digest map that every piece matches (``apply_certification``) lets the
+completion skip its whole-content re-hash
+(``pieces_all_digest_verified``). The native-transport commit
+(``record_piece``) waits for the native piece fetch.
 """
 
 from __future__ import annotations
@@ -309,6 +316,7 @@ class LocalTaskStore:
         self._data_path = os.path.join(self.dir, DATA_FILE)
         self._fd: int | None = None
         self._pins = 0
+        self._pin_lock = threading.Lock()
         self._unsaved_pieces = 0
         self._last_meta_save = 0.0
         self._output_lock = threading.Lock()
@@ -317,15 +325,26 @@ class LocalTaskStore:
         # and the metadata record serialize here.
         self._meta_lock = threading.Lock()
         self._prefix_hasher: _PrefixHasher | None = None
+        # num -> the digest each piece was checked AGAINST when it landed
+        # (a parent's advertised value), as opposed to one it computed
+        # itself. In memory only: the completion re-hash skip is decided
+        # in the process that landed the pieces.
+        self._verified_pieces: dict[int, str] = {}
+        # Set at completion from a done parent's piece-digest map (its
+        # completion gate passed); the skip compares the verified-against
+        # digests to this map, piece by piece.
+        self.certified_digests: "dict[int, str] | None" = None
 
     # -- pinning: GC must not reclaim a store mid-download -----------------
 
     def pin(self) -> "LocalTaskStore":
-        self._pins += 1
+        with self._pin_lock:   # the upload server pins from its threads
+            self._pins += 1
         return self
 
     def unpin(self) -> None:
-        self._pins = max(0, self._pins - 1)
+        with self._pin_lock:
+            self._pins = max(0, self._pins - 1)
 
     @property
     def pinned(self) -> bool:
@@ -455,6 +474,8 @@ class LocalTaskStore:
             written = 0
             while written < len(mv):
                 written += os.pwrite(fd, mv[written:], offset + written)
+        if expected_digest:
+            self._verified_pieces[num] = expected_digest
         digest_str = expected_digest or f"{alg}:{got}"
         rec = PieceRecord(num=num, offset=offset, size=len(data),
                           digest=digest_str, cost_ms=cost_ms)
@@ -522,6 +543,7 @@ class LocalTaskStore:
                 raise _mismatch(num, want, digest_str)
             self._pwritev_chunks(fd, chunks, offset, num)
         if expected_digest:
+            self._verified_pieces[num] = expected_digest
             digest_str = expected_digest
         rec = PieceRecord(num=num, offset=offset, size=size,
                           digest=digest_str, cost_ms=cost_ms)
@@ -548,6 +570,46 @@ class LocalTaskStore:
         Never for a ranged task (the digest names the whole object) or a
         task without a digest."""
         return bool(digest) and not ranged
+
+    def pieces_verified_against_digests(self) -> bool:
+        """Every landed piece was checked against an advertised digest:
+        the precondition for any certified map to skip the re-hash. False
+        means waiting for a certification is futile."""
+        with self._meta_lock:
+            return all(n in self._verified_pieces
+                       for n in self.metadata.pieces)
+
+    def certifies(self, certified: "dict[int, str] | None") -> bool:
+        """Would this digest map certify the store: the content complete
+        and every piece's verified-against digest equal to the map's? The
+        per-piece comparison keeps provenance: pieces checked against a
+        corrupt, still-downloading parent's own digests do not match an
+        honest done parent's map, so they force the re-hash."""
+        if not certified or not self.is_complete():
+            return False
+        with self._meta_lock:
+            return all(self._verified_pieces.get(n) is not None
+                       and self._verified_pieces[n] == certified.get(n)
+                       for n in self.metadata.pieces)
+
+    def apply_certification(self, candidate_maps) -> bool:
+        """Install the first candidate map that certifies the store, so a
+        corrupt parent that completed first cannot mask an honest one. An
+        installed certifying map is never replaced. True when one is
+        installed."""
+        if self.certifies(self.certified_digests):
+            return True
+        for m in candidate_maps:
+            if self.certifies(m):
+                # A snapshot: the candidate is the dispatcher's live dict.
+                self.certified_digests = dict(m)
+                return True
+        return False
+
+    def pieces_all_digest_verified(self) -> bool:
+        """The installed ``certified_digests`` map certifies the store:
+        the completion re-hash may be skipped."""
+        return self.certifies(self.certified_digests)
 
     def _commit_piece_record(self, rec: PieceRecord,
                              feed_chunks=None) -> PieceRecord:

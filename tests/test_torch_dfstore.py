@@ -506,7 +506,7 @@ def test_a_connection_cut_by_a_cancel_is_not_used_again(run_async,
     stale-connection retry, here turned off)."""
     monkeypatch.setattr(pstore, "WORKERS", 1)
     monkeypatch.setattr(pstore, "_STALE", ())
-    detach = pstore._Call.detach
+    detach = pstore.WorkerCall.detach
     cut = []
 
     def cancel_after_the_read(self, conn):
@@ -515,7 +515,7 @@ def test_a_connection_cut_by_a_cancel_is_not_used_again(run_async,
             self.abort()
         detach(self, conn)
 
-    monkeypatch.setattr(pstore._Call, "detach", cancel_after_the_read)
+    monkeypatch.setattr(pstore.WorkerCall, "detach", cancel_after_the_read)
 
     async def run():
         gw = chip_smoke.StandInGateway()

@@ -143,6 +143,140 @@ def test_the_daemon_piece_path_imports_without_aiohttp():
         == []
 
 
+def test_the_p2p_half_imports_without_msgpack_or_aiohttp():
+    """The drpc layer, the scheduler client, the conductor and its parts,
+    the upload server and the peer drpc server import, and a frame packs
+    and unpacks, with neither ``msgpack`` nor ``aiohttp`` importable (the
+    card machine has neither)."""
+    code = ("import json, sys\n"
+            "sys.modules['aiohttp'] = None\n"
+            "sys.modules['msgpack'] = None\n"
+            "import dragonfly2_tpu_torch.rpc\n"
+            "import dragonfly2_tpu_torch.daemon.schedulerclient\n"
+            "import dragonfly2_tpu_torch.daemon.peer.conductor\n"
+            "import dragonfly2_tpu_torch.daemon.upload\n"
+            "import dragonfly2_tpu_torch.daemon.rpcserver\n"
+            "from dragonfly2_tpu_torch.rpc.framing import Frame\n"
+            "f = Frame(4, 1, body={'pieces': [1, 2], 'digests': {1: 'x'}})\n"
+            "assert Frame.unpack(f.pack()[4:]) == f\n"
+            "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+            "                        if v is not None)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.rpc.codec",
+            "dragonfly2_tpu_torch.rpc.client",
+            "dragonfly2_tpu_torch.rpc.server",
+            "dragonfly2_tpu_torch.daemon.peer.piece_dispatcher",
+            "dragonfly2_tpu_torch.daemon.peer.piece_downloader",
+            "dragonfly2_tpu_torch.daemon.peer.synchronizer"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.startswith(
+        ("aiohttp", "msgpack"))] == []
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_msgpack(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert [n for n in names if n.split(".")[0] == "msgpack"] == []
+
+
+def test_the_intended_divergences_of_the_p2p_half():
+    """What the P2P slice leaves out, pinned: no flight recorder, no parent
+    quarantine and no QoS gate in the conductor and the dispatcher; piece
+    reports as dict lists and a resume as a number list, never the packed
+    or bitmap forms; no native piece fetch and no native upload server;
+    no TLS on the drpc client and server or the upload server; and only
+    the two peer methods a child calls served."""
+    import inspect
+
+    from dragonfly2_tpu.daemon import upload as jupload
+    from dragonfly2_tpu.daemon.peer import conductor as jcond
+    from dragonfly2_tpu.daemon.peer import piece_dispatcher as jdisp
+    from dragonfly2_tpu.daemon.peer import piece_downloader as jdl
+    from dragonfly2_tpu.daemon.peer import synchronizer as jsync
+    from dragonfly2_tpu.daemon.peer import task_manager as jtm
+    from dragonfly2_tpu.rpc import Client as JClient
+    from dragonfly2_tpu.rpc import Server as JServer
+    from dragonfly2_tpu_torch.daemon import upload as pupload
+    from dragonfly2_tpu_torch.daemon.peer import conductor as pcond
+    from dragonfly2_tpu_torch.daemon.peer import piece_dispatcher as pdisp
+    from dragonfly2_tpu_torch.daemon.peer import piece_downloader as pdl
+    from dragonfly2_tpu_torch.daemon.peer import synchronizer as psync
+    from dragonfly2_tpu_torch.daemon.peer import task_manager as ptm
+    from dragonfly2_tpu_torch.daemon.rpcserver import DaemonRpcServer
+    from dragonfly2_tpu_torch.rpc import Client, Server
+
+    def params(fn) -> set:
+        return set(inspect.signature(fn).parameters)
+
+    # The worker count, the report batch and the seed flag come from the
+    # daemon's config in JAX; the port has none yet, so they are fixed.
+    assert params(jcond.PeerTaskConductor) - params(pcond.PeerTaskConductor) \
+        == {"quarantine", "flight", "wfq", "piece_parallelism",
+            "report_batch", "is_seed"}
+    assert (pcond.PIECE_WORKERS, pcond.REPORT_BATCH) == (4, 32)
+    # Nothing of the port sets a parent-death hook, runs a seed task or
+    # reads the per-task locality bytes (the daemon's stat surface).
+    assert "on_parent_dead" in params(jsync.PieceTaskSynchronizer)
+    assert "on_parent_dead" not in params(psync.PieceTaskSynchronizer)
+    assert "is_seed" in params(jtm.TaskManager._run_download)
+    assert "is_seed" not in params(ptm.TaskManager._run_download)
+    for module in (pcond, ptm):
+        with open(module.__file__) as f:
+            assert "locality_bytes" not in f.read()
+    assert params(pcond.PeerTaskConductor) < params(jcond.PeerTaskConductor)
+    assert params(jdisp.PieceDispatcher) - params(pdisp.PieceDispatcher) \
+        == {"quarantine", "flight", "max_parent_failures"}
+    assert hasattr(jdisp, "parent_key") and not hasattr(pdisp, "parent_key")
+    for name in ("NativeConnPool", "run_native", "abandonable_native_call"):
+        assert hasattr(jdl, name) and not hasattr(pdl, name)
+    assert hasattr(jdl.PieceDownloader, "download_piece_to_store")
+    assert not hasattr(pdl.PieceDownloader, "download_piece_to_store")
+    for name in ("native_counters", "_native_eligible"):
+        assert hasattr(jupload.UploadManager, name)
+        assert not hasattr(pupload.UploadManager, name)
+    assert "ssl_context" in params(jupload.UploadManager)
+    assert "ssl_context" not in params(pupload.UploadManager)
+    assert "ssl_context" in params(JClient) and "ssl_context" in params(
+        JServer.serve)
+    assert "ssl_context" not in params(Client)
+    assert "ssl_context" not in params(Server.serve)
+
+    c = pcond.PeerTaskConductor(
+        task_id="t", peer_id="p", url="http://x/", store=None,
+        scheduler_client=None, piece_manager=None, host_info={})
+    reports = [{"piece_num": n, "range_start": 0, "range_size": 1,
+                "digest": "", "download_cost_ms": 0, "dst_peer_id": ""}
+               for n in range(40)]
+    assert c._batch_msg(reports) == {"type": "pieces_finished",
+                                     "pieces": reports}
+    assert c._batch_msg(reports[:1]) == {"type": "piece_finished",
+                                         "piece": reports[0]}
+    c.store = type("S", (), {"metadata": type("M", (), {
+        "pieces": dict.fromkeys(range(64)), "content_length": 64,
+        "piece_size": 1, "total_piece_count": 64, "digest": ""})})
+    resume = c._resume_state()
+    assert resume["piece_nums"] == list(range(64))
+    assert "piece_bitmap" not in resume
+    with open(pcond.__file__) as f:
+        assert "reportcodec" not in f.read()
+
+    served = DaemonRpcServer(None)
+    assert set(served.peer_server._unary) == {"Peer.GetPieceTasks"}
+    assert set(served.peer_server._stream) == {"Peer.SyncPieceTasks"}
+    assert not hasattr(served, "download_server")
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_aiohttp(path):

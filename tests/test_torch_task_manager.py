@@ -531,13 +531,15 @@ def test_the_task_manager_keeps_its_threads_named(run_async, tmp_path):
 
 
 def test_the_intended_divergences_from_the_jax_daemon():
-    """What the slice leaves out, pinned: no scheduler, conductor, PEX,
-    prefetch or flight recorder in the task manager (a task no local
-    parent covers fails without the origin, as the JAX one does with no
+    """What the slice leaves out, pinned: no PEX, prefetch or flight
+    recorder in the task manager (its scheduler client and conductor
+    factory came with the P2P half; without them a task no local parent
+    covers fails without the origin, as the JAX one does with no
     scheduler); no traffic-shaper options until a daemon loop drives the
-    shaper; no certification or serving observer in the store; no GC
-    interval or idle-fd close until a GC loop exists; no unused option
-    fields."""
+    shaper; no native-transport commit (``record_piece``, ``data_fd``) or
+    serving observer in the store (its certification came with the P2P
+    half); no GC interval or idle-fd close until a GC loop exists; no
+    unused option fields."""
     import dataclasses
     import inspect
 
@@ -549,14 +551,16 @@ def test_the_intended_divergences_from_the_jax_daemon():
     j = set(inspect.signature(JTM).parameters)
     p = set(inspect.signature(PTM).parameters)
     assert p < j
-    assert j - p == {"scheduler_client", "conductor_factory", "host_wire",
-                     "pex", "prefetch", "flight", "total_rate_limit",
+    assert j - p == {"pex", "prefetch", "flight", "total_rate_limit",
                      "traffic_shaper"}
     for name in ("start_stream_task", "start_seed_task", "start_delta_task"):
         assert hasattr(JTM, name) and not hasattr(PTM, name)
-    for name in ("apply_certification", "record_piece", "data_fd",
-                 "certifies", "pieces_all_digest_verified"):
+    for name in ("record_piece", "data_fd"):
         assert hasattr(JStore, name) and not hasattr(PStore, name)
+    for name in ("apply_certification", "certifies",
+                 "pieces_all_digest_verified",
+                 "pieces_verified_against_digests"):
+        assert hasattr(JStore, name) and hasattr(PStore, name)
     def fields(cls) -> set:
         return {f.name for f in dataclasses.fields(cls)}
 
