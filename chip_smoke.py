@@ -90,6 +90,27 @@
    miss that streams the object through the card's chunker (K3 once a
    stream chunk), equal to ``manifest_from_store``'s manifest but for its
    name and published beside the object, then a hit with no K3 launch;
+   then serves both generations from a process of its own and runs the
+   daemon's other task kinds on the card: generation 1 lands through
+   the port's daemon and goes live in a ``DoubleBuffer``, generation 2's
+   manifest arrives as a publishing peer's import (generation 1's is
+   never published), and ``download_delta`` runs the daemon's delta task
+   (``TaskManager.start_delta_task``: the base manifest built from the
+   landed store by K3 and published, reused chunks copied out of the
+   base store and checked by sha256, the changed spans fetched as ranged
+   tasks) and the swap (reused chunks copied out of the live buffer, the
+   gate by K1) under a snapshot reader; checks the task's stats and the
+   staged bytes against ``plan_delta``, every byte and tensor, the
+   published base manifest against the whole-shard one, and that the
+   origin served only the changed spans (``daemon_delta``); then a fresh
+   daemon with its peer drpc server and a stand-in scheduler takes
+   ``Peer.TriggerDownloadTask`` (``device: "tpu"``, as a scheduler's
+   preheat sends it) from the port's drpc client: the ACK before the
+   seed lands, the seed registered as one and landed by K2 as its pieces
+   arrive, the verified buffer taken from the sink manager, gated by K1
+   and held to every byte of generation 1 (``seed``); a second trigger
+   answers ``already_complete`` with no origin request
+   (``seed_again``);
 6. spreads the main path's verified sink over a device mesh (the
    ``mesh`` path, a world of one rank over NCCL: the card holds one
    GPU): ``initialize_distributed`` with explicit arguments,
@@ -127,7 +148,8 @@
     bench.py``) and prints its JSON line;
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
-    gateway_manifest, daemon, p2p), prints one
+    gateway_manifest, daemon, p2p, daemon_delta, seed, seed_again),
+    prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
 
@@ -173,6 +195,7 @@ from dragonfly2_tpu_torch.bench import (
 )
 from dragonfly2_tpu_torch.client.device import (
     PREFIX_GUESS,
+    download_delta,
     download_sharded,
     download_to_device,
     local_base_manifest,
@@ -190,6 +213,7 @@ from dragonfly2_tpu_torch.daemon.peer.piece_manager import (
 from dragonfly2_tpu_torch.daemon.peer.conductor import conductor_factory
 from dragonfly2_tpu_torch.daemon.peer.task_manager import (
     COMPLETION_REHASH,
+    SEED_DEVICE_FAILURES,
     FileTaskRequest,
     TaskManager,
 )
@@ -219,7 +243,11 @@ from dragonfly2_tpu_torch.delta.manifest import (
     manifest_from_store,
     manifest_object_key,
 )
-from dragonfly2_tpu_torch.delta.resolver import plan_delta
+from dragonfly2_tpu_torch.delta.resolver import (
+    fetch_manifest,
+    manifest_request,
+    plan_delta,
+)
 from dragonfly2_tpu_torch.ops import _build, checksum, gear
 from dragonfly2_tpu_torch.ops.convert import placements_from_spec
 from dragonfly2_tpu_torch.ops.hbm_sink import DoubleBuffer, verify_u8_against_host
@@ -235,7 +263,7 @@ from dragonfly2_tpu_torch.pkg.piece import (
 from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
 from dragonfly2_tpu_torch.pkg.types import NetAddr
 from dragonfly2_tpu_torch.proto.common import UrlMeta
-from dragonfly2_tpu_torch.rpc import Server
+from dragonfly2_tpu_torch.rpc import Client, Server
 from dragonfly2_tpu_torch.storage import StorageManager, StorageOption
 
 # Llama-3.1-8B (meta-llama/Llama-3.1-8B config.json): hidden 4096,
@@ -1160,7 +1188,7 @@ def phase_manifest(content: np.ndarray, piece_size: int,
 
 def phase_cdc_swap(content: np.ndarray, gen2: np.ndarray, spans: dict,
                    layout, taken, base_ref: DeltaManifest, piece_size: int,
-                   device: torch.device) -> dict:
+                   device: torch.device) -> tuple[dict, DeltaManifest]:
     """Generation 1 to generation 2 through download_delta's repaired
     fallback: the publisher's manifest of generation 2 from
     manifest_from_store, and no published manifest of generation 1, so
@@ -1169,7 +1197,8 @@ def phase_cdc_swap(content: np.ndarray, gen2: np.ndarray, spans: dict,
     fallback and the swap) is counted from 0 just before it. Checks the
     base manifest against the whole-shard one (``base_ref``), the
     accounting against ``plan_delta`` exactly, every byte and tensor, and
-    the refusal of a wrong host checksum."""
+    the refusal of a wrong host checksum. Returns the report and the
+    publisher's manifest of generation 2."""
     live = taken.as_bytes_array()
     hot = DoubleBuffer()
     hot.flip(live, load_from_sink(taken))
@@ -1218,7 +1247,7 @@ def phase_cdc_swap(content: np.ndarray, gen2: np.ndarray, spans: dict,
             "timings": result.timings, "base_manifest_s": built["base_s"],
             "base_manifest": stats, "publisher_manifest_s": publisher_s,
             "swap_s": swap_s, "peak_device_bytes": peak, "snapshots": seen,
-            "launches": launches, "refused": refused}
+            "launches": launches, "refused": refused}, new_m
 
 
 # --------------------------------------------------------------------- #
@@ -2424,7 +2453,8 @@ class StandInScheduler:
     its first 512 piece digests, ``sched_wall`` and ``packed_reports``
     (False: the stand-in takes piece reports as dict lists only); any
     other with ``need_back_source``. Every message is recorded by task id:
-    its kind, and the pieces reported."""
+    its kind, the pieces reported, and whether the peer registered as a
+    seed."""
 
     def __init__(self, storage, host: dict):
         self.storage = storage
@@ -2470,6 +2500,7 @@ class StandInScheduler:
         body = stream.open_body or {}
         rec = self.records.setdefault(body.get("task_id", ""), {
             "messages": {}, "reported": 0, "pieces": set()})
+        rec["is_seed"] = bool(body.get("is_seed"))
         while True:
             msg = await stream.recv()
             if msg is None:
@@ -2501,7 +2532,8 @@ class StandInScheduler:
             except asyncio.TimeoutError:
                 pass
         return {t: {"messages": dict(r["messages"]),
-                    "reported": r["reported"], "pieces": len(r["pieces"])}
+                    "reported": r["reported"], "pieces": len(r["pieces"]),
+                    "is_seed": r["is_seed"]}
                 for t, r in self.records.items()}
 
 
@@ -2760,6 +2792,305 @@ def phase_p2p(content: np.ndarray, spans: dict, layout,
 
 
 # --------------------------------------------------------------------- #
+# The daemon's other task kinds: a delta task through the port's own
+# daemon (generation 1 -> 2: the base manifest built by K3 inside the
+# task, the swap gated by K1), and a scheduler's seed trigger onto the
+# card (Peer.TriggerDownloadTask -> start_seed_task -> K2 per batch)
+# --------------------------------------------------------------------- #
+
+GENERATION_KEYS = ("generation-1/" + GATEWAY_KEY, "generation-2/" + GATEWAY_KEY)
+
+
+def origin_generations(path1: str, path2: str) -> dict:
+    """The stand-in origin's two objects: both generations' files, mapped
+    (the bytes never cross the pipe)."""
+    out = {}
+    for key, path in zip(GENERATION_KEYS, (path1, path2)):
+        with open(path, "rb") as f:
+            out[(ORIGIN_BUCKET, key)] = mmap.mmap(f.fileno(), 0,
+                                                  access=mmap.ACCESS_READ)
+    return out
+
+
+class _NoParent:
+    """The stand-in scheduler's view for a seed: no parent holds any task,
+    so every registration is answered with ``need_back_source``, as the
+    JAX scheduler answers a seed peer."""
+
+    @staticmethod
+    def find_completed_task(task_id: str):
+        return None
+
+
+async def _daemon_delta(d: StandInDaemon, urls: list[str], new_m, base_ref,
+                        plan, gw: StandInProcess, gen2: np.ndarray,
+                        spans: dict, layout, tmp: str, device) -> dict:
+    """Generation 1 landed with ``download_to_device`` and live in a
+    ``DoubleBuffer``; generation 2's manifest imported as a publishing
+    peer's; generation 1's left unpublished. Then ``download_delta`` under
+    a snapshot reader, its launches counted from 0 just before it."""
+    tm = d.task_manager
+    t0 = time.perf_counter()
+    first = await download_to_device(d, urls[0])
+    gen1_s = time.perf_counter() - t0
+    hot = DoubleBuffer()
+    hot.flip(first.as_bytes_array(), first.load_safetensors())
+    gen2_id = FileTaskRequest(url=urls[1], output="").task_id()
+    path = os.path.join(tmp, "generation-2.manifest.json")
+    with open(path, "wb") as f:
+        f.write(new_m.to_json_bytes())
+    await tm.import_task(path, manifest_request(gen2_id))
+    os.unlink(path)
+    if tm.storage.find_completed_task(
+            manifest_request(first.task_id).task_id()) is not None:
+        raise AssertionError("daemon delta: generation 1's manifest is "
+                             "published before the task")
+    origin_before = gw.requests()
+    loop = asyncio.get_running_loop()
+
+    def swap():
+        return asyncio.run_coroutine_threadsafe(download_delta(
+            d, urls[1], base=first, hot=hot, device=device), loop).result()
+
+    result, launches, swap_s, peak, seen, mixed = await asyncio.to_thread(
+        swap_under_reader, hot, swap, device)
+    origin = _origin_delta(origin_before, gw.requests())
+    check_generation2(result, hot, gen2, layout, spans, seen, mixed)
+    published = await fetch_manifest(tm, first.task_id)
+    store = tm.storage.find_completed_task(result.task_id)
+    return {"task_id": result.task_id, "generation1_s": gen1_s,
+            "stats": result.stats, "staged_bytes": result.staged_bytes,
+            "reused_device_bytes": result.reused_device_bytes,
+            "copies": result.copies, "swap_timings": result.timings,
+            "delta_timings": tm.delta_timings.get(result.task_id, {}),
+            "swap_s": swap_s, "peak_device_bytes": peak,
+            "launches": launches, "origin": origin, "snapshots": seen,
+            "published_base": (None if published is None
+                               else chunk_triples(published.chunks)
+                               == chunk_triples(base_ref.chunks)),
+            "store_done": store is not None and store.metadata.done,
+            "spans": len(plan.fetch_spans())}
+
+
+async def _until_seeded(tm, sinks: TimedSinks, task_id: str,
+                        timeout: float = 600.0) -> None:
+    """Wait for a spawned seed task: its sink finalized and the task no
+    longer running."""
+    deadline = time.monotonic() + timeout
+    while sinks.finalized is None or tm.is_task_running(task_id):
+        if time.monotonic() > deadline:
+            raise AssertionError(f"seed: task {task_id[:16]} did not finish")
+        await asyncio.sleep(0.005)
+
+
+async def _seed_triggers(data_dir: str, url: str, content: np.ndarray,
+                         gw: StandInProcess, device) -> dict:
+    """A fresh daemon (the port's parts, a stand-in scheduler with no
+    parent to offer, the peer drpc server) seeded by the body a scheduler
+    sends (``scheduler/seed_client.py``): the ACK, the task seeded from
+    the origin and landed by K2 as its pieces arrive, the verified buffer
+    taken from the sink manager and gated by K1 (launches counted from 0
+    before the trigger); then the same trigger again on the completed
+    task."""
+    sched = StandInScheduler(_NoParent(), host_record("chip-seed-sched"))
+    addr = await sched.serve()
+    d = StandInDaemon(data_dir, device, scheduler=addr)
+    rpc = DaemonRpcServer(d.task_manager)
+    await rpc.serve_peer(NetAddr.tcp(P2P_HOST, 0))
+    cli = Client(NetAddr.tcp(P2P_HOST, rpc.peer_server.port()))
+    tm, sinks = d.task_manager, d.device_sinks
+    task_id = FileTaskRequest(url=url, output="").task_id()
+    body = {"url": url, "task_id": task_id, "device": "tpu", "seed": True}
+    out = {}
+    try:
+        for what in ("seed", "again"):
+            await asyncio.sleep(0)
+            sinks.reset()
+            origin_before = gw.requests()
+            _sync(device)
+            base = _memory_mark(device)
+            failures = [SEED_DEVICE_FAILURES.value(r)
+                        for r in ("device", "kernel")]
+            zero_launches()
+            t0 = time.perf_counter()
+            ack = await cli.call("Peer.TriggerDownloadTask", dict(body),
+                                 timeout=10.0)
+            ack_s = time.perf_counter() - t0
+            landed_at_ack = tm.storage.find_completed_task(task_id) is not None
+            await _until_seeded(tm, sinks, task_id)
+            rec = {"ack": ack, "ack_s": ack_s,
+                   "landed_at_ack": landed_at_ack,
+                   "land_s": sinks.finalized - sinks.first,
+                   "sink_busy_s": sinks.busy_s - sinks.busy_from}
+            sink = sinks.take(task_id)
+            if what == "seed":
+                u8 = sink.as_bytes_array()
+                verify_u8_against_host(u8, sink.sink.piece_size,
+                                       sink.sink.host_checksums)
+                _sync(device)
+                rec["trigger_to_verified_s"] = time.perf_counter() - t0
+                rec["equal"] = equal_in_steps(u8, content)
+                rec.update({key: getattr(sink.sink, key) for key in (
+                    "host_checksum_s", "stage_s", "stage_wait_s")})
+                u8 = None
+            rec["launches"] = checksum.launch_counts()
+            rec["device_failures"] = [
+                SEED_DEVICE_FAILURES.value(r) - f
+                for r, f in zip(("device", "kernel"), failures)]
+            rec["peak_device_bytes"] = _memory_mark(device, peak=True) - base
+            rec["device_copy"] = sink is not None
+            sink = None
+            rec["origin"] = _origin_delta(origin_before, gw.requests())
+            store = tm.storage.find_completed_task(task_id)
+            rec["store"] = None if store is None else {
+                "pieces": len(store.metadata.pieces),
+                "seed_peer": store.metadata.peer_id.endswith("_Seed"),
+                "content_length": store.metadata.content_length}
+            rec["scheduler"] = (await sched.summary(task_id)).get(task_id, {})
+            out[what] = rec
+    finally:
+        await cli.close()
+        await rpc.close()
+        await sched.server.close()
+        if d.scheduler_client is not None:
+            await d.scheduler_client.close()
+        d.close()
+    return out
+
+
+def phase_task_kinds(content: np.ndarray, gen2: np.ndarray, spans: dict,
+                     layout, base_ref: DeltaManifest, new_m: DeltaManifest,
+                     device: torch.device) -> tuple[dict, dict]:
+    """Both generations served over HTTP from a process of its own. The
+    ``daemon_delta`` path: generation 1 lands through the port's daemon,
+    then ``download_delta`` to generation 2 runs the daemon's delta task
+    (the base manifest built from the landed store by K3 and published,
+    reused chunks copied out of the base store and checked by sha256, the
+    changed spans fetched as ranged tasks) and the device swap (reused
+    chunks copied out of the live buffer, the gate by K1). The ``seed``
+    path: a fresh daemon seeded with generation 1 by a scheduler's
+    trigger, landed by K2 as it arrives. Returns the two reports."""
+    tmp = tempfile.mkdtemp(prefix="df-chip-tasks-")
+    gw = d = None
+    plan = plan_delta(new_m, base_ref)
+    try:
+        # Both origin files, generation 1's and 2's stores and the span
+        # stores (the seed's store comes after the delta's are gone), with
+        # a GiB to spare.
+        need = 4 * content.size + plan.fetched_bytes + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(
+                f"the task-kind phases need {need} B free under {tmp} (two "
+                f"origin files and the daemon's stores); {free} B are")
+        paths = [os.path.join(tmp, f"generation-{i}") for i in (1, 2)]
+        t0 = time.perf_counter()
+        content.tofile(paths[0])
+        gen2.tofile(paths[1])
+        write_s = time.perf_counter() - t0
+        gw = StandInProcess(origin_generations, *paths)
+        gw.start()
+        ep = gw.endpoint()
+        urls = [f"{ep}/buckets/{ORIGIN_BUCKET}/objects/{key}"
+                for key in GENERATION_KEYS]
+        data = os.path.join(tmp, "delta-daemon")
+        d = StandInDaemon(data, device)
+        delta = asyncio.run(_daemon_delta(d, urls, new_m, base_ref, plan, gw,
+                                          gen2, spans, layout, tmp, device))
+        delta["store_bytes"] = d.storage.total_disk_usage()
+        d.close()
+        d = None
+        shutil.rmtree(data, ignore_errors=True)
+        if _on_card(device):
+            torch.cuda.empty_cache()
+        st = delta["stats"]
+        want_stats = (plan.reused_bytes, plan.fetched_bytes, 0)
+        got_stats = (st.get("reused_bytes"), st.get("fetched_bytes"),
+                     st.get("corrupt_base"))
+        if got_stats != want_stats:
+            raise AssertionError(f"daemon delta: stats {st}, want reused, "
+                                 f"fetched, corrupt_base {want_stats}")
+        if delta["staged_bytes"] != plan.fetched_bytes or delta[
+                "reused_device_bytes"] != plan.reused_bytes:
+            raise AssertionError(
+                f"daemon delta: staged {delta['staged_bytes']} / reused "
+                f"{delta['reused_device_bytes']}, plan "
+                f"{plan.fetched_bytes} / {plan.reused_bytes}")
+        if not delta["published_base"]:
+            raise AssertionError("daemon delta: the task published no base "
+                                 "manifest, or one that differs from the "
+                                 "whole-shard manifest")
+        # Only the changed spans came from the origin: one ranged task a
+        # span, each a 1-byte probe and its span's bytes; nothing whole.
+        served = delta["origin"].get("get_range", [0, 0])[1]
+        delta["origin_bytes"] = served
+        if set(delta["origin"]) != {"get_range"} or (
+                served != plan.fetched_bytes + delta["spans"]):
+            raise AssertionError(
+                f"daemon delta: origin saw {delta['origin']}, want "
+                f"{plan.fetched_bytes} B of spans + {delta['spans']} probes")
+        want = {"chunk_checksums": 2, "land_and_checksum": 0,
+                "gear_candidates": planned_k3(span_sizes(content.size))}
+        if _on_card(device) and delta["launches"] != want:
+            raise AssertionError(f"daemon delta: launches "
+                                 f"{delta['launches']}, want {want}")
+        delta.update(plan_reused=plan.reused_bytes,
+                     plan_fetched=plan.fetched_bytes,
+                     origin_write_s=write_s)
+
+        seed = asyncio.run(_seed_triggers(os.path.join(tmp, "seed-daemon"),
+                                          urls[0], content, gw, device))
+        n_pieces = compute_piece_count(content.size,
+                                       compute_piece_size(content.size))
+        k2 = -(-n_pieces // BATCH_PIECES)
+        groups = min(PieceManagerOption().concurrency, n_pieces)
+        first, again = seed["seed"], seed["again"]
+        if first["ack"] != {"ok": True, "already_complete": False} or (
+                first["landed_at_ack"]):
+            raise AssertionError(f"seed: ACK {first['ack']} (landed at the "
+                                 f"ACK: {first['landed_at_ack']})")
+        if not (first["equal"] and first["device_copy"]):
+            raise AssertionError("seed: the verified buffer differs from "
+                                 "generation 1")
+        for what in ("seed", "again"):
+            # A device fault on a preheat leaves the disk store standing:
+            # only this count shows it.
+            if seed[what]["device_failures"] != [0, 0]:
+                raise AssertionError(
+                    f"seed {what}: device copy failed (device, kernel): "
+                    f"{seed[what]['device_failures']}")
+        if first["origin"] != {"get_range": [1 + groups, 1 + content.size]}:
+            raise AssertionError(f"seed: origin saw {first['origin']}")
+        sched = first["scheduler"]
+        if (not sched.get("is_seed") or sched.get("reported") != n_pieces
+                or sched.get("messages", {}).get("download_finished") != 1
+                or first["store"] != {"pieces": n_pieces, "seed_peer": True,
+                                      "content_length": content.size}):
+            raise AssertionError(f"seed: scheduler {sched}, store "
+                                 f"{first['store']}")
+        if again["ack"] != {"ok": True, "already_complete": True} or (
+                again["origin"]):
+            raise AssertionError(f"seed again: ACK {again['ack']}, origin "
+                                 f"{again['origin']}")
+        if _on_card(device):
+            for what, k1_n in (("seed", 2), ("again", 0)):
+                if seed[what]["launches"] != {"chunk_checksums": k1_n,
+                                              "land_and_checksum": k2,
+                                              "gear_candidates": 0}:
+                    raise AssertionError(
+                        f"seed {what}: launches {seed[what]['launches']}, "
+                        f"want K1 {k1_n}, K2 {k2}")
+        seed["want_k2"] = k2
+        return delta, seed
+    finally:
+        if gw is not None:
+            gw.close()
+        if d is not None:
+            d.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
 # The entry and bench pair: entry(), the train step, the device bench
 # --------------------------------------------------------------------- #
 
@@ -2896,7 +3227,8 @@ BENCH_LAUNCHES = {"chunk_checksums": 6 + 41 + 2,
 def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k3_chunker: int, want_k3_manifest: int,
                    want_k2_wds: int, want_k3_gateway: int,
-                   want_k2_daemon: int, want_k2_p2p: int) -> None:
+                   want_k2_daemon: int, want_k2_p2p: int,
+                   want_k2_seed: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -2912,7 +3244,13 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     cold request's, the warm one's backfill, the sharded one's ranged
     tasks, the digest request's), K1 twice in the gate after each of its
     three whole landings. The p2p path: K2 once per batch of each of its
-    two landings from the parent, K1 twice in the gate after each."""
+    two landings from the parent, K1 twice in the gate after each. The
+    daemon_delta path: K3 once for each started scan block of the base
+    manifest's span reads inside the delta task, K1 twice in the swap's
+    gate, no K2. The seed path: K2 once per batch as the seed lands, K1
+    twice in the gate after the take; the seed_again path: K2 once per
+    batch as the second trigger lands the device copy again from the
+    store, no K1."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -2926,7 +3264,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "cdc_swap": k(2, 0, want_k3_manifest),
             "wds": k(0, want_k2_wds),
             "gateway_manifest": k(0, 0, want_k3_gateway),
-            "daemon": k(6, want_k2_daemon), "p2p": k(4, want_k2_p2p)}
+            "daemon": k(6, want_k2_daemon), "p2p": k(4, want_k2_p2p),
+            "daemon_delta": k(2, 0, want_k3_manifest),
+            "seed": k(2, want_k2_seed), "seed_again": k(0, want_k2_seed)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -3266,9 +3606,8 @@ def main(argv=None) -> int:
           f"shape = {man['launches']['gear_candidates'] * k3['ms']:.3f} ms, "
           f"on {smi}")
     torch.cuda.empty_cache()
-    cdc = phase_cdc_swap(content, gen2, spans, layout, taken, base_ref,
-                         piece_size, device)
-    del gen2
+    cdc, gen2_m = phase_cdc_swap(content, gen2, spans, layout, taken,
+                                 base_ref, piece_size, device)
     torch.cuda.empty_cache()
     ctm = cdc["timings"]
     print("cdc swap:", json.dumps(cdc))
@@ -3281,6 +3620,53 @@ def main(argv=None) -> int:
           f"copies {ctm['assemble_device_ms']:.4f} ms on the card; swap "
           f"{cdc['swap_s']:.3f} s with the fallback; peak device memory "
           f"{cdc['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+    dd, seed = phase_task_kinds(content, gen2, spans, layout, base_ref,
+                                gen2_m, device)
+    del gen2, gen2_m
+    torch.cuda.empty_cache()
+    dt, sw = dd["delta_timings"], dd["swap_timings"]
+    print("daemon delta:", json.dumps(dd))
+    print(f"daemon delta: generation 1 -> 2 through the port's daemon: "
+          f"download_delta {dd['swap_s']:.3f} s (generation 1 landed first "
+          f"in {dd['generation1_s']:.3f} s); the delta task reused "
+          f"{dd['stats']['reused_bytes']} B from the base store and fetched "
+          f"{dd['stats']['fetched_bytes']} B (plan_delta: "
+          f"{dd['plan_reused']} / {dd['plan_fetched']}), the origin served "
+          f"{dd['origin_bytes']} B in {dd['spans']} span tasks "
+          f"(plan.fetched_bytes {dd['plan_fetched']} + one 1-byte probe a "
+          f"span), corrupt_base {dd['stats']['corrupt_base']}; the task's "
+          f"split: resolve {dt.get('resolve_s', 0):.3f} s (of it the base "
+          f"manifest built by K3 {dt.get('base_manifest_s', 0):.3f} s), "
+          f"assemble {dt.get('assemble_s', 0):.3f} s (base reads "
+          f"{dt.get('base_read_s', 0):.3f} s, sha256 "
+          f"{dt.get('sha256_s', 0):.3f} s, span waits "
+          f"{dt.get('span_wait_s', 0):.3f} s, store writes "
+          f"{dt.get('store_write_s', 0):.3f} s), finalize "
+          f"{dt.get('finalize_s', 0):.3f} s; the swap: staged "
+          f"{dd['staged_bytes']} B, reused {dd['reused_device_bytes']} B "
+          f"device to device, assemble {sw['assemble_s']:.4f} s, gate "
+          f"{sw['gate_s']:.4f} s; K3 "
+          f"{dd['launches']['gear_candidates']}, K1 "
+          f"{dd['launches']['chunk_checksums']}, K2 "
+          f"{dd['launches']['land_and_checksum']}; peak device memory "
+          f"{dd['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+    s1, s2 = seed["seed"], seed["again"]
+    print("seed:", json.dumps(seed))
+    print(f"seed: Peer.TriggerDownloadTask ACK in {s1['ack_s'] * 1e3:.2f} ms "
+          f"(before the seed landed); trigger to verified device buffer "
+          f"{s1['trigger_to_verified_s']:.3f} s, land_s {s1['land_s']:.4f} s, "
+          f"the sink's worker busy {s1['sink_busy_s']:.4f} s "
+          f"({s1['sink_busy_s'] / s1['land_s']:.0%}) = host checksum "
+          f"{s1['host_checksum_s']:.4f} s + staging {s1['stage_s']:.4f} s + "
+          f"the rest; registered as a seed, "
+          f"{s1['scheduler'].get('reported')} pieces reported; K2 "
+          f"{s1['launches']['land_and_checksum']}, K1 "
+          f"{s1['launches']['chunk_checksums']}; the second trigger "
+          f"answered already_complete with no origin request, its device "
+          f"copy landed again from the store (K2 "
+          f"{s2['launches']['land_and_checksum']}) in {s2['land_s']:.4f} s; "
+          f"peak device memory {s1['peak_device_bytes'] / 1e9:.3f} GB on "
+          f"{smi}")
     gwm = phase_gateway_manifest(content, base_ref, device)
     torch.cuda.empty_cache()
     k3s = k3["at_stream_chunk"]
@@ -3394,11 +3780,14 @@ def main(argv=None) -> int:
              "bench": ben["launches"], "chunker": chunker["launches"],
              "manifest": man["launches"], "cdc_swap": cdc["launches"],
              "wds": wds["launches"], "gateway_manifest": gwm["launches"],
-             "daemon": dmn["launches"], "p2p": p2p["launches"]}
+             "daemon": dmn["launches"], "p2p": p2p["launches"],
+             "daemon_delta": dd["launches"], "seed": s1["launches"],
+             "seed_again": s2["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
-                   sum(dmn["want_k2"].values()), p2p["want_k2"])
+                   sum(dmn["want_k2"].values()), p2p["want_k2"],
+                   seed["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

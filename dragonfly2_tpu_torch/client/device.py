@@ -2,9 +2,11 @@
 hand it back as PyTorch tensors in the card's memory.
 
 The port of ``dragonfly2_tpu/client/device.py``. A PyTorch training or
-serving process embeds the reference daemon (pure asyncio, it runs on the
-process's loop) with the port's sink manager as its device sink, and
-checkpoint shards arrive as tensors without a file export::
+serving process embeds a daemon (pure asyncio, it runs on the process's
+loop: the port's own parts, ``TaskManager`` over its storage and piece
+manager, or the reference daemon) with the port's sink manager as its
+device sink, and checkpoint shards arrive as tensors without a file
+export::
 
     d = Daemon(cfg)                      # cfg.tpu_sink.enabled = False
     d.task_manager.device_sinks = DeviceSinkManager()
@@ -58,6 +60,7 @@ from dragonfly2_tpu_torch.daemon.peer.device_sink import DeviceSinkError
 from dragonfly2_tpu_torch.daemon.peer.task_manager import (
     DEVICE_SINK,
     FileTaskRequest,
+    TaskManager,
 )
 from dragonfly2_tpu_torch.delta.manifest import (
     DeltaManifest,
@@ -737,12 +740,16 @@ async def download_delta(daemon, url: str, *, base, hot=None,
     ``device``: where the new generation goes (``default_device``: the
     current CUDA device unless the caller asks for the CPU).
 
-    The wire side rides the reference daemon's delta plane
-    (``TaskManager.start_delta_task``): only changed chunks cross the
-    network, and the patched disk landing is digest-verified. The device
-    side runs in a worker thread: ``local_base_manifest`` when the fabric
-    has no manifest of the base, then ``swap_generation``; ``shardings``
-    places the new generation's tensors there.
+    The wire side is the daemon's delta task
+    (``TaskManager.start_delta_task``, ``delta/resolver.run_delta_task``):
+    only changed chunks cross the network, and the patched disk landing
+    is digest-checked. On the port's own task manager, ``device`` also
+    reaches that task: a base manifest that was never published is built
+    there (K3 on the card) and published, so the swap below finds it; a
+    reference daemon builds it on its host. The device side runs in a
+    worker thread: ``local_base_manifest`` when the fabric still has no
+    manifest of the base, then ``swap_generation``; ``shardings`` places
+    the new generation's tensors there.
     """
     check_shardings(shardings)
     tm = daemon.task_manager
@@ -758,8 +765,9 @@ async def download_delta(daemon, url: str, *, base, hot=None,
         url=url, output="",
         meta=UrlMeta(digest=digest, tag=tag, application=application,
                      header=header or {}))
+    task_kw = {"device": device} if isinstance(tm, TaskManager) else {}
     final = None
-    async for progress in tm.start_delta_task(req, base_task_id):
+    async for progress in tm.start_delta_task(req, base_task_id, **task_kw):
         if progress.state == "failed":
             raise DfError.from_wire(progress.error or {})
         if progress.state == "done":

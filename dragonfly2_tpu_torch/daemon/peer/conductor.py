@@ -120,6 +120,7 @@ class PeerTaskConductor:
         piece_manager,
         host_info: dict,
         meta: dict | None = None,
+        is_seed: bool = False,
         limiter: Limiter | None = None,
         on_piece=None,
         disable_back_source: bool = False,
@@ -133,9 +134,10 @@ class PeerTaskConductor:
         self.piece_manager = piece_manager
         self.host_info = host_info
         self.meta = meta or {}
-        # A seed daemon's conductors register as seeds; that is the
-        # daemon config's seed-peer setting, which the port has not yet.
-        self.is_seed = False
+        # A seed trigger's task registers as a seed's. (A daemon configured
+        # as a seed peer registers every task so; that comes with the
+        # daemon's config.)
+        self.is_seed = is_seed
         self.limiter = limiter or Limiter()
         self.on_piece = on_piece
         self.disable_back_source = disable_back_source
@@ -968,11 +970,12 @@ def conductor_factory(*, scheduler_client, piece_manager, host_wire,
                       task_manager=None):
     """The ``TaskManager``'s ``conductor_factory``, built as the JAX
     ``Daemon._make_conductor`` builds its conductors: the host record from
-    ``host_wire()`` (less its telemetry), the request's metadata, and a
-    ranged task's import from a local parent through ``task_manager``."""
+    ``host_wire()`` (less its telemetry), the request's metadata, a ranged
+    task's import from a local parent through ``task_manager``, and
+    ``is_seed`` from the task (a seed trigger's)."""
 
     def make(*, task_id: str, peer_id: str, request, store, on_piece,
-             limiter=None) -> PeerTaskConductor:
+             is_seed: bool = False, limiter=None) -> PeerTaskConductor:
         host_info = dict(host_wire())
         host_info.pop("telemetry", None)
         m = request.meta
@@ -995,7 +998,7 @@ def conductor_factory(*, scheduler_client, piece_manager, host_wire,
             task_id=task_id, peer_id=peer_id, url=request.url, store=store,
             scheduler_client=scheduler_client, piece_manager=piece_manager,
             host_info=host_info, meta=meta,
-            limiter=limiter, on_piece=on_piece,
+            is_seed=is_seed, limiter=limiter, on_piece=on_piece,
             disable_back_source=getattr(request, "disable_back_source", False),
             local_range_source=local)
 

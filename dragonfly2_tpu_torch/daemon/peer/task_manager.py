@@ -5,7 +5,8 @@
 
 1. reuse of a completed local task (``from_reuse``);
 2. a ranged request for a file whose slice a local parent task covers:
-   exported from the parent (``output`` set, no device);
+   exported from the parent (``output`` set, no device); on a miss, with
+   ``prefetch``, the whole task starts in the background;
 3. dedup: a request for a task already running waits for it;
 4. a fresh download: with a scheduler client and a conductor factory,
    a ``PeerTaskConductor`` (``daemon/peer/conductor.py``) registers with
@@ -21,27 +22,45 @@
    stored, and the device sink finalized (backfill plus the on-card
    check).
 
+The other task kinds:
+
+- ``start_delta_task``: a new version landed against a local base version
+  (``delta/resolver.run_delta_task``); its base manifest, when none is
+  published, is built on ``device``;
+- ``start_seed_task``: a scheduler's trigger (``Peer.TriggerDownloadTask``):
+  the task runs as a seed (or, with ``seed: False``, as a normal peer),
+  its content digest is finalized before the announce, and a
+  ``device: "tpu"`` trigger lands it in the device sink, where a device
+  fault leaves the disk store standing;
+- ``start_stream_task``: ordered bytes of a task (or of a range of it)
+  as its pieces land, off a completed or covering store when there is
+  one;
+- ``import_task``: a local file as a completed task, announced to the
+  scheduler; ``persistent=True`` also records it at the scheduler as a
+  persistent cache task (``Scheduler.UploadPersistentCacheTask*``).
+
 The wire value that asks for the device sink stays ``device="tpu"``, the
 literal the JAX daemon tests for: the port's client sends it. A device
 request lands in ``device_sinks`` (the port's ``DeviceSinkManager``);
 corruption of the device copy fails the request with
 ``ClientPieceDownloadFail`` while the disk store stays complete and
-reusable, and a kernel fault (``KernelError``) propagates.
-
-An imported task is announced to the scheduler (``AnnounceTask``), so
-that it can be handed out as a parent.
+reusable, and a kernel fault (``KernelError``) propagates, except on a
+seed: a preheat has no requester to fail, so its disk store stands and the
+fault is counted in ``peer_seed_device_failures_total{reason="kernel"}``.
 
 Not ported yet: PEX (a task manager without a scheduler fails a
-``disable_back_source`` task that no local parent covers), stream and
-seed tasks, the delta task, ranged prefetch, the flight recorder, the
-quarantine, the persistent import (``import_task(persistent=True)``
-raises), and the traffic shaper's wiring (it comes with the daemon's
-config and loop; downloads go through the piece manager's one limiter).
+``disable_back_source`` task that no local parent covers), the flight
+recorder, the quarantine, and the traffic shaper's wiring (it comes with
+the daemon's config and loop; downloads go through the piece manager's
+one limiter). Where the JAX task manager records a flight event or
+announces over PEX, the port does neither.
 """
 
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import dataclasses
 import time
 from dataclasses import dataclass, field
 from typing import AsyncIterator
@@ -49,7 +68,8 @@ from typing import AsyncIterator
 from dragonfly2_tpu_torch.daemon.peer.broker import PieceBroker, PieceEvent
 from dragonfly2_tpu_torch.daemon.peer.device_sink import DeviceSinkError
 from dragonfly2_tpu_torch.daemon.peer.piece_manager import PieceManager
-from dragonfly2_tpu_torch.pkg import dflog, idgen, metrics
+from dragonfly2_tpu_torch.ops._build import KernelError
+from dragonfly2_tpu_torch.pkg import aio, dflog, idgen, metrics
 from dragonfly2_tpu_torch.pkg.errors import (
     Code,
     DfError,
@@ -83,6 +103,14 @@ COMPLETION_REHASH = metrics.counter(
     "peer_completion_rehash_total",
     "Completion-time whole-content digest decisions", ("result",))
 
+# A seed's device copy that failed to land or verify: "kernel" for a fault
+# of the port's own kernels, "device" for any other. The disk warm-up
+# stands either way, so only this count tells a broken kernel apart.
+SEED_DEVICE_FAILURES = metrics.counter(
+    "peer_seed_device_failures_total",
+    "Seed device-copy finalize failures (the disk warm-up stands)",
+    ("reason",))
+
 
 @dataclass
 class FileTaskRequest:
@@ -108,6 +136,24 @@ class FileTaskRequest:
     def parent_task_id(self) -> str:
         """The whole-content task id of a ranged request."""
         return idgen.parent_task_id_v1(
+            self.url, digest=self.meta.digest, tag=self.meta.tag,
+            application=self.meta.application, filters=self.meta.filter)
+
+
+@dataclass
+class StreamTaskRequest:
+    """A stream task: ordered bytes as the pieces land. The task id leaves
+    the range out, so ranged readers of one object share one
+    whole-content task."""
+
+    url: str
+    meta: UrlMeta = field(default_factory=UrlMeta)
+    peer_id: str = ""
+    range: Range | None = None          # the bytes to emit (None: all)
+    disable_back_source: bool = False
+
+    def task_id(self) -> str:
+        return idgen.task_id_v1(
             self.url, digest=self.meta.digest, tag=self.meta.tag,
             application=self.meta.application, filters=self.meta.filter)
 
@@ -154,8 +200,8 @@ class _RunningTask:
 
 
 class TaskManager:
-    """The front end of file tasks: reuse, dedup, the origin download and
-    the device sink."""
+    """The front end of file, delta, seed and stream tasks: reuse, dedup,
+    the download (P2P or the origin) and the device sink."""
 
     def __init__(
         self,
@@ -166,6 +212,7 @@ class TaskManager:
         scheduler_client=None,
         conductor_factory=None,
         host_wire=None,
+        prefetch: bool = False,
         device_sinks=None,
     ):
         self.storage = storage
@@ -173,10 +220,13 @@ class TaskManager:
         # The device terminal store (daemon/peer/device_sink's
         # DeviceSinkManager), chosen per task by FileTaskRequest.device.
         self.device_sinks = device_sinks
+        # A ranged request that misses also starts the whole task in the
+        # background, so that the next overlapping range hits its store.
+        self.prefetch = prefetch
         self.host_ip = host_ip
         self.scheduler_client = scheduler_client
         # conductor_factory(task_id=, peer_id=, request=, store=,
-        # on_piece=, limiter=) -> a conductor with run() and
+        # on_piece=, is_seed=, limiter=) -> a conductor with run() and
         # from_p2p (daemon/peer/conductor.conductor_factory).
         self.conductor_factory = conductor_factory
         # () -> the host's AnnounceHost-shaped dict: the identity imported
@@ -184,18 +234,21 @@ class TaskManager:
         self.host_wire = host_wire
         self.broker = PieceBroker()
         self._running: dict[str, _RunningTask] = {}
-        # The last delta landing's accounting by task id (the delta plane
-        # writes it; bounded by its writer).
+        # The last delta landing's accounting by task id, and its host
+        # seconds by phase (delta/resolver.py writes both, 256 at most).
         self.delta_stats: dict[str, dict] = {}
+        self.delta_timings: dict[str, dict] = {}
 
     # -- the download core -------------------------------------------------
 
     async def _run_download(self, task_id: str, peer_id: str,
                             req: FileTaskRequest, store,
-                            progress_q: "_ProgressAggregator | None") -> bool:
+                            progress_q: "_ProgressAggregator | None",
+                            *, is_seed: bool = False) -> bool:
         """Download into ``store``; returns from_p2p. Each piece is
         published on the broker and, for a device request, landed in the
-        device sink as it arrives."""
+        device sink as it arrives. ``is_seed``: the conductor registers
+        the task as a seed's."""
         # Ranged tasks land too: the store's piece grid is slice-relative,
         # so the sink's geometry is the slice's (download_sharded).
         sink_wanted = req.device == DEVICE_SINK and self.device_sinks is not None
@@ -214,7 +267,8 @@ class TaskManager:
                 and self.conductor_factory is not None):
             conductor = self.conductor_factory(
                 task_id=task_id, peer_id=peer_id, request=req, store=store,
-                on_piece=on_piece, limiter=self.piece_manager.limiter)
+                on_piece=on_piece, is_seed=is_seed,
+                limiter=self.piece_manager.limiter)
             await conductor.run()
             return conductor.from_p2p
         # A ranged task whose slice a local parent covers imports it
@@ -241,14 +295,56 @@ class TaskManager:
                           persistent: bool = False, replica_count: int = 1,
                           ttl: float = 0.0) -> dict:
         """Import a local file as a completed task and announce it to the
-        scheduler. The persistent import is not ported: it raises
-        ``DfError(BadRequest)``, as the JAX one does without a scheduler
-        connection."""
-        if persistent:
-            raise DfError(Code.BadRequest,
-                          "persistent import needs a scheduler connection")
+        scheduler. With ``persistent``, the scheduler also records it as a
+        persistent cache task replicated to ``replica_count`` hosts:
+        ``...Started`` before the import, then ``...Finished``, or
+        ``...Failed`` (best effort) when the import fails. Without a
+        scheduler connection that raises ``DfError(BadRequest)``."""
         task_id = req.task_id()
         peer_id = req.peer_id or idgen.peer_id_v1(self.host_ip)
+        if persistent:
+            await self._persistent_call(
+                "Scheduler.UploadPersistentCacheTaskStarted", task_id, peer_id,
+                {"url": req.url, "tag": req.meta.tag,
+                 "application": req.meta.application,
+                 "replica_count": replica_count, "ttl": ttl,
+                 "digest": req.meta.digest})
+        try:
+            result = await self._import_local(path, req, task_id, peer_id)
+        except BaseException:
+            if persistent:
+                try:
+                    # A scheduler error here must not mask the import's.
+                    await self._persistent_call(
+                        "Scheduler.UploadPersistentCacheTaskFailed",
+                        task_id, peer_id, {})
+                except Exception as notify_err:
+                    log.warning("persistent-failed notify failed",
+                                error=str(notify_err))
+            raise
+        if persistent:
+            await self._persistent_call(
+                "Scheduler.UploadPersistentCacheTaskFinished", task_id, peer_id,
+                {"content_length": result["content_length"],
+                 "piece_size": result.get("piece_size", 0),
+                 "total_piece_count": result.get("total_piece_count", -1)})
+        return result
+
+    async def _persistent_call(self, method: str, task_id: str, peer_id: str,
+                               extra: dict) -> None:
+        if self.scheduler_client is None:
+            raise DfError(Code.BadRequest,
+                          "persistent import needs a scheduler connection")
+        host_info = dict(self.host_wire()) if self.host_wire is not None \
+            else {}
+        host_info.pop("telemetry", None)
+        await self.scheduler_client.unary(
+            task_id, method,
+            {"task_id": task_id, "peer_id": peer_id,
+             "host": host_info, **extra})
+
+    async def _import_local(self, path: str, req: FileTaskRequest,
+                            task_id: str, peer_id: str) -> dict:
         store = self.storage.find_completed_task(task_id)
         if store is None:
             store = self.storage.register_task(TaskStoreMetadata(
@@ -330,6 +426,9 @@ class TaskManager:
                     content_length=rng.length, completed_length=rng.length,
                     piece_count=0, total_piece_count=0, from_reuse=True)
                 return
+            # A miss: the ranged task fetches its slice below, and with
+            # prefetch the whole task starts in the background.
+            self._maybe_prefetch(req.parent_task_id(), req)
 
         # 3. Dedup: wait for the running download of the same task.
         running = self._running.get(task_id)
@@ -440,6 +539,404 @@ class TaskManager:
         store.mark_invalid()
         run.error = error
         self.broker.publish(task_id, PieceEvent([], failed=True))
+
+    # -- delta task (delta/resolver.py) -------------------------------------
+
+    async def start_delta_task(self, req: FileTaskRequest, base_task_id: str,
+                               *, device=None
+                               ) -> AsyncIterator[FileTaskProgress]:
+        """Land ``req`` as a delta against the local base task: chunks the
+        base holds are copied (and digest-checked) locally, only changed
+        chunks cross the wire as ranged tasks. Degrades to a plain
+        ``start_file_task`` when the delta path is not viable (no base, no
+        published manifest, no overlap). A base manifest that was never
+        published is built on ``device`` (``default_device``: the card
+        unless the caller asks for the CPU)."""
+        from dragonfly2_tpu_torch.delta.resolver import run_delta_task
+
+        # aclosing: an early close reaches the delta's own cleanup at once.
+        async with contextlib.aclosing(run_delta_task(
+                self, req, base_task_id, device=device)) as it:
+            async for p in it:
+                yield p
+
+    # -- seed task (a scheduler's trigger) ---------------------------------
+
+    async def start_seed_task(self, spec: dict) -> None:
+        """Seed this daemon with a task, as a scheduler's
+        ``Peer.TriggerDownloadTask`` asks. Runs inline: callers spawn it."""
+        try:
+            # The canonical range before anything hashes it, so that the
+            # warmed store has the task id of a client's pull of the span.
+            # It runs spawned, where an escape would go unretrieved.
+            norm_range = Range.normalize_header(spec.get("range", ""))
+        except ValueError as e:
+            log.warning("seed trigger with malformed range dropped",
+                        range=str(spec.get("range"))[:64], error=str(e)[:100])
+            return
+        meta = UrlMeta(
+            digest=spec.get("digest", ""),
+            tag=spec.get("tag", ""),
+            application=spec.get("application", ""),
+            header=spec.get("header") or {},
+            filter="&".join(spec.get("filters") or []),
+            range=norm_range,
+            # A preheat keeps its caller's tenant and priority.
+            priority=int(spec.get("priority", 3) or 3),
+            tenant=spec.get("tenant", ""),
+        )
+        # seed=False: run as a normal peer that pulls from peers (the
+        # replication of a persistent cache task, which has no origin).
+        is_seed = spec.get("seed", True)
+        req = FileTaskRequest(url=spec.get("url", ""), output="", meta=meta,
+                              disable_back_source=bool(
+                                  spec.get("disable_back_source")),
+                              device=spec.get("device", ""),
+                              pod_broadcast=bool(spec.get("pod_broadcast")))
+        if meta.range:
+            req.range = Range.parse_http(meta.range)
+        task_id = spec.get("task_id") or req.task_id()
+        running = self._running.get(task_id)
+        if running is not None:
+            # Already seeding. The device is not part of the task's
+            # identity, so a device trigger waits for the running seed
+            # and then lands its content in the sink.
+            if req.device != DEVICE_SINK:
+                return
+            await running.done.wait()
+            if running.error is None:
+                store = self.storage.find_completed_task(task_id)
+                if store is not None:
+                    await self._finalize_device_for_seed(req, task_id, store)
+            return
+        peer_id = (idgen.seed_peer_id_v1(self.host_ip) if is_seed
+                   else idgen.peer_id_v1(self.host_ip))
+        store = self.storage.register_task(TaskStoreMetadata(
+            task_id=task_id, peer_id=peer_id, url=req.url, tag=meta.tag,
+            application=meta.application, header=dict(meta.header)))
+        run = _RunningTask(store)
+        self._running[task_id] = run
+        store.pin()
+        try:
+            await self._run_download(task_id, peer_id, req, store, None,
+                                     is_seed=is_seed)
+            # The seed anchors the piece-digest chain: its origin pieces
+            # carry self-computed digests, so the whole content is proven
+            # here, before the announce.
+            await self._finalize_content_digest(req, store)
+            store.mark_done()
+            # The disk result is final: publish it first (the device copy
+            # cannot change it), then land the device copy.
+            m = store.metadata
+            self.broker.publish(task_id, PieceEvent(
+                [], m.total_piece_count, m.content_length, m.piece_size,
+                done=True))
+            device_verified = await self._finalize_device_for_seed(
+                req, task_id, store)
+            log.info("seed task complete", task_id=task_id[:16],
+                     pieces=len(store.metadata.pieces),
+                     **({"device_verified": device_verified}
+                        if req.device else {}))
+        except Exception as e:
+            log.error("seed task failed", error=describe(e))
+            self._fail(req, task_id, store, run,
+                       e if isinstance(e, DfError)
+                       else DfError(Code.UnknownError, describe(e)))
+        finally:
+            store.unpin()
+            run.done.set()
+            self._running.pop(task_id, None)
+
+    async def _finalize_device_for_seed(self, req: FileTaskRequest,
+                                        task_id: str, store) -> bool:
+        """``_finalize_device`` for a seed: a device fault must not fail
+        the task, whose disk store is digest-checked and served to peers
+        (a preheat has no requesting stream to fail). The partial sink is
+        discarded, the warm-up stays disk-only, and the fault is counted
+        in ``peer_seed_device_failures_total`` (``kernel`` for a
+        ``KernelError``)."""
+        try:
+            with store:   # pinned: the finalize reads run in a worker
+                return await self._finalize_device(req, task_id, store)
+        except Exception as e:
+            if self.device_sinks is not None:
+                self.device_sinks.discard(task_id)
+            reason = "kernel" if isinstance(e, KernelError) else "device"
+            SEED_DEVICE_FAILURES.labels(reason).inc()
+            log.error("device sink finalize failed; disk warm-up stands",
+                      task_id=task_id[:16], reason=reason, error=describe(e))
+            return False
+
+    # -- stream task ---------------------------------------------------------
+
+    class _StreamBody:
+        """An ordered stream body that releases its broker subscription
+        even when closed before its first iteration (the ``finally`` of
+        an unstarted async generator never runs)."""
+
+        def __init__(self, broker, task_id: str, gen, q):
+            self._broker = broker
+            self._task_id = task_id
+            self._gen = gen
+            self._q = q
+
+        def __aiter__(self):
+            return self
+
+        async def __anext__(self):
+            return await self._gen.__anext__()
+
+        async def aclose(self) -> None:
+            try:
+                await self._gen.aclose()
+            finally:
+                # Idempotent: a started generator unsubscribes too.
+                self._broker.unsubscribe(self._task_id, self._q)
+
+    async def start_stream_task(self, req: StreamTaskRequest):
+        """Returns (attrs, body): ``attrs`` carries the task and peer ids,
+        ``content_length`` (-1 while an origin of unknown length runs),
+        the geometry, ``from_reuse``, the resolved ``range`` and the
+        ``local_store`` a gateway can serve a landed window from; ``body``
+        yields the ordered bytes as the pieces land."""
+        task_id = req.task_id()
+        peer_id = req.peer_id or idgen.peer_id_v1(self.host_ip)
+
+        store = self.storage.find_completed_task(task_id)
+        if store is not None:
+            return self._stream_reuse(store, task_id, peer_id, req.range)
+
+        # A range the landed pieces of a running or partial task cover is
+        # served off its store.
+        if req.range is not None:
+            partial = self.storage.find_partial_completed_task(task_id)
+            if partial is not None and partial.metadata.piece_size > 0:
+                rng = self._resolve_range(req.range,
+                                          partial.metadata.content_length)
+                if (rng is not None and rng.length > 0
+                        and partial.covers_range(rng.start, rng.length)):
+                    attrs = self._stream_attrs(partial, task_id, peer_id,
+                                               from_reuse=True)
+                    attrs["range"] = rng
+                    attrs["local_store"] = partial
+                    return attrs, self._stream_from_store(partial, rng)
+
+        q = self.broker.subscribe(task_id)
+        run = self._running.get(task_id)
+        if run is None:
+            # The task may have completed between the reuse check and the
+            # subscription.
+            store = self.storage.find_completed_task(task_id)
+            if store is not None:
+                self.broker.unsubscribe(task_id, q)
+                return self._stream_reuse(store, task_id, peer_id, req.range)
+            file_req = FileTaskRequest(
+                url=req.url, output="", meta=req.meta, peer_id=peer_id,
+                disable_back_source=req.disable_back_source)
+            store = self.storage.register_task(TaskStoreMetadata(
+                task_id=task_id, peer_id=peer_id, url=req.url,
+                tag=req.meta.tag, application=req.meta.application,
+                header=dict(req.meta.header)))
+            run = _RunningTask(store)
+            self._running[task_id] = run
+            store.pin()
+            aio.spawn(self._run_background_download(task_id, peer_id,
+                                                    file_req, store, run))
+        else:
+            store = run.store
+
+        # Wait for enough to answer headers: the length, the first piece
+        # or the end.
+        try:
+            while (store.metadata.content_length < 0
+                   and not store.has_piece(0)
+                   and run.error is None and not run.done.is_set()):
+                ev = await q.get()
+                if ev.failed:
+                    break
+        except asyncio.CancelledError:
+            self.broker.unsubscribe(task_id, q)
+            raise
+        if run.error is not None:
+            self.broker.unsubscribe(task_id, q)
+            raise run.error
+        attrs = self._stream_attrs(store, task_id, peer_id)
+        rng = self._resolve_range(req.range, attrs["content_length"])
+        attrs["range"] = rng
+        attrs["local_store"] = store
+        return attrs, self._StreamBody(
+            self.broker, task_id,
+            self._stream_ordered(task_id, store, run, q, rng), q)
+
+    def _stream_reuse(self, store, task_id: str, peer_id: str,
+                      rng: Range | None):
+        """(attrs, body) of a completed store."""
+        attrs = self._stream_attrs(store, task_id, peer_id, from_reuse=True)
+        rng = self._resolve_range(rng, attrs["content_length"])
+        attrs["range"] = rng
+        attrs["local_store"] = store
+        return attrs, self._stream_from_store(store, rng)
+
+    @staticmethod
+    def _resolve_range(rng: Range | None, content_length: int) -> Range | None:
+        """An open range (``bytes=N-``, length -1) ends at the content's
+        end once the length is known; before, it means "to EOF"."""
+        if rng is not None and rng.length < 0 and content_length >= 0:
+            return Range(rng.start, max(0, content_length - rng.start))
+        return rng
+
+    def _maybe_prefetch(self, parent_id: str, req: FileTaskRequest) -> None:
+        """Start the whole task in the background after a ranged miss."""
+        if not self.prefetch or parent_id in self._running:
+            return
+        if self.storage.find_completed_task(parent_id) is not None:
+            return
+        meta = dataclasses.replace(req.meta, range="",
+                                   header=dict(req.meta.header))
+        meta.header.pop("Range", None)
+        peer_id = idgen.peer_id_v1(self.host_ip)
+        file_req = FileTaskRequest(url=req.url, output="", meta=meta,
+                                   peer_id=peer_id)
+        store = self.storage.register_task(TaskStoreMetadata(
+            task_id=parent_id, peer_id=peer_id, url=req.url, tag=meta.tag,
+            application=meta.application, header=dict(meta.header)))
+        run = _RunningTask(store)
+        self._running[parent_id] = run
+        store.pin()
+        log.info("prefetching whole task for ranged request",
+                 task=parent_id[:16])
+        aio.spawn(self._run_background_download(parent_id, peer_id,
+                                                file_req, store, run))
+
+    async def _run_background_download(self, task_id: str, peer_id: str,
+                                       req: FileTaskRequest, store,
+                                       run: _RunningTask) -> None:
+        """The download of a stream task or a prefetch: no output, no
+        progress; its end is seen through the broker."""
+        try:
+            await self._run_download(task_id, peer_id, req, store, None)
+            await self._finalize_content_digest(req, store)
+            store.mark_done()
+            m = store.metadata
+            self.broker.publish(task_id, PieceEvent(
+                [], m.total_piece_count, m.content_length, m.piece_size,
+                done=True))
+        except DfError as e:
+            self._fail(req, task_id, store, run, e)
+        except Exception as e:
+            log.error("stream download crashed", exc_info=True)
+            self._fail(req, task_id, store, run,
+                       DfError(Code.UnknownError, describe(e)))
+        finally:
+            store.unpin()
+            run.done.set()
+            self._running.pop(task_id, None)
+
+    def _stream_attrs(self, store, task_id: str, peer_id: str, *,
+                      from_reuse: bool = False) -> dict:
+        m = store.metadata
+        return {
+            "task_id": task_id,
+            "peer_id": peer_id,
+            "content_length": m.content_length,
+            "piece_size": m.piece_size,
+            "total_piece_count": m.total_piece_count,
+            "from_reuse": from_reuse,
+        }
+
+    # The most one coalesced read of a stream yields.
+    _STREAM_SPAN = 8 << 20
+
+    async def _stream_from_store(self, store,
+                                 rng: Range | None) -> AsyncIterator:
+        """A landed window off the store in reads of at most a piece (1 MiB
+        at least). Each chunk is a pooled view, valid until the consumer
+        asks for the next one."""
+        store.pin()
+        try:
+            m = store.metadata
+            end = m.content_length if m.content_length >= 0 else \
+                store.disk_usage()
+            start = 0
+            if rng is not None:
+                start = min(rng.start, end)
+                if rng.length >= 0:
+                    end = min(end, rng.start + rng.length)
+            span = max(m.piece_size, 1 << 20)
+            off = start
+            while off < end:
+                take = min(span, end - off)
+                chunk = await asyncio.to_thread(store.read_range, off, take)
+                try:
+                    yield chunk
+                finally:
+                    release_read_buffer(chunk)
+                off += take
+        finally:
+            store.unpin()
+
+    async def _stream_ordered(self, task_id: str, store, run: _RunningTask,
+                              q: asyncio.Queue,
+                              rng: Range | None) -> AsyncIterator:
+        """A running task's pieces in order as they land: adjacent landed
+        pieces are read as one span of at most ``_STREAM_SPAN``; a piece
+        ahead of the frontier waits until the gap fills. Each chunk is a
+        pooled view, valid until the consumer asks for the next one."""
+        next_num = 0
+        store.pin()
+        try:
+            while True:
+                m = store.metadata
+                while store.has_piece(next_num):
+                    # Pieces wholly before the range only move the frontier.
+                    if (rng is not None and m.piece_size > 0
+                            and (next_num + 1) * m.piece_size <= rng.start):
+                        next_num += 1
+                        continue
+                    first = m.pieces[next_num]
+                    lo, hi = first.offset, first.offset + first.size
+                    last = next_num
+                    while hi - lo < self._STREAM_SPAN:
+                        nxt = m.pieces.get(last + 1)
+                        if nxt is None:
+                            break
+                        if rng is not None and rng.length >= 0 and \
+                                hi >= rng.start + rng.length:
+                            break
+                        hi = nxt.offset + nxt.size
+                        last = nxt.num
+                    if rng is not None:
+                        lo = max(lo, rng.start)
+                        if rng.length >= 0:
+                            hi = min(hi, rng.start + rng.length)
+                    if hi > lo:
+                        chunk = await asyncio.to_thread(
+                            store.read_range, lo, hi - lo)
+                        try:
+                            yield chunk
+                        finally:
+                            release_read_buffer(chunk)
+                    next_num = last + 1
+                    # Past the range: nothing more to emit (an open range
+                    # runs to the end).
+                    if rng is not None and rng.length >= 0 and \
+                            m.piece_size > 0 and \
+                            next_num * m.piece_size >= rng.start + rng.length:
+                        return
+                if run.error is not None:
+                    raise run.error
+                if m.total_piece_count >= 0 and \
+                        next_num >= m.total_piece_count:
+                    return
+                if run.done.is_set() and not store.has_piece(next_num):
+                    raise DfError(Code.UnknownError,
+                                  "stream task ended short")
+                ev = await q.get()
+                if ev.failed and run.error is not None:
+                    raise run.error
+        finally:
+            store.unpin()
+            self.broker.unsubscribe(task_id, q)
 
     # -- helpers -----------------------------------------------------------
 

@@ -71,3 +71,9 @@ def parent_task_id_v1(url: str, **kwargs) -> str:
 def peer_id_v1(ip: str) -> str:
     """``ip-pid-uuid``: one download attempt of one daemon."""
     return f"{ip}-{os.getpid()}-{uuid.uuid4()}"
+
+
+def seed_peer_id_v1(ip: str) -> str:
+    """A seed peer's id: ``peer_id_v1`` with the ``_Seed`` suffix the
+    scheduler reads as the mark of a seed."""
+    return f"{peer_id_v1(ip)}_Seed"

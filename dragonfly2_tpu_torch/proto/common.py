@@ -9,6 +9,7 @@ fields and defaults.
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Any
 
 # Priority LEVEL3, "normal": the JAX package's default task priority.
 DEFAULT_PRIORITY = 3
@@ -26,3 +27,19 @@ class UrlMeta:
     application: str = ""
     priority: int = DEFAULT_PRIORITY
     tenant: str = ""                   # QoS attribution; not task identity
+
+    @classmethod
+    def from_wire(cls, d: dict[str, Any] | None) -> "UrlMeta":
+        """The metadata of a request's wire body (``Daemon.Download``'s
+        ``meta``); missing fields take their defaults."""
+        d = d or {}
+        return cls(
+            digest=d.get("digest", ""),
+            tag=d.get("tag", ""),
+            range=d.get("range", ""),
+            filter=d.get("filter", ""),
+            header=d.get("header", {}) or {},
+            application=d.get("application", ""),
+            priority=d.get("priority", DEFAULT_PRIORITY),
+            tenant=d.get("tenant", ""),
+        )

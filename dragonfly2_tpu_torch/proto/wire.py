@@ -1,7 +1,9 @@
 """The drpc wire contract of the methods the port serves: the port's copy
-of ``dragonfly2_tpu/proto/wire.py``, cut to the two peer methods its
-``DaemonRpcServer`` registers (``Peer.SyncPieceTasks``,
-``Peer.GetPieceTasks``).
+of ``dragonfly2_tpu/proto/wire.py``, cut to the methods its
+``DaemonRpcServer`` registers: the download service (``Daemon.Download``,
+``StatTask``, ``ImportTask``, ``ExportTask``, ``DeleteTask``, ``Health``)
+and the peer service (``Peer.SyncPieceTasks``, ``GetPieceTasks``,
+``TriggerDownloadTask``, ``StatTask``, ``DeleteTask``).
 
 Bodies are validated at the server boundary (``rpc/server.py``), so a
 malformed body fails fast with ``Code.BadRequest``. As in protobuf,
@@ -83,12 +85,58 @@ class Msg:
                 self._check(f"{fname}[{i}]", f.item, item, where)
 
 
+URL_META = Msg(
+    "UrlMeta",
+    digest=F(str), tag=F(str), range=F(str), filter=F(str),
+    header=F(dict), application=F(str), priority=F(int),
+    # QoS attribution: rides with the request, not part of its identity.
+    tenant=F(str),
+)
+
 UNARY: dict[str, Msg] = {
+    # The download service (dfget and dfcache attach to it).
+    "Daemon.StatTask": Msg("DaemonStatTask", task_id=F(str, required=True)),
+    "Daemon.ImportTask": Msg(
+        "ImportTask",
+        path=F(str, required=True), cache_id=F(str, required=True),
+        tag=F(str), application=F(str), digest=F(str),
+        persistent=F(bool), replica_count=F(int), ttl=F(float)),
+    "Daemon.DeleteTask": Msg("DeleteTask", task_id=F(str, required=True)),
+    "Daemon.Health": Msg("Health"),
+
+    # The peer service (other daemons and the scheduler's triggers).
     "Peer.GetPieceTasks": Msg(
         "GetPieceTasks", task_id=F(str, required=True)),
+    "Peer.TriggerDownloadTask": Msg(
+        "TriggerDownloadTask",
+        url=F(str, required=True), task_id=F(str), tag=F(str),
+        application=F(str), digest=F(str), header=F(dict),
+        filters=F(list, item=F(str)), seed=F(bool),
+        disable_back_source=F(bool),
+        # "tpu": the content also lands in the daemon's device sink.
+        device=F(str),
+        # A sharded preheat warms only this byte range ("bytes=a-b").
+        range=F(str),
+        # Register the pull as a striped slice broadcast.
+        pod_broadcast=F(bool),
+        # The triggering caller's tenant and priority class.
+        tenant=F(str), priority=F(int)),
+    "Peer.StatTask": Msg("PeerStatTask", task_id=F(str, required=True)),
+    "Peer.DeleteTask": Msg("PeerDeleteTask", task_id=F(str, required=True)),
 }
 
 STREAM_OPEN: dict[str, Msg] = {
+    "Daemon.Download": Msg(
+        "DownloadOpen",
+        url=F(str, required=True), output=F(str),
+        meta=F(dict, spec=URL_META), disable_back_source=F(bool),
+        device=F(str), pod_broadcast=F(bool),
+        # The task id of a local base version: a delta download.
+        delta_base=F(str)),
+    "Daemon.ExportTask": Msg(
+        "ExportTaskOpen",
+        cache_id=F(str, required=True), output=F(str, required=True),
+        tag=F(str), application=F(str), digest=F(str)),
     "Peer.SyncPieceTasks": Msg(
         "SyncPieceTasksOpen",
         task_id=F(str, required=True), peer_id=F(str)),

@@ -135,10 +135,10 @@ class PortPeer:
             task_manager=self.task_manager)
 
         def factory(**kw):
-            # A seed registers its tasks as a seed's, as a JAX daemon
+            # A seed registers every task as a seed's, as a JAX daemon
             # configured as a seed peer does.
             conductor = make(**kw)
-            conductor.is_seed = seed
+            conductor.is_seed = conductor.is_seed or seed
             return conductor
         self.task_manager.conductor_factory = factory
         self.upload = UploadManager(self.storage)

@@ -143,6 +143,36 @@ def test_the_daemon_piece_path_imports_without_aiohttp():
         == []
 
 
+def test_the_task_kinds_import_without_msgpack_or_aiohttp():
+    """The delta engine, the seed and stream tasks, the download service
+    and what they import on first use (the range fetcher, the manifest
+    builders) import with neither ``msgpack`` nor ``aiohttp`` importable,
+    and none of JAX or the JAX package."""
+    code = ("import json, sys\n"
+            "sys.modules['aiohttp'] = None\n"
+            "sys.modules['msgpack'] = None\n"
+            "from dragonfly2_tpu_torch.daemon.peer.task_manager import (\n"
+            "    StreamTaskRequest, TaskManager)\n"
+            "from dragonfly2_tpu_torch.delta.resolver import run_delta_task\n"
+            "from dragonfly2_tpu_torch.daemon.rpcserver import "
+            "DaemonRpcServer\n"
+            "import dragonfly2_tpu_torch.dataset.shard_reader\n"
+            "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+            "                        if v is not None)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.delta.resolver",
+            "dragonfly2_tpu_torch.delta.manifest",
+            "dragonfly2_tpu_torch.daemon.rpcserver",
+            "dragonfly2_tpu_torch.proto.wire",
+            "dragonfly2_tpu_torch.dataset.shard_reader"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.startswith(
+        ("aiohttp", "msgpack"))] == []
+
+
 def test_the_p2p_half_imports_without_msgpack_or_aiohttp():
     """The drpc layer, the scheduler client, the conductor and its parts,
     the upload server and the peer drpc server import, and a frame packs
@@ -191,12 +221,14 @@ def test_sources_import_no_msgpack(path):
 
 
 def test_the_intended_divergences_of_the_p2p_half():
-    """What the P2P slice leaves out, pinned: no flight recorder, no parent
+    """What the P2P half leaves out, pinned: no flight recorder, no parent
     quarantine and no QoS gate in the conductor and the dispatcher; piece
     reports as dict lists and a resume as a number list, never the packed
     or bitmap forms; no native piece fetch and no native upload server;
-    no TLS on the drpc client and server or the upload server; and only
-    the two peer methods a child calls served."""
+    no TLS on the drpc client and server or the upload server; and every
+    method of the JAX daemon's two services served but the flight
+    recorder's two (``Daemon.FlightReport``, ``Daemon.PodTimeline``).
+    The seed flag reaches the conductor from the request, as in JAX."""
     import inspect
 
     from dragonfly2_tpu.daemon import upload as jupload
@@ -219,18 +251,20 @@ def test_the_intended_divergences_of_the_p2p_half():
     def params(fn) -> set:
         return set(inspect.signature(fn).parameters)
 
-    # The worker count, the report batch and the seed flag come from the
-    # daemon's config in JAX; the port has none yet, so they are fixed.
+    # The worker count and the report batch come from the daemon's config
+    # in JAX; the port has none yet, so they are fixed. The seed flag comes
+    # from the request (a seed trigger) in both.
     assert params(jcond.PeerTaskConductor) - params(pcond.PeerTaskConductor) \
         == {"quarantine", "flight", "wfq", "piece_parallelism",
-            "report_batch", "is_seed"}
+            "report_batch"}
     assert (pcond.PIECE_WORKERS, pcond.REPORT_BATCH) == (4, 32)
-    # Nothing of the port sets a parent-death hook, runs a seed task or
-    # reads the per-task locality bytes (the daemon's stat surface).
+    assert "is_seed" in params(pcond.PeerTaskConductor)
+    # Nothing of the port sets a parent-death hook or reads the per-task
+    # locality bytes (the daemon's stat surface).
     assert "on_parent_dead" in params(jsync.PieceTaskSynchronizer)
     assert "on_parent_dead" not in params(psync.PieceTaskSynchronizer)
     assert "is_seed" in params(jtm.TaskManager._run_download)
-    assert "is_seed" not in params(ptm.TaskManager._run_download)
+    assert "is_seed" in params(ptm.TaskManager._run_download)
     for module in (pcond, ptm):
         with open(module.__file__) as f:
             assert "locality_bytes" not in f.read()
@@ -271,10 +305,24 @@ def test_the_intended_divergences_of_the_p2p_half():
     with open(pcond.__file__) as f:
         assert "reportcodec" not in f.read()
 
-    served = DaemonRpcServer(None)
-    assert set(served.peer_server._unary) == {"Peer.GetPieceTasks"}
-    assert set(served.peer_server._stream) == {"Peer.SyncPieceTasks"}
-    assert not hasattr(served, "download_server")
+    from dragonfly2_tpu.daemon.rpcserver import DaemonRpcServer as JServer
+    from dragonfly2_tpu.proto import wire as jwire
+    from dragonfly2_tpu_torch.proto import wire as pwire
+
+    served, jserved = DaemonRpcServer(None), JServer(None)
+    for service in ("peer_server", "download_server"):
+        port, jax = getattr(served, service), getattr(jserved, service)
+        assert set(port._stream) == set(jax._stream)
+        assert set(jax._unary) - set(port._unary) == (
+            {"Daemon.FlightReport"} if service == "peer_server"
+            else {"Daemon.FlightReport", "Daemon.PodTimeline"})
+        assert set(port._unary) < set(jax._unary)
+    # The port's wire schemas are the JAX ones of the methods it serves.
+    methods = set(served.peer_server._unary) | set(
+        served.download_server._unary)
+    assert set(pwire.UNARY) == methods & set(jwire.UNARY)
+    assert set(pwire.STREAM_OPEN) == (set(served.peer_server._stream) | set(
+        served.download_server._stream)) & set(jwire.STREAM_OPEN)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -530,31 +530,72 @@ def test_the_task_manager_keeps_its_threads_named(run_async, tmp_path):
     assert os.path.isdir(tmp_path / "port" / "tasks")
 
 
-def test_the_intended_divergences_from_the_jax_daemon():
-    """What the slice leaves out, pinned: no PEX, prefetch or flight
-    recorder in the task manager (its scheduler client and conductor
-    factory came with the P2P half; without them a task no local parent
-    covers fails without the origin, as the JAX one does with no
-    scheduler); no traffic-shaper options until a daemon loop drives the
-    shaper; no native-transport commit (``record_piece``, ``data_fd``) or
-    serving observer in the store (its certification came with the P2P
-    half); no GC interval or idle-fd close until a GC loop exists; no
-    unused option fields."""
+def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
+    """What the port's task manager leaves out or adds, pinned: no PEX or
+    flight recorder (the JAX delta, seed and stream tasks record flight
+    events and announce over PEX; the port's do neither), no
+    traffic-shaper options until a daemon loop drives the shaper; the
+    delta task takes ``device=`` (where a base manifest is built) and
+    keeps its time split in ``delta_timings``; no native-transport commit
+    (``record_piece``, ``data_fd``) or serving observer in the store (its
+    certification came with the P2P half); no GC interval or idle-fd
+    close until a GC loop exists; no unused option fields."""
     import dataclasses
     import inspect
 
+    from dragonfly2_tpu.daemon.peer import task_manager as jtm
+    from dragonfly2_tpu.delta import resolver as jres
     from dragonfly2_tpu.storage import LocalTaskStore as JStore
     from dragonfly2_tpu.storage import StorageOption as JOpt
+    from dragonfly2_tpu_torch.daemon.peer import task_manager as ptm
+    from dragonfly2_tpu_torch.delta import resolver as pres
     from dragonfly2_tpu_torch.storage import LocalTaskStore as PStore
     from dragonfly2_tpu_torch.storage import StorageOption as POpt
 
-    j = set(inspect.signature(JTM).parameters)
-    p = set(inspect.signature(PTM).parameters)
+    def params(fn) -> set:
+        return set(inspect.signature(fn).parameters)
+
+    j = params(JTM)
+    p = params(PTM)
     assert p < j
-    assert j - p == {"pex", "prefetch", "flight", "total_rate_limit",
-                     "traffic_shaper"}
-    for name in ("start_stream_task", "start_seed_task", "start_delta_task"):
+    assert j - p == {"pex", "flight", "total_rate_limit", "traffic_shaper"}
+    for name in ("start_stream_task", "start_seed_task", "start_delta_task",
+                 "_maybe_prefetch", "_run_background_download",
+                 "_finalize_device_for_seed", "_persistent_call",
+                 "_import_local", "_stream_ordered", "_stream_from_store"):
+        assert hasattr(JTM, name) and hasattr(PTM, name), name
+    for name in ("_pex_download", "_pex_announce"):
         assert hasattr(JTM, name) and not hasattr(PTM, name)
+    assert params(PTM.start_delta_task) - params(JTM.start_delta_task) \
+        == {"device"}
+    # Options nothing sets are the JAX package's alone: the port's chunk
+    # params come from the published manifest, and its span fetches are
+    # the module constant ``SPAN_FETCHES`` (the JAX default).
+    assert params(pres.run_delta_task) - params(jres.run_delta_task) \
+        == {"device"}
+    assert params(jres.run_delta_task) - params(pres.run_delta_task) \
+        == {"params", "fetch_concurrency"}
+    assert pres.SPAN_FETCHES == inspect.signature(
+        jres.run_delta_task).parameters["fetch_concurrency"].default
+    assert params(ptm.TaskManager._run_download) == params(
+        jtm.TaskManager._run_download)
+    # A seed's device fault is counted by kind in the port; the JAX
+    # daemon only logs it.
+    assert ptm.SEED_DEVICE_FAILURES.name == "peer_seed_device_failures_total"
+    assert not hasattr(jtm, "SEED_DEVICE_FAILURES")
+    # The flight recorder's calls and PEX's announce are left out.
+    for module, jmodule in ((ptm, jtm), (pres, jres)):
+        with open(jmodule.__file__) as f:
+            jsrc = f.read()
+        with open(module.__file__) as f:
+            src = f.read()
+        assert "tf.record" in jsrc or "flight" in jsrc
+        assert "_pex_announce" in jsrc or module is pres
+        for word in ("tf.record", "flight.", "_pex_announce", "flightlib"):
+            assert word not in src, (module.__name__, word)
+    jax, port = _managers(tmp_path)
+    assert port.delta_timings == {} and port.delta_stats == {}
+    assert not hasattr(jax, "delta_timings")
     for name in ("record_piece", "data_fd"):
         assert hasattr(JStore, name) and not hasattr(PStore, name)
     for name in ("apply_certification", "certifies",
