@@ -62,8 +62,20 @@
    every piece): ``download_to_device`` with no digest and with the
    shard's sha256 (its completion re-hash skipped, certified by the
    parent's digests); checks every byte and tensor, no origin request,
-   the bytes the parent served, the reports the scheduler saw and the
-   digest store against the shard's sha256;
+   the bytes the parent served, the reports the scheduler saw (packed
+   batches decoded, every piece with its digest, the pieces' timings
+   rolled up by host in a ``PodAggregator``, the terminal message's
+   flight digest) and the digest store against the shard's sha256; then
+   pulls the shard over PEX with no scheduler anywhere (``pex``: a holder
+   daemon in a process of its own gossips its task over UDP with a shared
+   secret; the child's ``TaskManager`` finds it with a ``PeerExchange``
+   and ``Daemon.Download`` with ``device: "tpu"`` and
+   ``disable_back_source`` pulls every piece from it), checking every
+   byte and tensor and no origin request; for the cold daemon request,
+   the p2p request with no digest and the pex pull it prints the flight
+   (``Daemon.FlightReport`` over the port's drpc: the phase fold, each
+   piece's device landing and its wait from the store write, events
+   dropped) and checks that every piece landed and reached the device;
 5. hot-swaps the landed shard to a second generation (the last two
    layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
    through ``swap_generation``, the device half of ``download_delta``:
@@ -148,7 +160,7 @@
     bench.py``) and prints its JSON line;
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
-    gateway_manifest, daemon, p2p, daemon_delta, seed, seed_again),
+    gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again),
     prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
@@ -253,7 +265,8 @@ from dragonfly2_tpu_torch.ops.convert import placements_from_spec
 from dragonfly2_tpu_torch.ops.hbm_sink import DoubleBuffer, verify_u8_against_host
 from dragonfly2_tpu_torch.ops.safetensors import load_from_sink
 from dragonfly2_tpu_torch.parallel import ici, multihost
-from dragonfly2_tpu_torch.pkg import idgen
+from dragonfly2_tpu_torch.daemon.pex import PeerExchange
+from dragonfly2_tpu_torch.pkg import flight, idgen
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import (
     Range,
@@ -262,6 +275,7 @@ from dragonfly2_tpu_torch.pkg.piece import (
 )
 from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
 from dragonfly2_tpu_torch.pkg.types import NetAddr
+from dragonfly2_tpu_torch.proto import reportcodec, wire
 from dragonfly2_tpu_torch.proto.common import UrlMeta
 from dragonfly2_tpu_torch.rpc import Client, Server
 from dragonfly2_tpu_torch.storage import StorageManager, StorageOption
@@ -2143,34 +2157,47 @@ class StandInDaemon:
     its parts built as ``dragonfly2_tpu/daemon/daemon.py`` builds them:
     a ``StorageManager`` over ``data_dir`` (reloaded), a ``PieceManager``
     under an unbounded limiter, the device sink manager, and the
-    ``TaskManager`` over them; with ``scheduler`` (an address), a
-    ``SchedulerClient`` on it and the port's conductor factory (each
-    conductor built is kept in ``conductors``), else no scheduler."""
+    ``TaskManager`` over them (the process-wide flight recorder, its own
+    quarantine); with ``scheduler`` (an address), a ``SchedulerClient`` on
+    it and the port's conductor factory over the task manager (each
+    conductor built is kept in ``conductors``), else no scheduler; with
+    ``pex``, a ``PeerExchange`` the caller starts. ``serve_download()``
+    serves its download service (``DaemonRpcServer``) on loopback and
+    gives a drpc client to it."""
 
     def __init__(self, data_dir: str, device: torch.device,
-                 scheduler: str = ""):
+                 scheduler: str = "", pex: PeerExchange | None = None):
         self.storage = StorageManager(StorageOption(data_dir=data_dir))
         self.storage.reload()
         self.piece_manager = PieceManager(PieceManagerOption(),
                                           limiter=Limiter())
         self.device_sinks = TimedSinks(batch_pieces=BATCH_PIECES,
                                        device=device)
-        self.scheduler_client = factory = None
+        self.scheduler_client = None
         self.conductors: list = []
+        self.rpc = None
         if scheduler:
             self.scheduler_client = SchedulerClient([scheduler])
+        self.task_manager = TaskManager(
+            self.storage, self.piece_manager,
+            scheduler_client=self.scheduler_client, pex=pex,
+            device_sinks=self.device_sinks)
+        if scheduler:
             make = conductor_factory(
                 scheduler_client=self.scheduler_client,
                 piece_manager=self.piece_manager,
-                host_wire=lambda: host_record("chip-child"))
+                host_wire=lambda: host_record("chip-child"),
+                task_manager=self.task_manager)
 
             def factory(**kw):
                 self.conductors.append(make(**kw))
                 return self.conductors[-1]
-        self.task_manager = TaskManager(
-            self.storage, self.piece_manager,
-            scheduler_client=self.scheduler_client,
-            conductor_factory=factory, device_sinks=self.device_sinks)
+            self.task_manager.conductor_factory = factory
+
+    async def serve_download(self) -> Client:
+        self.rpc = DaemonRpcServer(self.task_manager)
+        await self.rpc.serve_download(NetAddr.tcp(P2P_HOST, 0))
+        return Client(NetAddr.tcp(P2P_HOST, self.rpc.download_server.port()))
 
     def close(self) -> None:
         self.device_sinks.close()
@@ -2205,6 +2232,76 @@ def sharded_k2(content_length: int, names: list[str], spans: dict,
     return launches(min(prefix_guess, content_length)) + launches(hi - lo)
 
 
+def _quantiles(xs: list) -> dict:
+    """Sum, p50 and p99 of a list of seconds."""
+    if not xs:
+        return {"sum_s": 0.0, "p50_s": None, "p99_s": None}
+    a = np.asarray(xs, np.float64)
+    return {"sum_s": float(a.sum()), "p50_s": float(np.percentile(a, 50)),
+            "p99_s": float(np.percentile(a, 99))}
+
+
+async def flight_summary(cli: Client, tm, task_id: str,
+                         n_pieces: int) -> dict:
+    """A finished task's flight: ``Daemon.FlightReport`` over the port's
+    drpc (``cli``, the daemon's download service) for the phase fold, the
+    state and the events dropped; and, from the recorder's ring (this
+    process holds it), each piece's device landing (``EV_HBM_START`` ->
+    ``EV_HBM_LANDED``) and its wait from the store write (``EV_STORED``;
+    ``EV_SOURCE_LANDED`` for an origin piece, recorded after its write)
+    to ``EV_HBM_START``. Checks the state is ``done``, no event was
+    dropped, and every piece has ``EV_LANDED`` (or ``EV_SOURCE_LANDED``)
+    and ``EV_HBM_LANDED``."""
+    answer = await cli.call("Daemon.FlightReport", {"task_id": task_id},
+                            timeout=30.0)
+    report = answer["report"]
+    marks: dict[int, dict] = {}
+    for t, code, piece, _aux, _note in tm.flight.get(task_id).events():
+        if piece >= 0:
+            marks.setdefault(piece, {})[code] = t
+    landed = {n for n, m in marks.items()
+              if flight.EV_LANDED in m or flight.EV_SOURCE_LANDED in m}
+    hbm = {n for n, m in marks.items() if flight.EV_HBM_LANDED in m}
+    if (report["state"] != "done" or report["events_dropped"]
+            or landed != set(range(n_pieces)) or hbm != landed):
+        raise AssertionError(
+            f"flight of {task_id[:16]}: state {report['state']}, "
+            f"{report['events_dropped']} events dropped, {len(landed)} "
+            f"pieces landed and {len(hbm)} on the device of {n_pieces}")
+    stored_mark = (flight.EV_STORED if any(flight.EV_STORED in m
+                                           for m in marks.values())
+                   else flight.EV_SOURCE_LANDED)
+    device_s, wait_s = [], []
+    for m in marks.values():
+        device_s.append(m[flight.EV_HBM_LANDED] - m[flight.EV_HBM_START])
+        if stored_mark in m:
+            wait_s.append(m[flight.EV_HBM_START] - m[stored_mark])
+    return {"state": report["state"], "wall_s": report["wall_s"],
+            "phases": report["phases"], "other_s": report["other_s"],
+            "dominant_phase": report["dominant_phase"],
+            "events": report["events"],
+            "events_dropped": report["events_dropped"],
+            "event_counts": report["event_counts"],
+            "waterfall_lines": len(answer["text"].splitlines()),
+            "digest_bytes": answer["digest"]["bytes"],
+            "hbm": _quantiles(device_s),
+            "wait_from": flight.EVENT_NAMES[stored_mark],
+            "stored_to_hbm": _quantiles(wait_s)}
+
+
+def flight_line(what: str, f: dict) -> str:
+    """One printed line of a flight summary."""
+    ph = ", ".join(f"{k} {v:.4f} s" for k, v in f["phases"].items())
+    h, w = f["hbm"], f["stored_to_hbm"]
+    return (f"{what} flight: {f['state']}, wall {f['wall_s']:.4f} s = {ph}, "
+            f"other {f['other_s']:.4f} s (dominant {f['dominant_phase']}); "
+            f"EV_HBM_START -> EV_HBM_LANDED a piece: sum {h['sum_s']:.4f} s,"
+            f" p50 {h['p50_s'] * 1e3:.3f} ms, p99 {h['p99_s'] * 1e3:.3f} ms; "
+            f"{f['wait_from']} -> EV_HBM_START: sum {w['sum_s']:.4f} s, p50 "
+            f"{w['p50_s'] * 1e3:.3f} ms, p99 {w['p99_s'] * 1e3:.3f} ms; "
+            f"{f['events']} events, {f['events_dropped']} dropped")
+
+
 def _origin_delta(before: dict, after: dict) -> dict:
     out = {}
     for kind, (n, b) in after.items():
@@ -2228,6 +2325,7 @@ async def _daemon_requests(d: StandInDaemon, url: str, sha: str,
     sinks, pm = d.device_sinks, d.piece_manager
     out = {}
     result = u8 = None
+    cli = await d.serve_download()
 
     def check_tensors(tensors: dict, want: list[str], what: str) -> None:
         if set(tensors) != set(want):
@@ -2306,6 +2404,12 @@ async def _daemon_requests(d: StandInDaemon, url: str, sha: str,
                 "host_checksum_s", "stage_s", "stage_wait_s")})
         out[what] = rec
         tensors = sink = result = u8 = None   # each landing goes in turn
+    n_pieces = compute_piece_count(host.numel(),
+                                   compute_piece_size(host.numel()))
+    out["flight"] = await flight_summary(cli, d.task_manager,
+                                         out["cold"]["task_id"], n_pieces)
+    await cli.close()
+    await d.rpc.close()
     return out
 
 
@@ -2389,7 +2493,7 @@ def phase_daemon(content: np.ndarray, spans: dict, layout,
                 raise AssertionError(f"daemon {what}: origin saw "
                                      f"{out[what]['origin']}")
         # The completion re-hash runs for the digest request only.
-        rehash = {w: out[w]["rehash"] for w in out}
+        rehash = {w: out[w]["rehash"] for w in want}
         if rehash != {"cold": 0, "warm": 0, "sharded": 0, "digest": 1}:
             raise AssertionError(f"daemon: completion re-hashes {rehash}")
         digest_store = d.storage.find_completed_task(
@@ -2405,7 +2509,7 @@ def phase_daemon(content: np.ndarray, spans: dict, layout,
                     raise AssertionError(
                         f"daemon {what}: launches {out[what]['launches']}, "
                         f"want K1 {k1_n}, K2 {k2_n}")
-        launches = {k: sum(out[w]["launches"][k] for w in out)
+        launches = {k: sum(out[w]["launches"][k] for w in want)
                     for k in cold["launches"]}
         return {**out, "launches": launches, "sha256": sha, "validated": got,
                 "sharded_names": len(names), "origin_write_s": origin_write_s,
@@ -2451,10 +2555,16 @@ class StandInScheduler:
     peer as the one parent, in the JAX scheduler's wire shape: the task's
     wire form, the parent's id, host record, state, finished pieces and
     its first 512 piece digests, ``sched_wall`` and ``packed_reports``
-    (False: the stand-in takes piece reports as dict lists only); any
-    other with ``need_back_source``. Every message is recorded by task id:
-    its kind, the pieces reported, and whether the peer registered as a
-    seed."""
+    (True, as the JAX scheduler stamps it: batches may come packed); any
+    other with ``need_back_source``. Each message is checked against the
+    JAX scheduler's schema (``proto/wire.validate_stream_msg``) and
+    recorded by task id: its kind, the pieces reported (a packed batch
+    decoded by ``proto/reportcodec.decode_packed``) and the batches that
+    came packed, whether the peer registered as a seed, and the terminal
+    message's flight digest; the pieces' ``timings`` (and the failures'
+    reasons, against the parent) feed a ``PodAggregator`` by host, as the
+    JAX scheduler's reports feed its ``pod_flight`` (the digests go to
+    its pod lens, which has no stand-in here)."""
 
     def __init__(self, storage, host: dict):
         self.storage = storage
@@ -2462,6 +2572,7 @@ class StandInScheduler:
         self.server = Server("standin.scheduler")
         self.server.register_stream("Scheduler.AnnouncePeer", self._announce)
         self.records: dict[str, dict] = {}
+        self.pod = flight.PodAggregator()
         self._ended: dict[str, asyncio.Event] = {}
 
     async def serve(self) -> str:
@@ -2480,8 +2591,8 @@ class StandInScheduler:
         store = self.storage.find_completed_task(task_id)
         if store is None:
             return {"type": "need_back_source", "reason": "no parent",
-                    "task": task, "sched_wall": time.time(),
-                    "packed_reports": False}
+                    "task": task, "sched_wall": flight.anchored_wall(),
+                    "packed_reports": True}
         m = store.metadata
         nums = sorted(m.pieces)
         task.update(state="succeeded", content_length=m.content_length,
@@ -2494,29 +2605,52 @@ class StandInScheduler:
                                     if m.pieces[n].digest},
                   "is_seed": True, "priority": 3}
         return {"type": "normal_task", "task": task, "parents": [parent],
-                "sched_wall": time.time(), "packed_reports": False}
+                "sched_wall": flight.anchored_wall(), "packed_reports": True}
 
     async def _announce(self, stream, ctx) -> None:
         body = stream.open_body or {}
-        rec = self.records.setdefault(body.get("task_id", ""), {
-            "messages": {}, "reported": 0, "pieces": set()})
+        task_id = body.get("task_id", "")
+        host_id = (body.get("host") or {}).get("id", "")
+        rec = self.records.setdefault(task_id, {
+            "messages": {}, "reported": 0, "pieces": set(), "packed": 0,
+            "timed": 0, "digested": 0, "flight": None})
         rec["is_seed"] = bool(body.get("is_seed"))
         while True:
             msg = await stream.recv()
             if msg is None:
                 return
+            wire.validate_stream_msg("Scheduler.AnnouncePeer", msg)
             kind = msg.get("type", "")
             rec["messages"][kind] = rec["messages"].get(kind, 0) + 1
-            reported = ([msg["piece"]] if kind == "piece_finished"
-                        else msg.get("pieces") or []
-                        if kind == "pieces_finished" else [])
+            reported = []
+            if kind == "piece_finished":
+                reported = [msg["piece"]]
+            elif kind == "pieces_finished" and msg.get("packed"):
+                batch = reportcodec.decode_packed(msg["packed"])
+                reported = batch.to_dicts()
+                rec["packed"] += 1
+                self.pod.note_pieces(task_id, host_id, batch.n,
+                                     batch.phase_ms)
+            elif kind == "pieces_finished":
+                reported = msg.get("pieces") or []
+            if kind == "piece_finished" or (kind == "pieces_finished"
+                                            and not msg.get("packed")):
+                for p in reported:
+                    self.pod.note_piece(task_id, host_id, p.get("timings"),
+                                        p.get("download_cost_ms", 0))
+            if kind == "piece_failed":
+                # The one parent this stand-in names is the failing one.
+                self.pod.note_failure(task_id, self.host["id"],
+                                      msg.get("reason", ""))
             rec["reported"] += len(reported)
+            rec["timed"] += sum(1 for p in reported if p.get("timings"))
+            rec["digested"] += sum(1 for p in reported if p.get("digest"))
             rec["pieces"].update(p["piece_num"] for p in reported)
             if kind in ("register", "reschedule"):
                 await stream.send(self.answer(body))
             elif kind in ("download_finished", "download_failed"):
-                self._ended.setdefault(body.get("task_id", ""),
-                                       asyncio.Event()).set()
+                rec["flight"] = msg.get("flight")
+                self._ended.setdefault(task_id, asyncio.Event()).set()
                 return
 
     async def summary(self, task_id: str = "",
@@ -2531,19 +2665,31 @@ class StandInScheduler:
                 await asyncio.wait_for(ended.wait(), timeout)
             except asyncio.TimeoutError:
                 pass
-        return {t: {"messages": dict(r["messages"]),
-                    "reported": r["reported"], "pieces": len(r["pieces"]),
-                    "is_seed": r["is_seed"]}
-                for t, r in self.records.items()}
+        out = {}
+        for t, r in self.records.items():
+            fl = r["flight"] or {}
+            out[t] = {"messages": dict(r["messages"]),
+                      "reported": r["reported"], "pieces": len(r["pieces"]),
+                      "is_seed": r["is_seed"], "packed": r["packed"],
+                      "timed": r["timed"], "digested": r["digested"],
+                      "pod": self.pod.report(t),
+                      "flight": {key: fl.get(key) for key in (
+                          "state", "wall_s", "phases", "other_s",
+                          "dominant_phase", "pieces_total", "events_total",
+                          "events_dropped", "bytes")} if fl else None,
+                      "clock_samples": len(fl.get("clock") or [])}
+        return out
 
 
 class P2PParentDaemon:
     """The parent's daemon: the port's ``StorageManager``, ``PieceManager``
     and ``TaskManager`` (no scheduler: it fetches back-to-source), its
     ``UploadManager`` and ``DaemonRpcServer``, and the stand-in scheduler
-    over its storage."""
+    over its storage; with ``pex_secret``, a ``PeerExchange`` on loopback
+    sealed with it (started before the fetches, so each completed task is
+    gossiped)."""
 
-    async def start(self, data_dir: str) -> str:
+    async def start(self, data_dir: str, pex_secret: str = "") -> str:
         self.storage = StorageManager(StorageOption(data_dir=data_dir))
         self.task_manager = TaskManager(
             self.storage, PieceManager(PieceManagerOption(),
@@ -2552,6 +2698,14 @@ class P2PParentDaemon:
         upload_port = self.upload.serve(P2P_HOST)
         self.rpc = DaemonRpcServer(self.task_manager)
         await self.rpc.serve_peer(NetAddr.tcp(P2P_HOST, 0))
+        self.pex = None
+        if pex_secret:
+            self.pex = PeerExchange(ip=P2P_HOST,
+                                    peer_port=self.rpc.peer_server.port(),
+                                    upload_port=upload_port,
+                                    secret=pex_secret)
+            await self.pex.start(0)
+            self.task_manager.pex = self.pex
         self.scheduler = StandInScheduler(self.storage, host_record(
             "chip-parent", self.rpc.peer_server.port(), upload_port,
             host_type=1))
@@ -2566,19 +2720,22 @@ class P2PParentDaemon:
         return time.perf_counter() - t0
 
     async def close(self) -> None:
+        if self.pex is not None:
+            await self.pex.stop()
         await self.scheduler.server.close()
         await self.rpc.close()
         self.upload.close()
         self.storage.close()
 
 
-def _p2p_parent(conn, path: str, data_dir: str, sha: str) -> None:
+def _p2p_parent(conn, path: str, data_dir: str, sha: str,
+                pex_secret: str = "") -> None:
     """The body of ``P2PParent``'s process: a stand-in origin over the
     shard's file, the parent's daemon fetching the shard from it twice
     (with no digest and with ``sha``: two tasks, both done, their piece
-    digests their own), then answers to the measured process until told
-    to stop. Its event loop runs on a thread of its own; the pipe is
-    served here."""
+    digests their own; with no ``sha``, once), then answers to the
+    measured process until told to stop. Its event loop runs on a thread
+    of its own; the pipe is served here."""
     loop = asyncio.new_event_loop()
     thread = threading.Thread(target=loop.run_forever, name="df-p2p-parent",
                               daemon=True)
@@ -2593,9 +2750,12 @@ def _p2p_parent(conn, path: str, data_dir: str, sha: str) -> None:
     url = f"{gw.start()}/buckets/{ORIGIN_BUCKET}/objects/{GATEWAY_KEY}"
     daemon = P2PParentDaemon()
     try:
-        scheduler = run(daemon.start(data_dir))
-        fetch_s = [run(daemon.fetch(url, digest)) for digest in ("", sha)]
-        conn.send({"url": url, "scheduler": scheduler, "fetch_s": fetch_s})
+        scheduler = run(daemon.start(data_dir, pex_secret))
+        fetch_s = [run(daemon.fetch(url, digest))
+                   for digest in (("", sha) if sha else ("",))]
+        conn.send({"url": url, "scheduler": scheduler, "fetch_s": fetch_s,
+                   "pex": f"{P2P_HOST}:{daemon.pex.port}" if daemon.pex
+                   else ""})
         while True:
             msg = conn.recv()
             if msg[0] == "stop":
@@ -2617,13 +2777,15 @@ def _p2p_parent(conn, path: str, data_dir: str, sha: str) -> None:
 class P2PParent(StandInProcess):
     """``P2PParentDaemon`` and its stand-in origin in a process of its own
     (spawned), as a parent is another host: its serving does not share the
-    measured child's interpreter lock. ``endpoint()`` waits for its two
-    fetches and gives the origin's URL and the scheduler's address;
-    ``stats()`` the origin's requests, the upload server's served bytes
-    and requests, and what the stand-in scheduler recorded."""
+    measured child's interpreter lock. ``endpoint()`` waits for its
+    fetches and gives the origin's URL, the scheduler's address and, with
+    ``pex_secret``, its gossip address; ``stats()`` the origin's
+    requests, the upload server's served bytes and requests, and what the
+    stand-in scheduler recorded."""
 
-    def __init__(self, path: str, data_dir: str, sha: str):
-        super().__init__(None, path, data_dir, sha)
+    def __init__(self, path: str, data_dir: str, sha: str,
+                 pex_secret: str = ""):
+        super().__init__(None, path, data_dir, sha, pex_secret)
 
     def start(self) -> None:
         ctx = multiprocessing.get_context("spawn")
@@ -2648,6 +2810,7 @@ async def _p2p_requests(d: StandInDaemon, url: str, sha: str,
     and timed."""
     sinks = d.device_sinks
     out = {}
+    cli = await d.serve_download()
     for what in ("plain", "digest"):
         await asyncio.sleep(0)
         sinks.reset()
@@ -2707,6 +2870,11 @@ async def _p2p_requests(d: StandInDaemon, url: str, sha: str,
             **{key: getattr(result.sink.sink, key) for key in (
                 "host_checksum_s", "stage_s", "stage_wait_s")}}
         tensors = result = u8 = None   # each landing goes in turn
+    out["flight"] = await flight_summary(
+        cli, d.task_manager, out["plain"]["task_id"],
+        compute_piece_count(host.numel(), compute_piece_size(host.numel())))
+    await cli.close()
+    await d.rpc.close()
     await d.scheduler_client.close()
     return out
 
@@ -2748,7 +2916,8 @@ def phase_p2p(content: np.ndarray, spans: dict, layout,
         n_pieces = compute_piece_count(content.size,
                                        compute_piece_size(content.size))
         k2 = -(-n_pieces // BATCH_PIECES)
-        for what, r in out.items():
+        for what in ("plain", "digest"):
+            r = out[what]
             if r["origin"]:
                 raise AssertionError(f"p2p {what}: origin saw {r['origin']}")
             if r["upload_bytes"] != content.size:
@@ -2756,8 +2925,16 @@ def phase_p2p(content: np.ndarray, spans: dict, layout,
                                      f"{r['upload_bytes']} B")
             sched = r["scheduler"]
             msgs = sched.get("messages", {})
+            # Every piece reported with its digest, at least one batch
+            # packed (the stand-in stamps packed_reports), and the flight
+            # digest
             if (sched.get("reported") != n_pieces
                     or sched.get("pieces") != n_pieces
+                    or sched.get("digested") != n_pieces
+                    or sched.get("packed", 0) < 1
+                    # shipped with the terminal message, before the task
+                    # manager finishes the flight: still "running"
+                    or (sched.get("flight") or {}).get("state") != "running"
                     or msgs.get("download_finished") != 1
                     or msgs.get("register") != 1
                     or "download_failed" in msgs or "reschedule" in msgs):
@@ -2777,7 +2954,7 @@ def phase_p2p(content: np.ndarray, spans: dict, layout,
         validate_s = time.perf_counter() - t0
         if got != sha or store.metadata.digest != sha:
             raise AssertionError(f"p2p digest: the child's store holds {got}")
-        launches = {k: sum(r["launches"][k] for r in out.values())
+        launches = {k: sum(out[w]["launches"][k] for w in ("plain", "digest"))
                     for k in out["plain"]["launches"]}
         return {**out, "launches": launches, "sha256": sha,
                 "validated": got, "validate_s": validate_s,
@@ -2788,6 +2965,170 @@ def phase_p2p(content: np.ndarray, spans: dict, layout,
             d.close()
         if parent is not None:
             parent.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
+# PEX: the shard pulled with no scheduler anywhere. A holder daemon in a
+# process of its own gossips its task over UDP (a shared secret); the
+# measured child finds it (PeerExchange) -> TaskManager._pex_download ->
+# PieceTaskSynchronizer -> PieceDispatcher -> pull_one_piece ->
+# LocalTaskStore -> DeviceSinkManager (K2) -> finalize (K1)
+# --------------------------------------------------------------------- #
+
+PEX_SECRET = "chip-smoke-pod"
+
+
+async def _pex_request(data_dir: str, info: dict, holder: P2PParent,
+                       host: torch.Tensor, spans: dict, layout,
+                       device) -> dict:
+    """The measured child: the port's ``TaskManager`` with no scheduler
+    and a ``PeerExchange`` seeded with the holder, its download service on
+    loopback. Gossip starts, the holder is found, then ``Daemon.Download``
+    (``device: "tpu"``, ``disable_back_source``) pulls every piece from
+    it; the verified buffer is taken from the sink manager, gated by K1
+    and held to every byte and tensor."""
+    url = info["url"]
+    pex = PeerExchange(ip=P2P_HOST, secret=PEX_SECRET)
+    d = StandInDaemon(data_dir, device, pex=pex)
+    cli = await d.serve_download()
+    sinks = d.device_sinks
+    task_id = FileTaskRequest(url=url, output="").task_id()
+    try:
+        t0 = time.perf_counter()
+        await pex.start(0, [info["pex"]])
+        deadline = time.monotonic() + 30.0
+        while not pex.find_holders(task_id):
+            if time.monotonic() > deadline:
+                raise AssertionError("pex: gossip found no holder in 30 s")
+            await asyncio.sleep(0.001)
+        found_s = time.perf_counter() - t0
+        holders = [(m.ip, m.peer_port, m.upload_port)
+                   for m in pex.find_holders(task_id)]
+        await asyncio.sleep(0)
+        sinks.reset()
+        before = holder.stats()
+        _sync(device)
+        base = _memory_mark(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        stream = await cli.open_stream("Daemon.Download", {
+            "url": url, "device": "tpu", "disable_back_source": True})
+        frames = []
+        while (msg := await stream.recv(timeout=600.0)) is not None:
+            frames.append(msg)
+        last = frames[-1]
+        if (last["state"] != "done" or not last["from_p2p"]
+                or not last["device_verified"]):
+            raise AssertionError(f"pex: the download ended {last}")
+        sink = sinks.take(task_id)
+        u8 = sink.as_bytes_array()
+        verify_u8_against_host(u8, sink.sink.piece_size,
+                               sink.sink.host_checksums)
+        tensors = load_from_sink(sink)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        peak = _memory_mark(device, peak=True) - base
+        launches = checksum.launch_counts()
+        after = holder.stats()
+        if not torch.equal(u8, host):
+            raise AssertionError("pex: landed bytes differ from the shard")
+        if set(tensors) != {n for n, _ in layout}:
+            raise AssertionError(f"pex: tensors {sorted(tensors)}")
+        for name, t in tensors.items():
+            b, e = spans[name]
+            if t.dtype != torch.bfloat16 or not torch.equal(
+                    t.reshape(-1).view(torch.uint8), host[b:e]):
+                raise AssertionError(f"pex: {name} differs from the shard")
+        n_pieces = compute_piece_count(host.numel(),
+                                       compute_piece_size(host.numel()))
+        fl = await flight_summary(cli, d.task_manager, task_id, n_pieces)
+        # Every piece asked of the holder's upload server: the PEX pull
+        # ran (with no scheduler, from_p2p comes from it alone).
+        requests = [note for _t, code, _p, _a, note
+                    in d.task_manager.flight.get(task_id).events()
+                    if code == flight.EV_REQUEST]
+        out = {"task_id": task_id, "bytes": int(u8.numel()),
+               "tensors": len(tensors), "frames": len(frames),
+               "from_p2p": last["from_p2p"], "holders": holders,
+               "gossip_to_holder_s": found_s, "wall_s": wall,
+               "launches": launches, "peak_device_bytes": peak,
+               "origin": _origin_delta(before["origin"], after["origin"]),
+               "upload_bytes": after["upload_bytes"] - before["upload_bytes"],
+               "upload_requests": after["upload_requests"]
+               - before["upload_requests"],
+               "piece_requests": len(requests),
+               "requested_from": sorted(set(requests)),
+               "land_s": sinks.finalized - sinks.first,
+               "sink_busy_s": sinks.busy_s - sinks.busy_from,
+               "holder_cpu_s": after["cpu_s"] - before["cpu_s"],
+               "conductors": len(d.conductors), "flight": fl,
+               **{key: getattr(sink.sink, key) for key in (
+                   "host_checksum_s", "stage_s", "stage_wait_s")}}
+        tensors = sink = u8 = None
+        return out
+    finally:
+        await cli.close()
+        await d.rpc.close()
+        await pex.stop()
+        d.close()
+
+
+def phase_pex(content: np.ndarray, spans: dict, layout,
+              device: torch.device) -> dict:
+    """The shard pulled over PEX with no scheduler anywhere: a holder
+    (``P2PParent`` with a ``PeerExchange``, its one task fetched from its
+    own stand-in origin) in a process of its own, the measured child in
+    this one (``_pex_request``). Checks every byte and tensor, that the
+    child's pull went through ``_pex_download`` (from_p2p, no conductor,
+    every piece requested of the holder's upload server, its bytes served
+    once), no origin request, the flight, and the launches."""
+    tmp = tempfile.mkdtemp(prefix="df-chip-pex-")
+    holder = None
+    try:
+        # The origin's file, the holder's store and the child's, with a
+        # GiB to spare.
+        need = 3 * content.size + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(
+                f"the pex phase needs {need} B free under {tmp} (the "
+                f"origin's file and two stores); {free} B are")
+        path = os.path.join(tmp, GATEWAY_KEY)
+        content.tofile(path)
+        holder = P2PParent(path, os.path.join(tmp, "holder"), "",
+                           pex_secret=PEX_SECRET)
+        holder.start()
+        info = holder.endpoint()
+        host = torch.from_numpy(content).to(device)
+        out = asyncio.run(_pex_request(os.path.join(tmp, "child"), info,
+                                       holder, host, spans, layout, device))
+        del host
+        n_pieces = compute_piece_count(content.size,
+                                       compute_piece_size(content.size))
+        k2 = -(-n_pieces // BATCH_PIECES)
+        if out["origin"]:
+            raise AssertionError(f"pex: origin saw {out['origin']}")
+        if out["upload_bytes"] != content.size or out["conductors"] != 0:
+            raise AssertionError(
+                f"pex: the holder served {out['upload_bytes']} B, "
+                f"{out['conductors']} conductors")
+        if (out["piece_requests"] != n_pieces
+                or out["requested_from"] != sorted(
+                    {f"{ip}:{up}" for ip, _pp, up in out["holders"]})
+                or not out["from_p2p"]):
+            raise AssertionError(f"pex: {out['piece_requests']} piece "
+                                 f"requests to {out['requested_from']}")
+        if _on_card(device) and out["launches"] != {
+                "chunk_checksums": 2, "land_and_checksum": k2,
+                "gear_candidates": 0}:
+            raise AssertionError(f"pex: launches {out['launches']}, want "
+                                 f"K1 2, K2 {k2}")
+        return {**out, "holder_fetch_s": info["fetch_s"][0],
+                "pieces": n_pieces, "want_k2": k2}
+    finally:
+        if holder is not None:
+            holder.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -3228,7 +3569,7 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k3_chunker: int, want_k3_manifest: int,
                    want_k2_wds: int, want_k3_gateway: int,
                    want_k2_daemon: int, want_k2_p2p: int,
-                   want_k2_seed: int) -> None:
+                   want_k2_pex: int, want_k2_seed: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -3244,7 +3585,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     cold request's, the warm one's backfill, the sharded one's ranged
     tasks, the digest request's), K1 twice in the gate after each of its
     three whole landings. The p2p path: K2 once per batch of each of its
-    two landings from the parent, K1 twice in the gate after each. The
+    two landings from the parent, K1 twice in the gate after each. The pex
+    path: K2 once per batch of its landing from the holder, K1 twice in
+    the gate after it. The
     daemon_delta path: K3 once for each started scan block of the base
     manifest's span reads inside the delta task, K1 twice in the swap's
     gate, no K2. The seed path: K2 once per batch as the seed lands, K1
@@ -3265,6 +3608,7 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "wds": k(0, want_k2_wds),
             "gateway_manifest": k(0, 0, want_k3_gateway),
             "daemon": k(6, want_k2_daemon), "p2p": k(4, want_k2_p2p),
+            "pex": k(2, want_k2_pex),
             "daemon_delta": k(2, 0, want_k3_manifest),
             "seed": k(2, want_k2_seed), "seed_again": k(0, want_k2_seed)}
     if paths != want:
@@ -3553,6 +3897,7 @@ def main(argv=None) -> int:
           f"{warm['peak_device_bytes'] / 1e9:.3f} GB, sharded "
           f"{shd['peak_device_bytes'] / 1e9:.3f} GB, digest "
           f"{dig['peak_device_bytes'] / 1e9:.3f} GB, on {smi}")
+    print(flight_line("daemon cold", dmn["flight"]) + f" on {smi}")
     p2p = phase_p2p(content, spans, layout, device)
     torch.cuda.empty_cache()
     print("p2p:", json.dumps(p2p))
@@ -3582,6 +3927,37 @@ def main(argv=None) -> int:
           f"{p2p['parent_fetch_s'][1]:.3f} s; after the requests the "
           f"child's digest store validate_digest() == the shard's sha256 "
           f"in {p2p['validate_s']:.3f} s")
+    for what in ("plain", "digest"):
+        sched = p2p[what]["scheduler"]
+        print(f"p2p {what} at the stand-in scheduler: {sched['reported']} "
+              f"pieces reported with {sched['digested']} digests and "
+              f"{sched['timed']} timings, {sched['packed']} batches packed "
+              f"of {sched['messages'].get('pieces_finished', 0)} "
+              f"pieces_finished; the terminal flight digest "
+              f"{sched['flight']['bytes']} B with "
+              f"{sched['clock_samples']} clock samples; per-host rollup "
+              f"(PodAggregator): {json.dumps(sched['pod']['hosts'])}")
+    print(flight_line("p2p no digest", p2p["flight"]) + f" on {smi}")
+    pex = phase_pex(content, spans, layout, device)
+    torch.cuda.empty_cache()
+    print("pex:", json.dumps(pex))
+    print(f"pex: gossip start to the first holder found "
+          f"{pex['gossip_to_holder_s'] * 1e3:.2f} ms; {pex['bytes']} B "
+          f"pulled from the holder process with no scheduler "
+          f"({pex['piece_requests']} piece GETs, the holder's upload server "
+          f"{pex['upload_requests']:.0f} requests, {pex['upload_bytes']:.0f}"
+          f" B, no origin request) in {pex['wall_s']:.3f} s, "
+          f"{pex['tensors']} tensors equal to the shard; land_s "
+          f"{pex['land_s']:.4f} s, the sink's worker busy "
+          f"{pex['sink_busy_s']:.4f} s of it "
+          f"({pex['sink_busy_s'] / pex['land_s'] * 100:.1f}%: host checksum "
+          f"{pex['host_checksum_s']:.4f} s, staging {pex['stage_s']:.4f} s); "
+          f"K2 {pex['launches']['land_and_checksum']}, K1 "
+          f"{pex['launches']['chunk_checksums']}; the holder fetched it "
+          f"back-to-source in {pex['holder_fetch_s']:.3f} s and spent "
+          f"{pex['holder_cpu_s']:.3f} CPU s serving; peak device memory "
+          f"{pex['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+    print(flight_line("pex", pex["flight"]) + f" on {smi}")
 
     swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
                                    piece_size, gen, device)
@@ -3781,13 +4157,14 @@ def main(argv=None) -> int:
              "manifest": man["launches"], "cdc_swap": cdc["launches"],
              "wds": wds["launches"], "gateway_manifest": gwm["launches"],
              "daemon": dmn["launches"], "p2p": p2p["launches"],
+             "pex": pex["launches"],
              "daemon_delta": dd["launches"], "seed": s1["launches"],
              "seed_again": s2["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
                    sum(dmn["want_k2"].values()), p2p["want_k2"],
-                   seed["want_k2"])
+                   pex["want_k2"], seed["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

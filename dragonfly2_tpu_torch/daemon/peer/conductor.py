@@ -23,11 +23,23 @@ back-to-source. A child that pulled every piece against a done parent's
 digests waits, bounded, for that parent's certification, so its
 completion re-hash can be skipped (``_await_certification``).
 
-Intended divergences from the JAX conductor: no flight recorder; no
-daemon-wide parent quarantine; no QoS dispatch gate; piece reports always
-go as dict lists (``piece_finished`` / ``pieces_finished``) and a resume
-as a piece-number list, never the negotiated packed or bitmap forms,
-which the JAX scheduler accepts either way.
+Every move stamps the task's flight (``pkg/flight``): register and the
+answer, pushes, reschedules, reconnects, stripes, back-to-source, each
+piece landed or failed, quarantine entries. Each piece report carries the
+flight's ``timings`` for it, and the terminal message (``download_finished``
+/ ``download_failed``) the task's flight digest with the clock samples of
+the register and reconnect answers that echoed the scheduler's
+``sched_wall``. A piece failure penalizes its parent in the daemon-wide
+quarantine (``pkg/quarantine``, keyed by ``parent_key``), counted in
+``peer_parent_quarantine_total{reason}`` when it tips the parent over.
+When a stamped answer says ``packed_reports``, report batches go packed
+(``proto/reportcodec``, the dict list when the encoder refuses a batch)
+and a resume of 16 pieces or more goes as a bitmap when it is no more
+than twice the list's length; every register or reconnect answer renews
+the flag, so a failover to a scheduler without it goes back to the dict
+forms.
+
+Intended divergence from the JAX conductor: no QoS dispatch gate.
 
 ``conductor_factory`` builds the task manager's conductor factory, as the
 JAX ``Daemon._make_conductor`` does, until the daemon itself is ported.
@@ -42,6 +54,7 @@ from collections import deque
 from dragonfly2_tpu_torch.daemon.peer.piece_dispatcher import (
     PieceAssignment,
     PieceDispatcher,
+    parent_key,
 )
 from dragonfly2_tpu_torch.daemon.peer.piece_downloader import (
     PieceDownloader,
@@ -53,10 +66,12 @@ from dragonfly2_tpu_torch.daemon.peer.synchronizer import (
     PieceTaskSynchronizer,
 )
 from dragonfly2_tpu_torch.pkg import dflog, metrics
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg import retry as retrylib
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import PieceInfo, Range, compute_piece_count
 from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
+from dragonfly2_tpu_torch.proto import reportcodec
 from dragonfly2_tpu_torch.rpc import codec
 from dragonfly2_tpu_torch.storage.local_store import LocalTaskStore
 
@@ -69,6 +84,10 @@ BACK_SOURCE_COUNT = metrics.counter(
 PIECE_FAIL_REASON = metrics.counter(
     "peer_piece_failures_total",
     "P2P piece failures by typed reason code", ("reason",))
+PARENT_QUARANTINE_COUNT = metrics.counter(
+    "peer_parent_quarantine_total",
+    "Parents entering the daemon-wide quarantine, by tipping reason",
+    ("reason",))
 ANNOUNCE_RECONNECT_COUNT = metrics.counter(
     "peer_announce_reconnects_total",
     "Mid-download announce-stream recovery attempts", ("result",))
@@ -125,6 +144,8 @@ class PeerTaskConductor:
         on_piece=None,
         disable_back_source: bool = False,
         local_range_source=None,
+        quarantine=None,
+        flight=None,
     ):
         self.task_id = task_id
         self.peer_id = peer_id
@@ -150,7 +171,17 @@ class PeerTaskConductor:
         range_header = self.meta.get("range", "")
         self.content_range = (Range.parse_http(range_header)
                               if range_header else None)
-        self.dispatcher = PieceDispatcher()
+        # The daemon-wide parent quarantine (the task manager's), or None.
+        self.quarantine = quarantine
+        # This task's flight: the task manager's recorder's, else the
+        # process-wide recorder's.
+        self.flight = flight if flight is not None \
+            else flightlib.for_task(task_id)
+        # [t0, t1, sched_wall] of the answers that echoed the scheduler's
+        # clock, on this host's anchored wall clock (at most 4).
+        self._clock_samples: list = []
+        self.dispatcher = PieceDispatcher(quarantine=quarantine,
+                                          flight=self.flight)
         self.downloader = PieceDownloader()
         # Every upstream piece request carries the task's tenant tag.
         self.tenant = normalize_tenant(self.meta.get("tenant"))
@@ -171,6 +202,9 @@ class PeerTaskConductor:
         self._pending_reports: deque = deque()
         self._flush_task: asyncio.Task | None = None
         self._last_flush = 0.0
+        # The scheduler takes packed reports and resume bitmaps: learned
+        # from each stamped register or reconnect answer.
+        self._packed_ok = False
         # Announce-stream recovery: the register body kept for
         # re-registration, the reconnect lock, and the terminal flag that
         # stops recovery racing teardown.
@@ -213,6 +247,8 @@ class PeerTaskConductor:
             watch(self.task_id, self._on_ring_change)
         msg = None
         register_error = "scheduler closed stream at register"
+        self.flight.record(flightlib.EV_REGISTER)
+        t0_clock = self.flight.wall_now()
         try:
             self._stream = await self.scheduler_client.open_announce_stream(
                 open_body)
@@ -223,14 +259,14 @@ class PeerTaskConductor:
                 reg["resume"] = self._resume_state()
             await self._stream.send(reg)
             msg = await self._stream.recv(timeout=60.0)
-            if msg:
-                self._note_recv(msg)
+            self._note_clock_sample(t0_clock, msg)
         except DfError as e:
             if self.disable_back_source:
                 await self._teardown()
                 raise
             register_error = str(e)
         if msg is None:
+            self.flight.record(flightlib.EV_SCHEDULED, -1, 0.0, "unavailable")
             if self.disable_back_source:
                 await self._teardown()
                 raise DfError(Code.SchedError,
@@ -243,6 +279,8 @@ class PeerTaskConductor:
             finally:
                 await self._teardown()
             return
+        self.flight.record(flightlib.EV_SCHEDULED, -1, 0.0,
+                           str(msg.get("type", "")))
         try:
             await self._dispatch_schedule(msg)
         except BaseException:
@@ -316,6 +354,8 @@ class PeerTaskConductor:
                 rec = self.store.write_piece_chunks(
                     piece.piece_num, chunks, received_digest,
                     expected_digest=piece.digest, cost_ms=cost_ms)
+                self.flight.record(flightlib.EV_LANDED, piece.piece_num,
+                                   float(cost_ms))
                 await self._report_piece(rec, parent_id=parent.get("id", ""))
                 if self.on_piece is not None:
                     await self.on_piece(self.store, rec)
@@ -346,6 +386,7 @@ class PeerTaskConductor:
     # -- back-to-source ------------------------------------------------------
 
     async def _back_source(self) -> None:
+        self.flight.record(flightlib.EV_BACK_SOURCE)
         # Content already complete locally (a seed re-announcing after a
         # scheduler restart): report the pieces, no origin request.
         if self.store.metadata.done and self.store.is_complete():
@@ -507,11 +548,29 @@ class PeerTaskConductor:
         worst case (no done arrives) loses about the hash's cost."""
         return min(3.0, 0.05 + 2 * content_length / 1.0e9)
 
+    def _note_clock_sample(self, t0: float, msg: "dict | None") -> None:
+        """A register or reconnect answer: its bytes counted, the packed
+        capability renewed, and, when it echoed the scheduler's
+        ``sched_wall``, a clock sample (t0/t1 bracket the round trip, so
+        the midpoint's error is at most (t1 - t0) / 2)."""
+        if not msg:
+            return
+        self._note_recv(msg)
+        self._packed_ok = bool(msg.get("packed_reports"))
+        echo = msg.get("sched_wall")
+        if not isinstance(echo, (int, float)) or echo <= 0:
+            return
+        self._clock_samples.append(
+            (t0, self.flight.wall_now(), float(echo)))
+        del self._clock_samples[:-4]
+
     def _apply_stripe(self, stripe: dict | None) -> None:
         """Enter, reshuffle or leave stripe mode from a scheduler answer.
         The plan's mates are synced like parents, marked same_slice, so
         pieces outside this host's stripe fill from them."""
         if stripe and int(stripe.get("slice_size", 0)) >= 2:
+            self.flight.record(flightlib.EV_STRIPE, -1,
+                               float(stripe["slice_size"]), "applied")
             self.dispatcher.set_stripe(int(stripe["slice_size"]),
                                        int(stripe.get("slice_rank", -1)))
             mates = stripe.get("mates") or []
@@ -521,13 +580,26 @@ class PeerTaskConductor:
                      slice_size=stripe["slice_size"],
                      slice_rank=stripe.get("slice_rank"), mates=len(mates))
         else:
+            if self.dispatcher.stripe is not None:
+                self.flight.record(flightlib.EV_STRIPE, -1, 0.0, "cleared")
             self.dispatcher.clear_stripe()
 
-    def _note_piece_failure(self, err: DfError) -> str:
-        """Classify a piece failure and count it; the reason goes to the
-        scheduler."""
+    def _note_piece_failure(self, parent, err: DfError) -> str:
+        """Classify a piece failure, count it and penalize the parent in
+        the daemon-wide quarantine; the reason goes to the scheduler."""
         reason = failure_reason(err)
         PIECE_FAIL_REASON.labels(reason).inc()
+        if self.quarantine is not None:
+            if self.quarantine.penalize(parent_key(parent), reason):
+                PARENT_QUARANTINE_COUNT.labels(reason).inc()
+                self.flight.record(
+                    flightlib.EV_QUARANTINE, -1, 0.0,
+                    f"{parent_key(parent)}|{reason}")
+                log.warning("parent quarantined",
+                            parent=parent.peer_id[:24],
+                            endpoint=parent_key(parent), reason=reason,
+                            task=self.task_id[:16])
+                self.dispatcher._wakeup.set()
         return reason
 
     def _parent_locality(self, parent) -> str:
@@ -591,6 +663,8 @@ class PeerTaskConductor:
                     return
                 self._note_recv(msg)
                 kind = msg.get("type")
+                self.flight.record(flightlib.EV_SCHED_PUSH, -1, 0.0,
+                                   str(kind))
                 if kind == "normal_task":
                     self._apply_task_meta(msg.get("task") or {})
                     if self.synchronizer is not None:
@@ -622,14 +696,22 @@ class PeerTaskConductor:
         pod-broadcast flag. A failover member or a restarted scheduler
         rebuilds this peer from it."""
         m = self.store.metadata
+        nums = sorted(m.pieces.keys())
         resume: dict = {
-            "piece_nums": sorted(m.pieces.keys()),
+            "piece_nums": nums,
             "content_length": m.content_length,
             "piece_size": m.piece_size,
             "total_piece_count": m.total_piece_count,
             "prefix_digest": m.digest or "",
             "pod_broadcast": bool(self.meta.get("pod_broadcast")),
         }
+        if self._packed_ok and len(nums) >= 16:
+            # The negotiated bitmap, one bit a piece; a sparse set stays a
+            # list (the density gate).
+            bitmap = reportcodec.nums_to_bitmap(nums)
+            if len(bitmap) <= 2 * len(nums):
+                resume["piece_bitmap"] = bitmap
+                resume["piece_nums"] = []
         stripe = self.dispatcher.stripe
         if stripe is not None:
             resume["stripe"] = {"slice_size": stripe[0],
@@ -690,13 +772,17 @@ class PeerTaskConductor:
                 if self._announce_done:
                     return False
                 try:
+                    t0_clock = self.flight.wall_now()
                     stream = await self.scheduler_client.open_announce_stream(
                         self._open_body)
                     await stream.send({"type": "register",
                                        "resume": self._resume_state()})
                     msg = await stream.recv(timeout=30.0)
+                    self._note_clock_sample(t0_clock, msg)
                 except DfError as e:
                     ANNOUNCE_RECONNECT_COUNT.labels("retry").inc()
+                    self.flight.record(flightlib.EV_RECONNECT, -1, 0.0,
+                                       "retry")
                     log.warning("announce reconnect failed",
                                 task=self.task_id[:16], attempt=attempt,
                                 error=str(e))
@@ -704,7 +790,6 @@ class PeerTaskConductor:
                 if msg is None:
                     ANNOUNCE_RECONNECT_COUNT.labels("retry").inc()
                     continue
-                self._note_recv(msg)
                 old, self._stream = self._stream, stream
                 if old is not None:
                     await old.close()
@@ -742,11 +827,13 @@ class PeerTaskConductor:
                 outcome = "rehomed" if self._rehome_pending else "ok"
                 self._rehome_pending = False
                 ANNOUNCE_RECONNECT_COUNT.labels(outcome).inc()
+                self.flight.record(flightlib.EV_RECONNECT, -1, 0.0, outcome)
                 log.info("announce stream recovered",
                          task=self.task_id[:16], attempt=attempt,
                          result=outcome, reconnects=self._stream_reconnects)
                 return True
             ANNOUNCE_RECONNECT_COUNT.labels("exhausted").inc()
+            self.flight.record(flightlib.EV_RECONNECT, -1, 0.0, "exhausted")
             return False
 
     async def _piece_worker(self, index: int) -> None:
@@ -774,12 +861,15 @@ class PeerTaskConductor:
         self.dispatcher.report_success(a, rec.cost_ms)
         PIECE_DOWNLOAD_COUNT.labels("ok").inc()
         self._note_piece_bytes(p, rec.size)
+        self.flight.record(flightlib.EV_LANDED, a.piece_num,
+                           float(rec.cost_ms), self._parent_locality(p))
         await self._report_piece(rec, parent_id=p.peer_id)
         if self.on_piece is not None:
             await self.on_piece(self.store, rec)
 
     async def _send_piece_failed(self, a: PieceAssignment, gone: bool,
                                  reason: str) -> None:
+        self.flight.record(flightlib.EV_FAILED, a.piece_num, 0.0, reason)
         await self._safe_send({
             "type": "piece_failed",
             "piece_num": a.piece_num,
@@ -809,7 +899,7 @@ class PeerTaskConductor:
             else:
                 penalized.append(err)
                 self.dispatcher.report_failure(a, parent_gone=gone)
-                reason = self._note_piece_failure(err)
+                reason = self._note_piece_failure(a.parent, err)
             await self._send_piece_failed(a, gone, reason)
 
         p = run[0].parent
@@ -828,8 +918,9 @@ class PeerTaskConductor:
             PIECE_DOWNLOAD_COUNT.labels("fail").inc()
             gone = is_parent_gone(e)
             self.dispatcher.report_failure(assignment, parent_gone=gone)
-            await self._send_piece_failed(assignment, gone,
-                                          self._note_piece_failure(e))
+            await self._send_piece_failed(
+                assignment, gone,
+                self._note_piece_failure(assignment.parent, e))
             return
         await self._landed(assignment, rec)
 
@@ -852,6 +943,8 @@ class PeerTaskConductor:
                               f"starved after {MAX_RESCHEDULES} reschedules")
             blocklist = self.dispatcher.unusable_parent_ids()
             self._sched_update.clear()
+            self.flight.record(flightlib.EV_RESCHEDULE, -1, 0.0,
+                               "starvation")
             await self._safe_send({"type": "reschedule",
                                    "blocklist": blocklist,
                                    "description": "piece starvation"})
@@ -862,6 +955,7 @@ class PeerTaskConductor:
             except asyncio.TimeoutError:
                 raise DfError(Code.SchedError,
                               "scheduler silent during reschedule")
+            self.flight.record(flightlib.EV_SCHED_ANSWER)
             return not self._need_back_source
 
     # -- reporting -----------------------------------------------------------
@@ -869,14 +963,19 @@ class PeerTaskConductor:
     _REPORT_FLUSH_S = 0.05
 
     async def _report_piece(self, rec, parent_id: str) -> None:
-        self._pending_reports.append({
+        report = {
             "piece_num": rec.num,
             "range_start": rec.offset,
             "range_size": rec.size,
             "digest": rec.digest,
             "download_cost_ms": rec.cost_ms,
             "dst_peer_id": parent_id,
-        })
+        }
+        # The piece's phase split, for the scheduler's per-host rollup.
+        timings = self.flight.piece_report_timings(rec.num)
+        if timings:
+            report["timings"] = timings
+        self._pending_reports.append(report)
         if self._flush_task is None or self._flush_task.done():
             self._flush_task = asyncio.ensure_future(self._flush_soon())
 
@@ -897,10 +996,16 @@ class PeerTaskConductor:
             if not self._pending_reports:
                 return
 
-    @staticmethod
-    def _batch_msg(batch: list) -> dict:
+    def _batch_msg(self, batch: list) -> dict:
+        """One report batch on the wire: packed when the scheduler
+        negotiated it and the encoder carries the batch exactly, else the
+        dict list."""
         if len(batch) == 1:
             return {"type": "piece_finished", "piece": batch[0]}
+        if self._packed_ok:
+            packed = reportcodec.encode_reports(batch)
+            if packed is not None:
+                return {"type": "pieces_finished", "packed": packed}
         return {"type": "pieces_finished", "pieces": batch}
 
     async def _flush_reports(self) -> bool:
@@ -941,6 +1046,16 @@ class PeerTaskConductor:
         if msg.get("type") in ("download_finished", "reschedule",
                                "download_failed"):
             await self._flush_reports()
+        if msg.get("type") in ("download_finished", "download_failed") \
+                and "flight" not in msg:
+            # The terminal message ships the task's flight digest and clock
+            # samples; a digest failure must never fail the task.
+            try:
+                msg["flight"] = flightlib.digest(
+                    self.flight, clock_samples=self._clock_samples)
+            except Exception:
+                log.warning("flight digest failed",
+                            task=self.task_id[:16], exc_info=True)
         stream = self._stream
         if stream is None or stream.closed:
             return False
@@ -970,9 +1085,10 @@ def conductor_factory(*, scheduler_client, piece_manager, host_wire,
                       task_manager=None):
     """The ``TaskManager``'s ``conductor_factory``, built as the JAX
     ``Daemon._make_conductor`` builds its conductors: the host record from
-    ``host_wire()`` (less its telemetry), the request's metadata, a ranged
-    task's import from a local parent through ``task_manager``, and
-    ``is_seed`` from the task (a seed trigger's)."""
+    ``host_wire()`` (less its telemetry), the request's metadata, and
+    ``is_seed`` from the task (a seed trigger's); with ``task_manager``, a
+    ranged task's import from a local parent, the task's flight from the
+    task manager's recorder and its daemon-wide quarantine."""
 
     def make(*, task_id: str, peer_id: str, request, store, on_piece,
              is_seed: bool = False, limiter=None) -> PeerTaskConductor:
@@ -990,16 +1106,18 @@ def conductor_factory(*, scheduler_client, piece_manager, host_wire,
             "range": m.range,
             "pod_broadcast": getattr(request, "pod_broadcast", False),
         }
-        local = None
+        local = flight = quarantine = None
         if task_manager is not None:
             def local(s, cb, _req=request):
                 return task_manager.import_range_from_local_parent(s, _req, cb)
+            flight = task_manager.flight.task(task_id)
+            quarantine = task_manager.quarantine
         return PeerTaskConductor(
             task_id=task_id, peer_id=peer_id, url=request.url, store=store,
             scheduler_client=scheduler_client, piece_manager=piece_manager,
             host_info=host_info, meta=meta,
             is_seed=is_seed, limiter=limiter, on_piece=on_piece,
             disable_back_source=getattr(request, "disable_back_source", False),
-            local_range_source=local)
+            local_range_source=local, flight=flight, quarantine=quarantine)
 
     return make

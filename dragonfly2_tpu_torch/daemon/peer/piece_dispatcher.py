@@ -9,11 +9,16 @@ parent holds. Stripe mode (a pod broadcast's wanted set) and the
 per-parent digest maps that certify a child's completion re-hash skip
 (``certified_digest_maps``) are the JAX dispatcher's.
 
-Not ported: the daemon-wide parent quarantine (``pkg/quarantine``) and
-the flight recorder. Runs extend over pieces whose digest the store can
-check in the write (crc32c, or none) whatever the route: the port fetches
-a run as one ranged GET over ``http.client`` (``piece_downloader``),
-where the JAX dispatcher extends only when its native library is loaded.
+``quarantine`` (the daemon-wide ``pkg/quarantine.ParentQuarantine``,
+keyed by ``parent_key``) is consulted live: a quarantined parent gets no
+assignment and rides the reschedule blocklist until its window lapses.
+``flight`` (the task's ``pkg/flight.TaskFlight``) records each parent
+dropped (``EV_PARENT_DROP``).
+
+Runs extend over pieces whose digest the store can check in the write
+(crc32c, or none) whatever the route: the port fetches a run as one
+ranged GET over ``http.client`` (``piece_downloader``), where the JAX
+dispatcher extends only when its native library is loaded.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ import heapq
 import random
 from dataclasses import dataclass, field
 
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.piece import piece_length
 
 EWMA_ALPHA = 0.3
@@ -59,12 +65,22 @@ class PieceAssignment:
     digest: str = ""   # parent-advertised "algo:encoded"; verified on write
 
 
+def parent_key(p: ParentInfo) -> str:
+    """The daemon-wide quarantine key: the serving endpoint, not the
+    per-task peer id (a parent that corrupted task A is not trusted for
+    task B, and a restarted peer id must not reset it)."""
+    return f"{p.ip}:{p.upload_port}"
+
+
 # Failures in a row that block a parent.
 MAX_PARENT_FAILURES = 3
 
 
 class PieceDispatcher:
-    def __init__(self):
+    def __init__(self, *, quarantine=None,
+                 flight: "flightlib.TaskFlight | None" = None):
+        self.quarantine = quarantine
+        self.flight = flight
         self.parents: dict[str, ParentInfo] = {}
         self._total_piece_count = -1
         self.piece_size = 0
@@ -167,16 +183,27 @@ class PieceDispatcher:
         p = self.parents.get(peer_id)
         if p is not None:
             p.blocked = True
+            if self.flight is not None:
+                self.flight.record(flightlib.EV_PARENT_DROP, -1, 0.0,
+                                   peer_id)
         self._wakeup.set()
         self.certified_event.set()
 
     def active_parents(self) -> list[ParentInfo]:
-        return [p for p in self.parents.values() if not p.blocked]
+        # Consulted live (the penalty decays): a parent whose window lapsed
+        # is selectable again with no push from the scheduler.
+        q = self.quarantine
+        return [p for p in self.parents.values()
+                if not p.blocked
+                and (q is None or not q.is_quarantined(parent_key(p)))]
 
     def unusable_parent_ids(self) -> list[str]:
-        """Blocked parents: the reschedule blocklist (the scheduler must
-        not hand these right back)."""
-        return [pid for pid, p in self.parents.items() if p.blocked]
+        """Blocked or quarantined parents: the reschedule blocklist (the
+        scheduler must not hand these right back)."""
+        q = self.quarantine
+        return [pid for pid, p in self.parents.items()
+                if p.blocked
+                or (q is not None and q.is_quarantined(parent_key(p)))]
 
     def note_parent_done(self, peer_id: str) -> None:
         """The sync stream saw done=True from this parent: its completion

@@ -31,9 +31,16 @@ seconds spent waiting on a parent (from the request to a piece's last
 byte: ``get_wait_s``) and writing pieces into the store
 (``store_write_s``).
 
+Each piece attempt stamps the task's flight (``pkg/flight.for_task``, the
+process-wide recorder, as in JAX): ``EV_REQUEST`` when it is asked for,
+``EV_FIRST_BYTE`` when its first bytes arrive, and ``EV_STORE_START`` /
+``EV_STORED`` around its store write. The JAX downloader stamps the store
+pair on its per-piece path only (its span is a native fetch); the port's
+span writes each piece through the store too, and stamps it likewise.
+
 Not ported: the native route (``NativeConnPool``, the native branch of
-``download_piece_to_store`` and the span's native fetch), the flight
-recorder, trace context and the chaos hooks.
+``download_piece_to_store`` and the span's native fetch), trace context
+and the chaos hooks.
 """
 
 from __future__ import annotations
@@ -46,6 +53,7 @@ from concurrent.futures import ThreadPoolExecutor
 from urllib.parse import urlencode
 
 from dragonfly2_tpu_torch.pkg import digest as pkgdigest
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.bufpool import WorkerCall, await_worker
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError, describe
 
@@ -231,8 +239,9 @@ class PieceDownloader:
                 call.detach(conn)
 
     def _read_body(self, call: WorkerCall, ex: _Exchange, asm: _Assembly,
-                   length: int, deadline: float) -> None:
-        """``length`` body bytes into ``asm`` (-1: to the end)."""
+                   length: int, deadline: float, first=None) -> None:
+        """``length`` body bytes into ``asm`` (-1: to the end); ``first()``
+        is called when the first bytes arrive."""
         call.attach(ex.conn)
         try:
             left = length
@@ -244,6 +253,9 @@ class PieceDownloader:
                     if left > 0 or ex.resp.length:
                         raise http.client.IncompleteRead(b"", left)
                     return
+                if first is not None:
+                    first()
+                    first = None
                 asm.add(data)
                 if left > 0:
                     left -= len(data)
@@ -265,7 +277,7 @@ class PieceDownloader:
     # -- one piece ---------------------------------------------------------
 
     def _fetch_piece(self, call: WorkerCall, key, path: str, piece_num: int,
-                     expected_size: int, expected_digest: str):
+                     expected_size: int, expected_digest: str, ft):
         parent = f"{key[0]}:{key[1]}"
         asm = _Assembly(expected_size, expected_digest)
         t0 = time.monotonic()
@@ -279,7 +291,8 @@ class PieceDownloader:
                 ex.conn.close()
                 raise status_err
             try:
-                self._read_body(call, ex, asm, -1, deadline)
+                self._read_body(call, ex, asm, -1, deadline, lambda: ft.record(
+                    flightlib.EV_FIRST_BYTE, piece_num))
             except BaseException:
                 ex.conn.close()
                 raise
@@ -302,31 +315,38 @@ class PieceDownloader:
         query = {"peerId": src_peer_id, "pieceNum": str(piece_num)}
         if tenant:
             query["tenant"] = tenant
+        ft = flightlib.for_task(task_id)
+        ft.record(flightlib.EV_REQUEST, piece_num, 0.0,
+                  f"{parent_ip}:{parent_upload_port}")
         start = time.monotonic()
         chunks, size, digest_str = await self._run(
             self._fetch_piece, (parent_ip, parent_upload_port),
             self._path(task_id, query), piece_num, expected_size,
-            expected_digest)
+            expected_digest, ft)
         return chunks, size, int((time.monotonic() - start) * 1000), \
             digest_str
 
     # -- a run of pieces as one ranged GET ---------------------------------
 
     def _land_span_piece(self, call: WorkerCall, ex: _Exchange, store, a,
-                         t0: float):
+                         t0: float, ft):
         """Read piece ``a``'s bytes off the span and land them: crc32c
         fused into the write, checked against the parent's digest."""
         asm = _Assembly(a.expected_size, "")
         self._read_body(call, ex, asm, a.expected_size,
-                        time.monotonic() + TIMEOUT)
+                        time.monotonic() + TIMEOUT, lambda: ft.record(
+                            flightlib.EV_FIRST_BYTE, a.piece_num))
         chunks, _, _ = asm.finish()
         landed = self._count("get_wait_s", t0)
+        ft.record(flightlib.EV_STORE_START, a.piece_num)
         try:
-            return store.write_piece_chunks(
+            rec = store.write_piece_chunks(
                 a.piece_num, chunks, "", expected_digest=a.digest,
                 cost_ms=int((landed - t0) * 1000))
         finally:
             self._count("store_write_s", landed)
+        ft.record(flightlib.EV_STORED, a.piece_num)
+        return rec
 
     async def download_span_to_store(self, parent_ip: str,
                                      parent_upload_port: int, task_id: str,
@@ -375,6 +395,8 @@ class PieceDownloader:
                 await on_result(a, None, err)
             return True
 
+        ft = flightlib.for_task(task_id)
+        ft.record(flightlib.EV_REQUEST, run[0].piece_num, 0.0, parent)
         t0 = time.monotonic()   # the first piece waits from the request
         try:
             ex = await self._run(self._exchange, key,
@@ -402,10 +424,11 @@ class PieceDownloader:
                 if limiter is not None:
                     await limiter.wait(a.expected_size)
                 if i:
+                    ft.record(flightlib.EV_REQUEST, a.piece_num, 0.0, parent)
                     t0 = time.monotonic()
                 try:
                     rec = await self._run(self._land_span_piece, ex, store, a,
-                                          t0)
+                                          t0, ft)
                 except DfError as e:     # the piece's digest: this piece only
                     await on_result(a, None, e)
                     continue
@@ -458,6 +481,8 @@ async def pull_one_piece(downloader: PieceDownloader, store, dispatcher,
         expected_digest=assignment.digest, tenant=tenant)
     # Off the loop: the write blocks on the disk. One pwritev of the
     # chunks, crc fused into it or checked against the streamed digest.
+    ft = flightlib.for_task(task_id)
+
     def write():
         t0 = time.monotonic()
         try:
@@ -467,4 +492,7 @@ async def pull_one_piece(downloader: PieceDownloader, store, dispatcher,
         finally:
             downloader._count("store_write_s", t0)
 
-    return await asyncio.to_thread(write)
+    ft.record(flightlib.EV_STORE_START, assignment.piece_num)
+    rec = await asyncio.to_thread(write)
+    ft.record(flightlib.EV_STORED, assignment.piece_num)
+    return rec

@@ -12,6 +12,9 @@ failures marked temporary are retried under ``pkg/retry``'s SOURCE policy;
 pieces already landed are skipped. ``import_file`` lands a local file as a
 task; ``validate_content`` checks the whole-content digest.
 
+Each origin piece landed stamps the task's flight (``pkg/flight.for_task``)
+with ``EV_SOURCE_LANDED``, its receive and write time in float ms.
+
 The JAX package's native span fetch (socket to crc32c to pwrite in its
 native library) is not ported: every origin byte rides the Python
 streaming path here.
@@ -26,6 +29,7 @@ from dataclasses import dataclass
 from typing import Awaitable, Callable
 
 from dragonfly2_tpu_torch.pkg import dflog
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg import retry as retrylib
 from dragonfly2_tpu_torch.pkg.errors import Code, SourceError
 from dragonfly2_tpu_torch.pkg.piece import (
@@ -394,6 +398,11 @@ class PieceManager:
         rec = await asyncio.to_thread(
             store.write_piece_chunks, num, views, cost_ms=cost_ms)
         self.timings["store_write_s"] += time.perf_counter() - t0
+        # Float ms: a sub-ms loopback piece must not collapse to a
+        # zero-length origin interval in the fold.
+        flightlib.for_task(store.metadata.task_id).record(
+            flightlib.EV_SOURCE_LANDED, num,
+            (time.monotonic() - started_at) * 1000.0)
         if on_piece is not None:
             await on_piece(store, rec)
 

@@ -48,12 +48,27 @@ reusable, and a kernel fault (``KernelError``) propagates, except on a
 seed: a preheat has no requester to fail, so its disk store stands and the
 fault is counted in ``peer_seed_device_failures_total{reason="kernel"}``.
 
-Not ported yet: PEX (a task manager without a scheduler fails a
-``disable_back_source`` task that no local parent covers), the flight
-recorder, the quarantine, and the traffic shaper's wiring (it comes with
-the daemon's config and loop; downloads go through the piece manager's
-one limiter). Where the JAX task manager records a flight event or
-announces over PEX, the port does neither.
+PEX (``pex=``, a ``daemon/pex.PeerExchange``): with no scheduler, a task
+that gossip says live members hold is pulled from them
+(``_pex_download``: their piece maps over ``Peer.SyncPieceTasks``, the
+pieces from their upload servers, four workers); a failed or holderless
+PEX pull falls back to the origin unless ``disable_back_source``. Every
+task kind announces its completed tasks over PEX (``_pex_announce``).
+Intended divergence: a PEX pull records each piece's ``EV_LANDED`` (and
+its dispatcher the parents it drops), which the JAX pull leaves out, so
+that its flight's fold closes each piece's request.
+
+The flight recorder (``flight=``, the process-wide
+``pkg/flight.recorder()`` by default) holds a flight a task: its device
+landing of each piece (``EV_HBM_START`` / ``EV_HBM_LANDED`` around the
+sink), its completion re-hash (``EV_VERIFY_START`` / ``EV_VERIFIED``),
+and on every terminal path of every task kind ``finish_task`` (done or
+failed, with the error), which feeds ``peer_task_phase_seconds``. One
+daemon-wide ``pkg/quarantine.ParentQuarantine`` (``quarantine``) is shared
+by every conductor and PEX pull.
+
+Not ported yet: the traffic shaper's wiring (it comes with the daemon's
+config and loop; downloads go through the piece manager's one limiter).
 """
 
 from __future__ import annotations
@@ -67,9 +82,23 @@ from typing import AsyncIterator
 
 from dragonfly2_tpu_torch.daemon.peer.broker import PieceBroker, PieceEvent
 from dragonfly2_tpu_torch.daemon.peer.device_sink import DeviceSinkError
+from dragonfly2_tpu_torch.daemon.peer.piece_dispatcher import (
+    PieceDispatcher,
+    parent_key,
+)
+from dragonfly2_tpu_torch.daemon.peer.piece_downloader import (
+    PieceDownloader,
+    failure_reason,
+    is_parent_gone,
+    pull_one_piece,
+)
 from dragonfly2_tpu_torch.daemon.peer.piece_manager import PieceManager
+from dragonfly2_tpu_torch.daemon.peer.synchronizer import (
+    PieceTaskSynchronizer,
+)
 from dragonfly2_tpu_torch.ops._build import KernelError
 from dragonfly2_tpu_torch.pkg import aio, dflog, idgen, metrics
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.errors import (
     Code,
     DfError,
@@ -81,6 +110,7 @@ from dragonfly2_tpu_torch.pkg.piece import (
     compute_piece_count,
     compute_piece_size,
 )
+from dragonfly2_tpu_torch.pkg.quarantine import ParentQuarantine
 from dragonfly2_tpu_torch.proto.common import UrlMeta
 from dragonfly2_tpu_torch.storage import (
     LocalTaskStore,
@@ -212,8 +242,10 @@ class TaskManager:
         scheduler_client=None,
         conductor_factory=None,
         host_wire=None,
+        pex=None,
         prefetch: bool = False,
         device_sinks=None,
+        flight=None,
     ):
         self.storage = storage
         self.piece_manager = piece_manager
@@ -232,6 +264,14 @@ class TaskManager:
         # () -> the host's AnnounceHost-shaped dict: the identity imported
         # tasks are announced under.
         self.host_wire = host_wire
+        # Gossip peer exchange: schedulerless discovery of the holders of
+        # a task, and this host's own possession list.
+        self.pex = pex
+        # One decaying-penalty registry for every conductor and PEX pull,
+        # keyed by a parent's serving endpoint.
+        self.quarantine = ParentQuarantine()
+        # The bounded task index of flights; tests inject one a daemon.
+        self.flight = flight if flight is not None else flightlib.recorder()
         self.broker = PieceBroker()
         self._running: dict[str, _RunningTask] = {}
         # The last delta landing's accounting by task id, and its host
@@ -252,6 +292,7 @@ class TaskManager:
         # Ranged tasks land too: the store's piece grid is slice-relative,
         # so the sink's geometry is the slice's (download_sharded).
         sink_wanted = req.device == DEVICE_SINK and self.device_sinks is not None
+        tf = self.flight.task(task_id)
 
         async def on_piece(st, rec) -> None:
             m = st.metadata
@@ -259,7 +300,9 @@ class TaskManager:
                 [rec.num], m.total_piece_count, m.content_length, m.piece_size,
                 digests={rec.num: rec.digest}))
             if sink_wanted:
+                tf.record(flightlib.EV_HBM_START, rec.num)
                 await self.device_sinks.on_piece(task_id, st, rec)
+                tf.record(flightlib.EV_HBM_LANDED, rec.num)
             if progress_q is not None:
                 await progress_q.on_piece(st, rec)
 
@@ -271,6 +314,18 @@ class TaskManager:
                 limiter=self.piece_manager.limiter)
             await conductor.run()
             return conductor.from_p2p
+        if self.pex is not None:
+            # No scheduler: gossip may name holders. A failed pull (stale
+            # holders, a stall) falls back to the origin when allowed.
+            try:
+                if await self._pex_download(task_id, peer_id, store,
+                                            on_piece):
+                    return True
+            except DfError as e:
+                if req.disable_back_source:
+                    raise
+                log.warning("pex download failed, falling back to source",
+                            task_id=task_id[:16], error=str(e))
         # A ranged task whose slice a local parent covers imports it
         # without touching the origin (allowed even with the origin off the
         # table). Origin reads go through the piece manager's own limiter.
@@ -288,6 +343,80 @@ class TaskManager:
             store, req.url, req.meta.header,
             content_range=req.range, on_piece=on_piece)
         return False
+
+    async def _pex_download(self, task_id: str, peer_id: str, store,
+                            on_piece) -> bool:
+        """Pull every piece from the holders gossip names, with no
+        scheduler: their piece maps over ``Peer.SyncPieceTasks``, one GET
+        a piece, four workers, failures penalized in the quarantine. False
+        when gossip knows no live holder; raises when the pull stalls or
+        ends incomplete."""
+        holders = [m for m in self.pex.find_holders(task_id)
+                   if m.peer_port and m.upload_port]
+        if not holders:
+            return False
+        tf = self.flight.task(task_id)
+        dispatcher = PieceDispatcher(quarantine=self.quarantine, flight=tf)
+        synchronizer = PieceTaskSynchronizer(task_id, peer_id, dispatcher)
+        downloader = PieceDownloader()
+        dispatcher.mark_known_downloaded(store.metadata.pieces.keys())
+        synchronizer.sync_parents([
+            {"id": m.node_id,
+             "host": {"ip": m.ip, "port": m.peer_port,
+                      "upload_port": m.upload_port}}
+            for m in holders])
+        log.info("pex download", task_id=task_id[:16], holders=len(holders))
+        limiter = self.piece_manager.limiter
+
+        async def worker() -> None:
+            while not dispatcher.is_complete():
+                assignment = await dispatcher.get(timeout=15.0)
+                if assignment is None:
+                    if dispatcher.is_complete():
+                        return
+                    raise DfError(Code.ClientPieceDownloadFail,
+                                  "pex download stalled (no usable holders)")
+                try:
+                    rec = await pull_one_piece(
+                        downloader, store, dispatcher, assignment,
+                        task_id=task_id, peer_id=peer_id, limiter=limiter)
+                except DfError as e:
+                    dispatcher.report_failure(assignment,
+                                              parent_gone=is_parent_gone(e))
+                    self.quarantine.penalize(parent_key(assignment.parent),
+                                             failure_reason(e))
+                    continue
+                dispatcher.report_success(assignment, rec.cost_ms)
+                # The landing closes the piece's request in the flight's
+                # fold (the JAX PEX pull records none, and its fold counts
+                # every request as open to the end).
+                tf.record(flightlib.EV_LANDED, assignment.piece_num,
+                          float(rec.cost_ms), "unlabeled")
+                await on_piece(store, rec)
+
+        try:
+            workers = [asyncio.ensure_future(worker()) for _ in range(4)]
+            try:
+                await asyncio.gather(*workers)
+            except BaseException:
+                for w in workers:
+                    w.cancel()
+                await asyncio.gather(*workers, return_exceptions=True)
+                raise
+        finally:
+            await synchronizer.close()
+            await downloader.close()
+        if not dispatcher.is_complete():
+            raise DfError(Code.ClientPieceDownloadFail,
+                          "pex download incomplete")
+        if (store.metadata.content_length < 0
+                and dispatcher.content_length >= 0):
+            store.update_task(content_length=dispatcher.content_length)
+        return True
+
+    def _pex_announce(self, task_id: str) -> None:
+        if self.pex is not None:
+            self.pex.add_task(task_id)
 
     # -- import (dfcache) --------------------------------------------------
 
@@ -358,6 +487,7 @@ class TaskManager:
                                                 req.meta.digest)
                         store.metadata.digest = req.meta.digest
                     store.mark_done()
+                    self._pex_announce(task_id)
                 except BaseException:
                     # A half-imported store must not be resumed by a retry.
                     store.mark_invalid()
@@ -470,6 +600,8 @@ class TaskManager:
             # Verify and land the output inside the same failure envelope.
             await self._finalize_content_digest(req, store)
             store.mark_done()
+            self.flight.finish_task(task_id, "done")
+            self._pex_announce(task_id)
             if req.output:
                 await asyncio.to_thread(store.store_to, req.output)
         except DfError as e:
@@ -480,7 +612,8 @@ class TaskManager:
         except Exception as e:
             log.error("file task crashed", exc_info=True)
             self._fail(req, task_id, store, run,
-                       DfError(Code.UnknownError, describe(e)))
+                       DfError(Code.UnknownError, describe(e)),
+                       note=describe(e))
             yield FileTaskProgress(state="failed", task_id=task_id,
                                    peer_id=peer_id,
                                    error=run.error.to_wire())
@@ -534,10 +667,14 @@ class TaskManager:
                                    device_verified=dev)
 
     def _fail(self, req: FileTaskRequest, task_id: str, store,
-              run: _RunningTask, error: DfError) -> None:
+              run: _RunningTask, error: DfError, note: str = "") -> None:
+        """A task's failure: the sink discarded, the store invalid, the
+        flight finished as failed (``note``: the error's text), waiters
+        told."""
         self._discard_sink(req, task_id)
         store.mark_invalid()
         run.error = error
+        self.flight.finish_task(task_id, "failed", note=note or str(error))
         self.broker.publish(task_id, PieceEvent([], failed=True))
 
     # -- delta task (delta/resolver.py) -------------------------------------
@@ -625,8 +762,10 @@ class TaskManager:
             # here, before the announce.
             await self._finalize_content_digest(req, store)
             store.mark_done()
-            # The disk result is final: publish it first (the device copy
-            # cannot change it), then land the device copy.
+            self.flight.finish_task(task_id, "done")
+            # The disk result is final: announce and publish it first (the
+            # device copy cannot change it), then land the device copy.
+            self._pex_announce(task_id)
             m = store.metadata
             self.broker.publish(task_id, PieceEvent(
                 [], m.total_piece_count, m.content_length, m.piece_size,
@@ -641,7 +780,8 @@ class TaskManager:
             log.error("seed task failed", error=describe(e))
             self._fail(req, task_id, store, run,
                        e if isinstance(e, DfError)
-                       else DfError(Code.UnknownError, describe(e)))
+                       else DfError(Code.UnknownError, describe(e)),
+                       note=describe(e))
         finally:
             store.unpin()
             run.done.set()
@@ -817,6 +957,8 @@ class TaskManager:
             await self._run_download(task_id, peer_id, req, store, None)
             await self._finalize_content_digest(req, store)
             store.mark_done()
+            self.flight.finish_task(task_id, "done")
+            self._pex_announce(task_id)
             m = store.metadata
             self.broker.publish(task_id, PieceEvent(
                 [], m.total_piece_count, m.content_length, m.piece_size,
@@ -826,7 +968,8 @@ class TaskManager:
         except Exception as e:
             log.error("stream download crashed", exc_info=True)
             self._fail(req, task_id, store, run,
-                       DfError(Code.UnknownError, describe(e)))
+                       DfError(Code.UnknownError, describe(e)),
+                       note=describe(e))
         finally:
             store.unpin()
             run.done.set()
@@ -1053,7 +1196,10 @@ class TaskManager:
             COMPLETION_REHASH.labels("skipped").inc()
         else:
             COMPLETION_REHASH.labels("hashed").inc()
+            tf = self.flight.task(store.metadata.task_id)
+            tf.record(flightlib.EV_VERIFY_START)
             await asyncio.to_thread(store.validate_digest, req.meta.digest)
+            tf.record(flightlib.EV_VERIFIED)
         store.metadata.digest = req.meta.digest
 
     async def _finalize_device(self, req: FileTaskRequest, task_id: str,

@@ -16,8 +16,15 @@ dfcache attach to, or any address):
 - ``Daemon.ExportTask`` (a stream): a cache task landed at ``output``,
   pulled over P2P when not local, never from an origin.
 - ``Daemon.DeleteTask``: refused while the task runs or its store is
-  pinned (a stream or an upload reads it).
+  pinned (a stream or an upload reads it); a deleted task leaves the
+  daemon's PEX possession list.
 - ``Daemon.Health``.
+- ``Daemon.FlightReport``: a task's flight (``pkg/flight``): the
+  ``analyze`` report, its ``render_waterfall`` text and the ``digest``;
+  ``PeerTaskNotFound`` for a task the recorder does not hold.
+- ``Daemon.PodTimeline``: the scheduler's ``Scheduler.PodTimeline`` for
+  the task, proxied through the scheduler client's ``unary``
+  (``SchedError`` with no scheduler).
 
 The peer service (``serve_peer``: other daemons and the scheduler):
 
@@ -30,12 +37,9 @@ The peer service (``serve_peer``: other daemons and the scheduler):
 - ``Peer.TriggerDownloadTask``: a scheduler's seed trigger, checked before
   the answer, then ``start_seed_task`` spawned; the answer is ``{ok,
   already_complete}``.
-- ``Peer.StatTask``, ``Peer.DeleteTask`` and ``Daemon.Health``, as on the
-  download service.
-
-Not ported yet: ``Daemon.FlightReport`` and ``Daemon.PodTimeline`` (they
-come with the flight recorder). Where the JAX ``DeleteTask`` also drops
-the task from PEX, the port has no PEX.
+- ``Peer.StatTask``, ``Peer.DeleteTask``, ``Daemon.FlightReport`` (the
+  scheduler's on-demand pull) and ``Daemon.Health``, as on the download
+  service.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ from dragonfly2_tpu_torch.daemon.peer.task_manager import (
     FileTaskRequest,
 )
 from dragonfly2_tpu_torch.pkg import aio
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import Range
 from dragonfly2_tpu_torch.pkg.types import NetAddr
@@ -71,11 +76,14 @@ class DaemonRpcServer:
         d.register_stream("Daemon.ExportTask", self._export_task)
         d.register_unary("Daemon.DeleteTask", self._delete_task)
         d.register_unary("Daemon.Health", self._health)
+        d.register_unary("Daemon.FlightReport", self._flight_report)
+        d.register_unary("Daemon.PodTimeline", self._pod_timeline)
         p.register_stream("Peer.SyncPieceTasks", self._sync_piece_tasks)
         p.register_unary("Peer.GetPieceTasks", self._get_piece_tasks)
         p.register_unary("Peer.TriggerDownloadTask", self._trigger_download)
         p.register_unary("Peer.StatTask", self._stat_task)
         p.register_unary("Peer.DeleteTask", self._delete_task)
+        p.register_unary("Daemon.FlightReport", self._flight_report)
         p.register_unary("Daemon.Health", self._health)
 
     async def serve_download(self, addr: NetAddr) -> None:
@@ -187,10 +195,37 @@ class DaemonRpcServer:
         if store is not None and store.pinned:
             return {"ok": False, "reason": "task store in use"}
         self.task_manager.storage.delete_task(task_id)
+        if self.task_manager.pex is not None:
+            self.task_manager.pex.remove_task(task_id)
         return {"ok": True}
 
     async def _health(self, body, ctx: RpcContext):
         return {"ok": True, "version": "0.1.0"}
+
+    async def _flight_report(self, body, ctx: RpcContext):
+        """A task's flight: the phase fold and waterfall, its text, and
+        the compact digest the scheduler's pod lens merges."""
+        task_id = (body or {}).get("task_id", "")
+        tf = self.task_manager.flight.get(task_id)
+        if tf is None:
+            raise DfError(Code.PeerTaskNotFound,
+                          f"no flight data for task {task_id}")
+        report = flightlib.analyze(tf)
+        return {"report": report,
+                "text": flightlib.render_waterfall(report),
+                "digest": flightlib.digest(tf)}
+
+    async def _pod_timeline(self, body, ctx: RpcContext):
+        """The scheduler's merged cross-host timeline of a task, through
+        this daemon's scheduler client."""
+        sc = self.task_manager.scheduler_client
+        if sc is None:
+            raise DfError(Code.SchedError,
+                          "no scheduler configured on this daemon")
+        task_id = (body or {}).get("task_id", "")
+        return await sc.unary(task_id, "Scheduler.PodTimeline",
+                              {"task_id": task_id}, timeout=15.0,
+                              idempotent=True)
 
     # -- the peer service ----------------------------------------------------
 

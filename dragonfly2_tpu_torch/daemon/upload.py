@@ -23,6 +23,10 @@ Routes, queries, statuses and headers are the JAX server's:
   flight. Metric families: ``upload_bytes_total``,
   ``upload_requests_total{result}``, ``upload_concurrency``.
 
+Each payload served stamps the task's flight on this daemon
+(``pkg/flight.for_task``): ``EV_UPLOAD_SERVE`` with the piece number (-1
+for a range) and the bytes.
+
 HTTP/1.1 with keep-alive, one ``df-upload`` thread a connection. The
 ``tenant`` query is accepted and not accounted (the QoS plane is not
 ported). Not ported either: the native upload server and TLS.
@@ -37,6 +41,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlsplit
 
 from dragonfly2_tpu_torch.pkg import dflog, metrics
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.piece import Range
 from dragonfly2_tpu_torch.pkg.ratelimit import BlockingLimiter
 
@@ -202,6 +207,11 @@ class UploadManager:
                 length = min(length, size - start)
                 total = store.metadata.content_length
                 UPLOAD_REQUESTS.labels("ok").inc()
+                piece_num = query.get("pieceNum", [None])[-1]
+                flightlib.for_task(task_id).record(
+                    flightlib.EV_UPLOAD_SERVE,
+                    int(piece_num) if piece_num is not None else -1,
+                    float(length))
                 h.send_response(206)
                 h.send_header("Content-Type", "application/octet-stream")
                 h.send_header("Accept-Ranges", "bytes")

@@ -27,9 +27,12 @@ ordinary task: piece-structured, digest-checked, announced, resumable.
 Every content byte is booked once, as ``reused`` or ``fetched``
 (``peer_delta_bytes_total{kind}``, and ``TaskManager.delta_stats``); a
 base chunk that fails its sha256 is re-fetched as its own ranged task and
-booked ``fetched`` with a ``corrupt_base`` count. ``tm`` is a task
-manager with ``storage``, ``broker``, ``start_file_task``,
-``import_task`` and the port ``TaskManager``'s helpers.
+booked ``fetched`` with a ``corrupt_base`` count. The task's flight
+records each chunk (``EV_DELTA_REUSE`` / ``EV_DELTA_FETCH``, its ms and
+length) and is finished on every terminal path; a landed delta is
+announced over PEX. ``tm`` is a task manager with ``storage``, ``broker``,
+``flight``, ``start_file_task``, ``import_task`` and the port
+``TaskManager``'s helpers.
 """
 
 from __future__ import annotations
@@ -58,6 +61,7 @@ from dragonfly2_tpu_torch.delta.manifest import (
     manifest_from_store,
 )
 from dragonfly2_tpu_torch.pkg import dflog, idgen, metrics
+from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError, StorageError, describe
 from dragonfly2_tpu_torch.pkg.piece import compute_piece_count, compute_piece_size
 from dragonfly2_tpu_torch.proto.common import UrlMeta
@@ -411,6 +415,7 @@ async def _run_delta(tm, req, task_id: str, base_store,
              chunks=new_m.num_chunks, reuse_frac=round(
                  plan.reused_bytes / max(1, new_m.content_length), 4))
     try:
+        tf = tm.flight.task(task_id)
         fetcher = _range_fetcher(tm, req)
         spans = plan.fetch_spans()
         consumers: dict[tuple[int, int], int] = {}
@@ -425,7 +430,7 @@ async def _run_delta(tm, req, task_id: str, base_store,
 
         async with contextlib.aclosing(_assemble(
                 tm, req, store, base_store, new_m, plan, fetches, span_of,
-                fetcher, stats, timings, peer_id)) as it:
+                fetcher, stats, timings, peer_id, tf)) as it:
             async for p in it:
                 yield p
     except DfError as e:
@@ -448,6 +453,7 @@ async def _run_delta(tm, req, task_id: str, base_store,
             # the end all the same.
             run.error = DfError(Code.ClientContextCanceled,
                                 "delta download aborted by client")
+            tm.flight.finish_task(task_id, "failed", note=str(run.error))
             tm.broker.publish(task_id, PieceEvent([], failed=True))
         run.done.set()
         tm._running.pop(task_id, None)
@@ -456,6 +462,7 @@ async def _run_delta(tm, req, task_id: str, base_store,
 def _fail(tm, store, run, task_id: str, err: DfError) -> None:
     store.mark_invalid()
     run.error = err
+    tm.flight.finish_task(task_id, "failed", note=str(err))
     tm.broker.publish(task_id, PieceEvent([], failed=True))
 
 
@@ -472,7 +479,7 @@ def _bounded_put(book: dict, task_id: str, value: dict) -> None:
 
 async def _assemble(tm, req, store, base_store, new_m: DeltaManifest,
                     plan: DeltaPlan, fetches: _SpanFetches, span_of: dict,
-                    fetcher, stats: dict, timings: dict, peer_id: str):
+                    fetcher, stats: dict, timings: dict, peer_id: str, tf):
     """Walk the new manifest in offset order, each chunk (a checked local
     copy or a slice of its fetched span) cut into piece writes on the new
     store; then finish as a downloaded task does."""
@@ -496,7 +503,7 @@ async def _assemble(tm, req, store, base_store, new_m: DeltaManifest,
         for c in new_m.chunks:
             view = await _chunk_bytes(c, base_of, base_store, fetches,
                                       span_of, fetcher, chunk_buf, stats,
-                                      timings)
+                                      timings, tf)
             # The chunk into the piece grid (a chunk can straddle pieces
             # and a piece chunks).
             off = 0
@@ -542,6 +549,8 @@ async def _assemble(tm, req, store, base_store, new_m: DeltaManifest,
     task_id = store.metadata.task_id
     await tm._finalize_content_digest(req, store)
     store.mark_done()
+    tm.flight.finish_task(task_id, "done")
+    tm._pex_announce(task_id)
     # Announced like an import: no conductor registered the task, and
     # peers must be able to pull it from here.
     await tm._announce_local_task(store, task_id, peer_id)
@@ -581,7 +590,8 @@ async def _sha256(view, timings: dict) -> str:
 
 async def _chunk_bytes(c: Chunk, base_of: dict, base_store,
                        fetches: _SpanFetches, span_of: dict, fetcher,
-                       chunk_buf, stats: dict, timings: dict) -> memoryview:
+                       chunk_buf, stats: dict, timings: dict,
+                       tf) -> memoryview:
     """One chunk's checked bytes: a copy out of the base (its sha256
     checked as it is copied; a mismatch re-fetches it as a ranged task)
     or a slice of its fetched span."""
@@ -591,11 +601,14 @@ async def _chunk_bytes(c: Chunk, base_of: dict, base_store,
         t0 = time.perf_counter()
         view = await fetches.view(span)
         timings["span_wait_s"] += time.perf_counter() - t0
+        tf.record(flightlib.EV_DELTA_FETCH, -1,
+                  (time.perf_counter() - t0) * 1000.0, str(c.length))
         _book(stats, "fetched", c.length)
         return view[c.offset - span[0]: c.end - span[0]]
 
     view = chunk_buf[:c.length]
     ok = False
+    t_copy = time.perf_counter()
     try:
         t0 = time.perf_counter()
         with base_store:
@@ -607,6 +620,8 @@ async def _chunk_bytes(c: Chunk, base_of: dict, base_store,
         log.warning("base chunk read failed; re-fetching",
                     base_offset=b.offset, error=str(e)[:200])
     if ok:
+        tf.record(flightlib.EV_DELTA_REUSE, -1,
+                  (time.perf_counter() - t_copy) * 1000.0, str(c.length))
         _book(stats, "reused", c.length)
         return view
     # A corrupt (or unreadable) base chunk: re-fetched as a ranged task of
@@ -622,5 +637,7 @@ async def _chunk_bytes(c: Chunk, base_of: dict, base_store,
         raise DfError(Code.ClientPieceDownloadFail,
                       f"delta chunk at {c.offset} failed its manifest "
                       f"digest even after re-fetch")
+    tf.record(flightlib.EV_DELTA_FETCH, -1,
+              (time.perf_counter() - t0) * 1000.0, str(c.length))
     _book(stats, "fetched", c.length)
     return view

@@ -1,9 +1,15 @@
 """The drpc wire contract of the methods the port serves: the port's copy
 of ``dragonfly2_tpu/proto/wire.py``, cut to the methods its
 ``DaemonRpcServer`` registers: the download service (``Daemon.Download``,
-``StatTask``, ``ImportTask``, ``ExportTask``, ``DeleteTask``, ``Health``)
-and the peer service (``Peer.SyncPieceTasks``, ``GetPieceTasks``,
-``TriggerDownloadTask``, ``StatTask``, ``DeleteTask``).
+``StatTask``, ``ImportTask``, ``ExportTask``, ``DeleteTask``, ``Health``,
+``FlightReport``, ``PodTimeline``) and the peer service
+(``Peer.SyncPieceTasks``, ``GetPieceTasks``, ``TriggerDownloadTask``,
+``StatTask``, ``DeleteTask``, ``Daemon.FlightReport``), plus
+``Scheduler.PodTimeline``, which ``Daemon.PodTimeline`` proxies, and the
+messages a conductor sends on ``Scheduler.AnnouncePeer``
+(``STREAM_MSGS``: the piece reports with their ``timings``, the packed
+batch envelope, the resume with its ``piece_bitmap``, and the terminal
+messages with the flight digest), which ``validate_stream_msg`` checks.
 
 Bodies are validated at the server boundary (``rpc/server.py``), so a
 malformed body fails fast with ``Code.BadRequest``. As in protobuf,
@@ -93,7 +99,51 @@ URL_META = Msg(
     tenant=F(str),
 )
 
+PIECE = Msg(
+    "Piece",
+    piece_num=F(int, required=True), range_start=F(int), range_size=F(int),
+    digest=F(str), download_cost_ms=F(int), dst_peer_id=F(str),
+    # The flight recorder's split of download_cost_ms ({dcn_ms, stall_ms,
+    # store_ms}) for the scheduler's PodAggregator; absent on origin and
+    # imported pieces.
+    timings=F(dict),
+)
+
+# The negotiated packed form of a piece-report batch (proto/reportcodec):
+# the schema pins the envelope; decode_packed checks the structure.
+PACKED_PIECES = Msg(
+    "PackedPieces",
+    v=F(int, required=True), n=F(int, required=True),
+    peers=F(list, required=True, item=F(str)),
+    nums=F(bytes, required=True), cols=F(bytes, required=True),
+    digests=F(dict),
+)
+
+# A (re-)register's local task state; piece_bitmap is the negotiated
+# packed alternative to piece_nums (bit i of byte i>>3: piece i landed).
+RESUME = Msg(
+    "Resume",
+    piece_nums=F(list, item=F(int)),
+    piece_bitmap=F(bytes),
+    content_length=F(int), piece_size=F(int), total_piece_count=F(int),
+    prefix_digest=F(str), pod_broadcast=F(bool), stripe=F(dict),
+)
+
+# The compact bounded flight digest (pkg/flight.digest) on the terminal
+# announce message; checked loosely, it is byte-capped at the source.
+FLIGHT_DIGEST = Msg(
+    "FlightDigest",
+    v=F(int), task_id=F(str), state=F(str), start_wall=F(float),
+    wall_s=F(float), phases=F(dict), segments=F(list),
+    pieces=F(list), events=F(list), clock=F(list),
+)
+
 UNARY: dict[str, Msg] = {
+    # The scheduler's merged cross-host timeline, which Daemon.PodTimeline
+    # proxies.
+    "Scheduler.PodTimeline": Msg(
+        "PodTimeline", task_id=F(str, required=True)),
+
     # The download service (dfget and dfcache attach to it).
     "Daemon.StatTask": Msg("DaemonStatTask", task_id=F(str, required=True)),
     "Daemon.ImportTask": Msg(
@@ -103,6 +153,12 @@ UNARY: dict[str, Msg] = {
         persistent=F(bool), replica_count=F(int), ttl=F(float)),
     "Daemon.DeleteTask": Msg("DeleteTask", task_id=F(str, required=True)),
     "Daemon.Health": Msg("Health"),
+    # A task's flight report (also on the peer service, for the
+    # scheduler's on-demand pulls).
+    "Daemon.FlightReport": Msg("FlightReport",
+                               task_id=F(str, required=True)),
+    "Daemon.PodTimeline": Msg("DaemonPodTimeline",
+                              task_id=F(str, required=True)),
 
     # The peer service (other daemons and the scheduler's triggers).
     "Peer.GetPieceTasks": Msg(
@@ -143,6 +199,38 @@ STREAM_OPEN: dict[str, Msg] = {
 }
 
 
+# Client-to-server messages of Scheduler.AnnouncePeer by their "type".
+STREAM_MSGS: dict[str, dict[str, Msg]] = {
+    "Scheduler.AnnouncePeer": {
+        "register": Msg("Register", resume=F(dict, spec=RESUME)),
+        "download_started": Msg(
+            "DownloadStarted", content_length=F(int), piece_size=F(int),
+            total_piece_count=F(int)),
+        "piece_finished": Msg(
+            "PieceFinished", piece=F(dict, required=True, spec=PIECE)),
+        "pieces_finished": Msg(
+            "PiecesFinished",
+            # One of the two forms: the dict list, or the packed batch.
+            pieces=F(list, item=F(dict, spec=PIECE)),
+            packed=F(dict, spec=PACKED_PIECES)),
+        "piece_failed": Msg(
+            "PieceFailed", piece_num=F(int), parent_id=F(str),
+            temporary=F(bool),
+            # The typed failure reason (pkg/quarantine's vocabulary).
+            reason=F(str)),
+        "reschedule": Msg(
+            "Reschedule", blocklist=F(list, item=F(str)),
+            description=F(str)),
+        "download_finished": Msg(
+            "DownloadFinished", content_length=F(int), piece_size=F(int),
+            total_piece_count=F(int),
+            flight=F(dict, spec=FLIGHT_DIGEST)),
+        "download_failed": Msg("DownloadFailed", reason=F(str),
+                               flight=F(dict, spec=FLIGHT_DIGEST)),
+    },
+}
+
+
 def validate_unary(method: str, body: Any) -> None:
     """Raises SchemaError when ``body`` violates the method's schema."""
     schema = UNARY.get(method)
@@ -154,3 +242,18 @@ def validate_stream_open(method: str, body: Any) -> None:
     schema = STREAM_OPEN.get(method)
     if schema is not None:
         schema.validate(body, method)
+
+
+def validate_stream_msg(method: str, body: Any) -> None:
+    """Validate one client-to-server stream message. A message of an
+    unknown type passes, but on a method with schemas the body must be a
+    map."""
+    kinds = STREAM_MSGS.get(method)
+    if kinds is None:
+        return
+    if not isinstance(body, dict):
+        raise SchemaError(f"{method}: stream message must be a map, got "
+                          f"{type(body).__name__}")
+    schema = kinds.get(body.get("type", ""))
+    if schema is not None:
+        schema.validate(body, f"{method}/{body.get('type')}")

@@ -66,6 +66,7 @@ from dragonfly2_tpu.storage import StorageManager as JSM
 from dragonfly2_tpu.storage import StorageOption as JSMOption
 from dragonfly2_tpu.storage import TaskStoreMetadata as JMetadata
 from dragonfly2_tpu_torch.client import device as pdev
+from dragonfly2_tpu_torch.daemon.pex import PeerExchange as PPeerExchange
 from dragonfly2_tpu_torch.daemon.peer.conductor import (
     PeerTaskConductor,
     conductor_factory,
@@ -89,6 +90,7 @@ from dragonfly2_tpu_torch.pkg.errors import Code
 from dragonfly2_tpu_torch.pkg.piece import compute_piece_count
 from dragonfly2_tpu_torch.pkg.types import NetAddr
 from dragonfly2_tpu_torch.proto.common import UrlMeta
+from dragonfly2_tpu_torch.proto.reportcodec import decode_packed as pdecode
 from dragonfly2_tpu_torch.rpc import Client
 from dragonfly2_tpu_torch.storage import (
     LocalTaskStore,
@@ -951,6 +953,7 @@ def test_the_stand_in_scheduler_answers_as_the_jax_scheduler(run_async,
     want, got, r, record, no_origin = run_async(body(), timeout=120)
     assert want["type"] == got["type"] == "normal_task"
     assert _shape(got) == _shape(want)
+    assert got["packed_reports"] is want["packed_reports"] is True
     assert got["task"]["size_scope"] == want["task"]["size_scope"]
     assert got["parents"][0]["finished_pieces"] == \
         want["parents"][0]["finished_pieces"]
@@ -1253,3 +1256,210 @@ def test_an_imported_task_is_announced_and_served(run_async, tmp_path):
     assert jr["state"] == "done" and jr["from_p2p"], jr
     assert (tmp_path / "j.bin").read_bytes() == CONTENT
     assert stats["blob_streams"] == 0 and served == len(CONTENT)
+
+
+# --------------------------------------------------------------------- #
+# Packed reports and the pod rollup at the JAX scheduler; PEX pulls with
+# no scheduler, both ways
+# --------------------------------------------------------------------- #
+
+def test_a_port_child_negotiates_packed_reports_with_the_jax_scheduler(
+        run_async, tmp_path, monkeypatch):
+    """A port child and a JAX child pull from a JAX seed. The JAX
+    scheduler's stamped answers say ``packed_reports``, so the port
+    child's report batches go packed (its flush window widened, so that a
+    batch forms); the scheduler records the same finished pieces for both
+    children and its pod rollup (``PodAggregator``) the same piece count
+    and phase keys for each child's host; each child's terminal message
+    carries its flight digest, which the scheduler's pod lens merges:
+    ``Daemon.PodTimeline`` on the port daemon answers as on the JAX one."""
+    sent = []
+    real = PeerTaskConductor._safe_send
+
+    async def spy(self, msg):
+        sent.append(msg)
+        return await real(self, msg)
+
+    monkeypatch.setattr(PeerTaskConductor, "_safe_send", spy)
+    monkeypatch.setattr(PeerTaskConductor, "_REPORT_FLUSH_S", 1.0)
+
+    async def body():
+        origin, oport, stats = await start_origin()
+        sched = await start_scheduler()
+        url = f"http://127.0.0.1:{oport}/blob"
+        seed = jchild = child = None
+        try:
+            seed = await start_daemon(tmp_path, "seed", sched.port(),
+                                      seed=True)
+            r = await dfget_via(seed, url, str(tmp_path / "s.bin"))
+            assert r["state"] == "done", r
+            jchild = await start_daemon(tmp_path, "jchild", sched.port())
+            jr = await dfget_via(jchild, url, str(tmp_path / "j.bin"))
+            child = await PortPeer(tmp_path, "child", sched.port()).start()
+            pr = await child.get(url, str(tmp_path / "p.bin"))
+            svc = sched.service
+            task = svc.tasks.load(pr.task_id)
+            for _ in range(200):   # the terminal messages are read after
+                if all(p.fsm.current in ("Succeeded", "succeeded")
+                       for p in task.peers()
+                       if p.host.hostname in ("child", "jchild")):
+                    break
+                await asyncio.sleep(0.02)
+            pieces = {p.host.hostname: set(p.finished_pieces)
+                      for p in task.peers()}
+            hosts = {p.host.hostname: p.host.id for p in task.peers()}
+            rollup = svc.pod_flight.report(pr.task_id)
+            # Daemon.PodTimeline: each daemon proxies the scheduler's merged
+            # timeline (the digests both children shipped).
+            body_ = {"task_id": pr.task_id}
+            timelines = (await jchild.rpc._pod_timeline(body_, None),
+                         await child.rpc._pod_timeline(body_, None))
+            return jr, pr, pieces, hosts, rollup, timelines
+        finally:
+            await _stop(child, jchild, seed)
+            await sched.stop()
+            await origin.cleanup()
+
+    jr, pr, pieces, hosts, rollup, timelines = run_async(body(), timeout=120)
+    assert jr["state"] == pr.state == "done" and pr.from_p2p
+    assert timelines[1] == timelines[0]
+    assert hosts["child"] in str(timelines[1]["report"])
+    n = compute_piece_count(len(CONTENT), 4 * MB)
+    assert pieces["child"] == pieces["jchild"] == set(range(n))
+    by_host = {h["host"]: h for h in rollup["hosts"]}
+    port_row, jax_row = by_host[hosts["child"]], by_host[hosts["jchild"]]
+    assert port_row["pieces"] == jax_row["pieces"] == n
+    assert set(port_row["ms"]) == set(jax_row["ms"])
+    assert port_row["failures"] == jax_row["failures"] == {}
+    batches = [m for m in sent if m["type"] == "pieces_finished"]
+    assert batches and all("packed" in m and "pieces" not in m
+                           for m in batches)
+    reported = [m["piece"] for m in sent if m["type"] == "piece_finished"]
+    for m in batches:
+        reported += pdecode(m["packed"]).to_dicts()
+    assert sorted(r["piece_num"] for r in reported) == list(range(n))
+    assert all("timings" in r for r in reported)
+    (done,) = [m for m in sent if m["type"] == "download_finished"]
+    assert done["flight"]["task_id"] == pr.task_id
+    assert {row[0] for row in done["flight"]["pieces"]} == set(range(n))
+
+
+async def _port_pex_daemon(root, name: str, seeds: list[str], *,
+                           sinks=None):
+    """A port daemon with no scheduler and PEX: storage, a piece manager,
+    the task manager with a ``PeerExchange``, the upload server and the
+    peer drpc server the holders' children sync against."""
+    storage = StorageManager(StorageOption(data_dir=str(root / name)))
+    tm = TaskManager(storage, PieceManager(PieceManagerOption(
+        concurrency=1, concurrent_min_length=1 << 40)), device_sinks=sinks)
+    upload = UploadManager(storage)
+    upload_port = upload.serve("127.0.0.1")
+    rpc = DaemonRpcServer(tm, device="cpu")
+    await rpc.serve_peer(NetAddr.tcp("127.0.0.1", 0))
+    tm.pex = PPeerExchange(ip="127.0.0.1", peer_port=rpc.peer_server.port(),
+                           upload_port=upload_port, gossip_interval=0.1,
+                           secret="pod")
+    await tm.pex.start(0, seeds)
+
+    async def stop():
+        await tm.pex.stop()
+        await rpc.close()
+        upload.close()
+        storage.close()
+    return types.SimpleNamespace(tm=tm, storage=storage, stop=stop)
+
+
+def _jax_pex_daemon(tmp_path, name: str, seeds: list[str]) -> Daemon:
+    cfg = daemon_config(tmp_path, name, scheduler_port=0)
+    cfg.scheduler.addrs = []          # no scheduler: PEX alone
+    cfg.pex.enabled = True
+    cfg.pex.seeds = seeds
+    cfg.pex.secret = "pod"
+    cfg.tpu_sink.enabled = False
+    return Daemon(cfg)
+
+
+async def _until(predicate, timeout: float = 10.0) -> bool:
+    loop = asyncio.get_running_loop()
+    end = loop.time() + timeout
+    while loop.time() < end and not predicate():
+        await asyncio.sleep(0.05)
+    return predicate()
+
+
+@pytest.mark.parametrize("holder", ["jax", "port"])
+def test_a_pex_pull_with_no_scheduler_crosses_packages(run_async, tmp_path,
+                                                       holder):
+    """A holder of one package fetches the content from the origin and
+    gossips it; a daemon of the other package, with no scheduler and
+    ``disable_back_source``, finds it over PEX and pulls every piece from
+    it, landed in the port's device sink on the CPU (``device="tpu"``
+    requests, the sink of the JAX daemon the port's). The bytes, the
+    store's piece records and the landed sink are the content's, the
+    origin is fetched once, and the child then gossips the task itself."""
+    async def body():
+        origin, oport, stats = await start_origin()
+        url = f"http://127.0.0.1:{oport}/blob"
+        jd = pd = None
+        sinks = DeviceSinkManager(device="cpu", batch_pieces=2)
+        try:
+            if holder == "jax":
+                jd = _jax_pex_daemon(tmp_path, "jholder", [])
+                await jd.start()
+                jd.pex.gossip_interval = 0.1
+                req = JRequest(url=url, output="", meta=JMeta(digest=SHA))
+                async for _ in jd.task_manager.start_file_task(req):
+                    pass
+                pd = await _port_pex_daemon(
+                    tmp_path, "pchild", [f"127.0.0.1:{jd.pex.port}"],
+                    sinks=sinks)
+                child_tm, child_pex, holder_pex = pd.tm, pd.tm.pex, jd.pex
+                child_req = FileTaskRequest(
+                    url=url, output=str(tmp_path / "out.bin"),
+                    meta=UrlMeta(digest=SHA), disable_back_source=True,
+                    device="tpu")
+            else:
+                pd = await _port_pex_daemon(tmp_path, "pholder", [])
+                req = FileTaskRequest(url=url, output="",
+                                      meta=UrlMeta(digest=SHA))
+                async for _ in pd.tm.start_file_task(req):
+                    pass
+                jd = _jax_pex_daemon(tmp_path, "jchild",
+                                     [f"127.0.0.1:{pd.tm.pex.port}"])
+                jd.task_manager.device_sinks = sinks
+                await jd.start()
+                jd.pex.gossip_interval = 0.1
+                child_tm, child_pex, holder_pex = jd.task_manager, jd.pex, \
+                    pd.tm.pex
+                child_req = JRequest(
+                    url=url, output=str(tmp_path / "out.bin"),
+                    meta=JMeta(digest=SHA), disable_back_source=True,
+                    device="tpu")
+            task_id = req.task_id()
+            streams = dict(stats)
+            assert await _until(lambda: child_pex.find_holders(task_id))
+            last = [p async for p in child_tm.start_file_task(child_req)][-1]
+            sink = sinks.get(task_id)
+            landed = bytes(sink.as_bytes_array().numpy()) if sink else b""
+            gossiped = await _until(lambda: any(
+                m.node_id == child_pex.node_id
+                for m in holder_pex.find_holders(task_id)))
+            return (last, stats == streams, landed, gossiped,
+                    _records(child_tm.storage.tasks()))
+        finally:
+            sinks.close()
+            if pd is not None:
+                await pd.stop()
+            if jd is not None:
+                await jd.stop()
+            await origin.cleanup()
+
+    last, no_origin, landed, gossiped, records = run_async(body(),
+                                                           timeout=120)
+    state = last["state"] if isinstance(last, dict) else last.state
+    wire = last if isinstance(last, dict) else last.to_wire()
+    assert state == "done" and wire["from_p2p"] and wire["device_verified"]
+    assert (tmp_path / "out.bin").read_bytes() == CONTENT
+    assert no_origin and gossiped
+    assert landed == CONTENT
+    assert records == _crc32c_records(CONTENT, 4 * MB)

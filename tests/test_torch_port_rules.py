@@ -221,14 +221,16 @@ def test_sources_import_no_msgpack(path):
 
 
 def test_the_intended_divergences_of_the_p2p_half():
-    """What the P2P half leaves out, pinned: no flight recorder, no parent
-    quarantine and no QoS gate in the conductor and the dispatcher; piece
-    reports as dict lists and a resume as a number list, never the packed
-    or bitmap forms; no native piece fetch and no native upload server;
-    no TLS on the drpc client and server or the upload server; and every
-    method of the JAX daemon's two services served but the flight
-    recorder's two (``Daemon.FlightReport``, ``Daemon.PodTimeline``).
-    The seed flag reaches the conductor from the request, as in JAX."""
+    """What the P2P half leaves out, pinned: no QoS gate in the conductor
+    (its worker count and report batch are constants until the daemon's
+    config); no native piece fetch, no native upload server and no native
+    report decoder (``report_backend()`` is ``"numpy"``); no TLS on the
+    drpc client and server or the upload server; ``stamp_running`` kept
+    with no caller. What it has as the JAX half does: the flight recorder
+    and the parent quarantine in the conductor and the dispatcher, the
+    packed report and bitmap forms once the scheduler negotiates them,
+    and every method of the JAX daemon's two services. The seed flag
+    reaches the conductor from the request, as in JAX."""
     import inspect
 
     from dragonfly2_tpu.daemon import upload as jupload
@@ -237,6 +239,7 @@ def test_the_intended_divergences_of_the_p2p_half():
     from dragonfly2_tpu.daemon.peer import piece_downloader as jdl
     from dragonfly2_tpu.daemon.peer import synchronizer as jsync
     from dragonfly2_tpu.daemon.peer import task_manager as jtm
+    from dragonfly2_tpu.proto import reportcodec as jcodec
     from dragonfly2_tpu.rpc import Client as JClient
     from dragonfly2_tpu.rpc import Server as JServer
     from dragonfly2_tpu_torch.daemon import upload as pupload
@@ -246,19 +249,23 @@ def test_the_intended_divergences_of_the_p2p_half():
     from dragonfly2_tpu_torch.daemon.peer import synchronizer as psync
     from dragonfly2_tpu_torch.daemon.peer import task_manager as ptm
     from dragonfly2_tpu_torch.daemon.rpcserver import DaemonRpcServer
+    from dragonfly2_tpu_torch.pkg import flight as pflight
+    from dragonfly2_tpu_torch.proto import reportcodec as pcodec
     from dragonfly2_tpu_torch.rpc import Client, Server
 
     def params(fn) -> set:
         return set(inspect.signature(fn).parameters)
 
-    # The worker count and the report batch come from the daemon's config
-    # in JAX; the port has none yet, so they are fixed. The seed flag comes
-    # from the request (a seed trigger) in both.
+    # The QoS gate, the worker count and the report batch come from the
+    # daemon's config in JAX; the port has none yet, so there is no gate
+    # and the two are fixed. The seed flag comes from the request (a seed
+    # trigger) in both, and so do the flight and the quarantine (the task
+    # manager's).
     assert params(jcond.PeerTaskConductor) - params(pcond.PeerTaskConductor) \
-        == {"quarantine", "flight", "wfq", "piece_parallelism",
-            "report_batch"}
+        == {"wfq", "piece_parallelism", "report_batch"}
     assert (pcond.PIECE_WORKERS, pcond.REPORT_BATCH) == (4, 32)
-    assert "is_seed" in params(pcond.PeerTaskConductor)
+    assert {"is_seed", "quarantine", "flight"} <= params(
+        pcond.PeerTaskConductor)
     # Nothing of the port sets a parent-death hook or reads the per-task
     # locality bytes (the daemon's stat surface).
     assert "on_parent_dead" in params(jsync.PieceTaskSynchronizer)
@@ -270,8 +277,11 @@ def test_the_intended_divergences_of_the_p2p_half():
             assert "locality_bytes" not in f.read()
     assert params(pcond.PeerTaskConductor) < params(jcond.PeerTaskConductor)
     assert params(jdisp.PieceDispatcher) - params(pdisp.PieceDispatcher) \
-        == {"quarantine", "flight", "max_parent_failures"}
-    assert hasattr(jdisp, "parent_key") and not hasattr(pdisp, "parent_key")
+        == {"max_parent_failures"}
+    assert params(pdisp.PieceDispatcher) == {"quarantine", "flight"}
+    parent = pdisp.ParentInfo("p", "10.0.0.1", 65002)
+    assert pdisp.parent_key(parent) == jdisp.parent_key(
+        jdisp.ParentInfo("p", "10.0.0.1", 65002)) == "10.0.0.1:65002"
     for name in ("NativeConnPool", "run_native", "abandonable_native_call"):
         assert hasattr(jdl, name) and not hasattr(pdl, name)
     assert hasattr(jdl.PieceDownloader, "download_piece_to_store")
@@ -279,6 +289,22 @@ def test_the_intended_divergences_of_the_p2p_half():
     for name in ("native_counters", "_native_eligible"):
         assert hasattr(jupload.UploadManager, name)
         assert not hasattr(pupload.UploadManager, name)
+    # No native report decoder and no backend ladder: the port decodes
+    # with the JAX module's numpy decoder, always.
+    assert hasattr(jcodec, "_native_decoder")
+    for name in ("_native_decoder", "_select_decoder",
+                 "REPORT_BACKEND_ACTIVE"):
+        assert not hasattr(pcodec, name)
+    assert pcodec.report_backend() == "numpy"
+    # stamp_running stays; its caller (the runtime profiler) is not ported.
+    assert hasattr(pflight.FlightRecorder, "stamp_running")
+    callers = []
+    for path in _port_sources():
+        if os.path.basename(path) != "flight.py":
+            with open(path) as f:
+                if "stamp_running(" in f.read():
+                    callers.append(path)
+    assert callers == []
     assert "ssl_context" in params(jupload.UploadManager)
     assert "ssl_context" not in params(pupload.UploadManager)
     assert "ssl_context" in params(JClient) and "ssl_context" in params(
@@ -286,6 +312,7 @@ def test_the_intended_divergences_of_the_p2p_half():
     assert "ssl_context" not in params(Client)
     assert "ssl_context" not in params(Server.serve)
 
+    # The report forms follow the negotiation, as in JAX.
     c = pcond.PeerTaskConductor(
         task_id="t", peer_id="p", url="http://x/", store=None,
         scheduler_client=None, piece_manager=None, host_info={})
@@ -302,8 +329,12 @@ def test_the_intended_divergences_of_the_p2p_half():
     resume = c._resume_state()
     assert resume["piece_nums"] == list(range(64))
     assert "piece_bitmap" not in resume
-    with open(pcond.__file__) as f:
-        assert "reportcodec" not in f.read()
+    c._packed_ok = True
+    assert c._batch_msg(reports) == {
+        "type": "pieces_finished", "packed": jcodec.encode_reports(reports)}
+    resume = c._resume_state()
+    assert resume["piece_nums"] == []
+    assert resume["piece_bitmap"] == jcodec.nums_to_bitmap(range(64))
 
     from dragonfly2_tpu.daemon.rpcserver import DaemonRpcServer as JServer
     from dragonfly2_tpu.proto import wire as jwire
@@ -313,16 +344,18 @@ def test_the_intended_divergences_of_the_p2p_half():
     for service in ("peer_server", "download_server"):
         port, jax = getattr(served, service), getattr(jserved, service)
         assert set(port._stream) == set(jax._stream)
-        assert set(jax._unary) - set(port._unary) == (
-            {"Daemon.FlightReport"} if service == "peer_server"
-            else {"Daemon.FlightReport", "Daemon.PodTimeline"})
-        assert set(port._unary) < set(jax._unary)
-    # The port's wire schemas are the JAX ones of the methods it serves.
+        assert set(port._unary) == set(jax._unary)
+    # The port's wire schemas are the JAX ones of the methods it serves,
+    # and of the scheduler method Daemon.PodTimeline proxies.
     methods = set(served.peer_server._unary) | set(
         served.download_server._unary)
-    assert set(pwire.UNARY) == methods & set(jwire.UNARY)
+    assert set(pwire.UNARY) == (methods & set(jwire.UNARY)) | {
+        "Scheduler.PodTimeline"}
     assert set(pwire.STREAM_OPEN) == (set(served.peer_server._stream) | set(
         served.download_server._stream)) & set(jwire.STREAM_OPEN)
+    assert set(pwire.STREAM_MSGS) == {"Scheduler.AnnouncePeer"}
+    assert set(pwire.STREAM_MSGS["Scheduler.AnnouncePeer"]) == set(
+        jwire.STREAM_MSGS["Scheduler.AnnouncePeer"])
 
 
 @pytest.mark.parametrize("path", _port_sources(),

@@ -460,3 +460,90 @@ def test_persistent_import_is_recorded_by_the_jax_scheduler(run_async,
     assert wire["replica_count"] == 3 and wire["state"] == "succeeded"
     assert res["content_length"] == 2 * MB + 3
     assert failed is None and started and raised is not None
+
+
+# --------------------------------------------------------------------- #
+# The flight recorder's two methods, and DeleteTask's PEX removal
+# --------------------------------------------------------------------- #
+
+def test_flight_report_and_pod_timeline_answer_as_the_jax_server(
+        run_async, tmp_path, monkeypatch):
+    """``Daemon.FlightReport`` on both services returns the same report,
+    text and digest for the same recorded events (each package's flight
+    module on one injected clock, each server's task manager with a
+    recorder of its own), and the same error codes for an unknown task and
+    a body without ``task_id``; ``Daemon.PodTimeline`` with no scheduler
+    fails with the same code; ``DeleteTask`` drops a deleted task from the
+    daemon's PEX possession list."""
+    from dragonfly2_tpu.pkg import flight as jflight
+    from dragonfly2_tpu_torch.pkg import flight as pflight
+
+    now = [500.0]
+    for mod in (jflight, pflight):
+        monkeypatch.setattr(mod, "time", types.SimpleNamespace(
+            perf_counter=lambda: now[0], time=lambda: 1.7e9))
+        monkeypatch.setattr(mod, "_WALL_ANCHOR", 1.7e9)
+        monkeypatch.setattr(mod, "_PC_ANCHOR", 400.0)
+    rng = np.random.RandomState(5)
+    script_events = []
+    for n in range(12):
+        script_events += [(float(rng.uniform(0, 0.1)), "EV_REQUEST", n,
+                           0.0, "10.0.0.1:65002"),
+                          (float(rng.uniform(0, 0.3)), "EV_FIRST_BYTE", n,
+                           0.0, ""),
+                          (0.01, "EV_LANDED", n, float(rng.randint(90)),
+                           "unlabeled"),
+                          (0.002, "EV_HBM_START", n, 0.0, ""),
+                          (0.003, "EV_HBM_LANDED", n, 0.0, "")]
+
+    class Pex:
+        def __init__(self):
+            self.removed = []
+
+        def find_holders(self, task_id):
+            return []
+
+        def add_task(self, task_id):
+            pass
+
+        def remove_task(self, task_id):
+            self.removed.append(task_id)
+
+    async def script(side, url):
+        mod = jflight if side.jax else pflight
+        side.tm.flight = mod.FlightRecorder()
+        side.tm.pex = Pex()
+        now[0] = 500.0
+        tf = side.tm.flight.task("t-flight")
+        tf.record(mod.EV_REGISTER)
+        for step, name, piece, aux, note in script_events:
+            now[0] += step
+            tf.record(getattr(mod, name), piece, aux, note)
+        side.tm.flight.finish_task("t-flight", "done")
+        now[0] += 1.0
+        got = []
+        for cli in (side.download, side.peer):
+            got.append(await _unary(cli, "Daemon.FlightReport",
+                                    {"task_id": "t-flight"}))
+            got.append(await _unary(cli, "Daemon.FlightReport",
+                                    {"task_id": "absent"}))
+            got.append(await _unary(cli, "Daemon.FlightReport", {}))
+        got.append(await _unary(side.download, "Daemon.PodTimeline",
+                                {"task_id": "t-flight"}))
+        got.append(await _unary(side.download, "Daemon.PodTimeline", {}))
+        tid = await side.fetch(url)
+        got.append(await _unary(side.download, "Daemon.DeleteTask",
+                                {"task_id": tid}))
+        got.append(side.tm.pex.removed == [tid])
+        return got
+
+    j, p, _ = run_async(_on_both(tmp_path, script))
+    assert p == j
+    assert p[0][0] == "ok" and p[0] == p[3]
+    assert set(p[0][1]) == {"report", "text", "digest"}
+    assert p[0][1]["report"]["state"] == "done"
+    assert len(p[0][1]["report"]["pieces"]) == 12
+    assert p[1] == p[4] == ("error", 404)
+    assert p[2] == p[5] == ("error", 400)
+    assert p[6][0] == "error" and p[7] == ("error", 400)
+    assert p[8] == ("ok", {"ok": True}) and p[9] is True

@@ -531,17 +531,21 @@ def test_the_task_manager_keeps_its_threads_named(run_async, tmp_path):
 
 
 def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
-    """What the port's task manager leaves out or adds, pinned: no PEX or
-    flight recorder (the JAX delta, seed and stream tasks record flight
-    events and announce over PEX; the port's do neither), no
-    traffic-shaper options until a daemon loop drives the shaper; the
-    delta task takes ``device=`` (where a base manifest is built) and
-    keeps its time split in ``delta_timings``; no native-transport commit
-    (``record_piece``, ``data_fd``) or serving observer in the store (its
-    certification came with the P2P half); no GC interval or idle-fd
-    close until a GC loop exists; no unused option fields."""
+    """What the port's task manager leaves out or adds, pinned: no
+    traffic-shaper options until a daemon loop drives the shaper; PEX and
+    the flight recorder as the JAX task manager has them (the same flight
+    events in the task manager and the delta engine, but the PEX pull's
+    ``EV_LANDED`` of each piece, which the JAX one leaves out; a PEX
+    announce on every task kind, one daemon-wide quarantine); the delta
+    task takes
+    ``device=`` (where a base manifest is built) and keeps its time split
+    in ``delta_timings``; no native-transport commit (``record_piece``,
+    ``data_fd``) or serving observer in the store (its certification came
+    with the P2P half); no GC interval or idle-fd close until a GC loop
+    exists; no unused option fields."""
     import dataclasses
     import inspect
+    import re
 
     from dragonfly2_tpu.daemon.peer import task_manager as jtm
     from dragonfly2_tpu.delta import resolver as jres
@@ -549,6 +553,7 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
     from dragonfly2_tpu.storage import StorageOption as JOpt
     from dragonfly2_tpu_torch.daemon.peer import task_manager as ptm
     from dragonfly2_tpu_torch.delta import resolver as pres
+    from dragonfly2_tpu_torch.pkg.quarantine import ParentQuarantine
     from dragonfly2_tpu_torch.storage import LocalTaskStore as PStore
     from dragonfly2_tpu_torch.storage import StorageOption as POpt
 
@@ -558,14 +563,15 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
     j = params(JTM)
     p = params(PTM)
     assert p < j
-    assert j - p == {"pex", "flight", "total_rate_limit", "traffic_shaper"}
+    assert j - p == {"total_rate_limit", "traffic_shaper"}
     for name in ("start_stream_task", "start_seed_task", "start_delta_task",
                  "_maybe_prefetch", "_run_background_download",
                  "_finalize_device_for_seed", "_persistent_call",
-                 "_import_local", "_stream_ordered", "_stream_from_store"):
+                 "_import_local", "_stream_ordered", "_stream_from_store",
+                 "_pex_download", "_pex_announce"):
         assert hasattr(JTM, name) and hasattr(PTM, name), name
-    for name in ("_pex_download", "_pex_announce"):
-        assert hasattr(JTM, name) and not hasattr(PTM, name)
+    assert params(PTM._pex_download) == params(JTM._pex_download) - {
+        "limiter"}
     assert params(PTM.start_delta_task) - params(JTM.start_delta_task) \
         == {"device"}
     # Options nothing sets are the JAX package's alone: the port's chunk
@@ -583,19 +589,27 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
     # daemon only logs it.
     assert ptm.SEED_DEVICE_FAILURES.name == "peer_seed_device_failures_total"
     assert not hasattr(jtm, "SEED_DEVICE_FAILURES")
-    # The flight recorder's calls and PEX's announce are left out.
+    # The flight recorder's events and PEX's announce are the JAX ones.
     for module, jmodule in ((ptm, jtm), (pres, jres)):
         with open(jmodule.__file__) as f:
             jsrc = f.read()
         with open(module.__file__) as f:
             src = f.read()
-        assert "tf.record" in jsrc or "flight" in jsrc
-        assert "_pex_announce" in jsrc or module is pres
-        for word in ("tf.record", "flight.", "_pex_announce", "flightlib"):
-            assert word not in src, (module.__name__, word)
+        events = set(re.findall(r"flightlib\.(EV_\w+)", src))
+        # The port's PEX pull also records each piece's landing.
+        assert events and events == set(re.findall(
+            r"flightlib\.(EV_\w+)", jsrc)) | (
+                {"EV_LANDED"} if module is ptm else set()), module.__name__
+        assert "_pex_announce(task_id)" in src
+        assert "finish_task(task_id, \"done\")" in src
+        assert "finish_task(task_id, \"failed\"" in src
     jax, port = _managers(tmp_path)
     assert port.delta_timings == {} and port.delta_stats == {}
     assert not hasattr(jax, "delta_timings")
+    # The traffic shaper is not wired; the quarantine is one a daemon.
+    assert hasattr(jax, "shaper") and not hasattr(port, "shaper")
+    assert isinstance(port.quarantine, ParentQuarantine)
+    assert port.pex is None and jax.pex is None
     for name in ("record_piece", "data_fd"):
         assert hasattr(JStore, name) and not hasattr(PStore, name)
     for name in ("apply_certification", "certifies",
@@ -610,3 +624,105 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
     assert fields(JPMOption) - fields(PPMOption) == {"compute_digest",
                                                     "chunk_size"}
 
+
+
+class _CorruptParent:
+    """A downloader whose every piece fails as a corrupt (or otherwise
+    typed) one, for both packages' ``pull_one_piece``."""
+
+    def __init__(self, error):
+        self.error = error
+
+    async def download_piece_to_store(self, *a, **kw):
+        return None     # the JAX native route declines: the generic path
+
+    async def download_piece(self, *a, **kw):
+        raise self.error
+
+    async def close(self):
+        pass
+
+
+@pytest.mark.parametrize("reason,strikes", [
+    ("corrupt", 1), ("truncated", 2), ("stall", 2), ("transport", 3),
+    ("throttle", 0)])
+def test_a_bad_parent_is_quarantined_daemon_wide_as_in_jax(run_async,
+                                                           tmp_path, reason,
+                                                           strikes):
+    """A parent whose pieces fail with a typed reason: each package's
+    conductor, built over its task manager's quarantine (the port's through
+    ``conductor_factory``), penalizes the parent's endpoint after each
+    failure exactly as the JAX one does; once it tips over, the parent is
+    out of this task's selection and in its reschedule blocklist, and out
+    of another task's too (the quarantine is the daemon's), with one
+    ``EV_QUARANTINE`` in the flight and one count in
+    ``peer_parent_quarantine_total{reason}``."""
+    from dragonfly2_tpu.daemon.peer import conductor as jcond
+    from dragonfly2_tpu.daemon.peer.piece_dispatcher import (
+        PieceAssignment as JAssignment,
+    )
+    from dragonfly2_tpu.pkg import flight as jflight
+    from dragonfly2_tpu_torch.daemon.peer import conductor as pcond
+    from dragonfly2_tpu_torch.daemon.peer.piece_dispatcher import (
+        PieceAssignment as PAssignment,
+    )
+    from dragonfly2_tpu_torch.pkg import flight as pflight
+
+    jtm, ptm = _managers(tmp_path)
+    jtm.flight, ptm.flight = jflight.FlightRecorder(), pflight.FlightRecorder()
+    store = type("S", (), {"metadata": type("M", (), {"piece_size": 4})})
+
+    def jax_conductor(task_id):
+        return jcond.PeerTaskConductor(
+            task_id=task_id, peer_id="child", url="http://x/", store=store,
+            scheduler_client=None, piece_manager=None, host_info={},
+            quarantine=jtm.quarantine, flight=jtm.flight.task(task_id))
+
+    make = pcond.conductor_factory(scheduler_client=None,
+                                   piece_manager=None, host_wire=dict,
+                                   task_manager=ptm)
+
+    def port_conductor(task_id):
+        return make(task_id=task_id, peer_id="child",
+                    request=PRequest(url="http://x/", output=""),
+                    store=store, on_piece=None)
+
+    async def body(build, assignment_cls, err):
+        c = build("task-a")
+        c.downloader = _CorruptParent(err)
+        p = c.dispatcher.upsert_parent("bad-parent", "10.9.9.9", 65002)
+        c.dispatcher.upsert_parent("good-parent", "10.9.9.8", 65002)
+        steps = []
+        for n in range(4):
+            await c._download_one(assignment_cls(n, p, 4, ""))
+            steps.append((sorted(x.peer_id for x in
+                                 c.dispatcher.active_parents()),
+                          sorted(c.dispatcher.unusable_parent_ids())))
+        other = build("task-b")
+        q = other.dispatcher.upsert_parent("bad-parent-b", "10.9.9.9", 65002)
+        events = [e[1] for e in c.flight.events()]
+        return (steps, [x.peer_id for x in other.dispatcher.active_parents()],
+                q is not None, events)
+
+    jerr = JDfError(int(Code.ClientPieceDownloadFail),
+                    "piece 0 digest mismatch", {"reason": reason})
+    perr = DfError(Code.ClientPieceDownloadFail, "piece 0 digest mismatch",
+                   {"reason": reason})
+    pcount = pcond.PARENT_QUARANTINE_COUNT.value(reason)
+    jgot = run_async(body(jax_conductor, JAssignment, jerr))
+    pgot = run_async(body(port_conductor, PAssignment, perr))
+    assert pgot == jgot
+    key = "10.9.9.9:65002"
+    assert ptm.quarantine.is_quarantined(key) == jtm.quarantine.is_quarantined(
+        key) == (strikes > 0)
+    assert ptm.quarantine.score(key) > 0 or strikes == 0
+    assert pgot[3].count(pflight.EV_QUARANTINE) == int(strikes > 0)
+    assert pgot[3].count(pflight.EV_FAILED) == 4
+    assert pcond.PARENT_QUARANTINE_COUNT.value(reason) - pcount == int(
+        strikes > 0)
+    if strikes:
+        # Out of selection from the strike that tipped it, in the
+        # blocklist, and out of the other task's selection.
+        assert "bad-parent" not in pgot[0][-1][0]
+        assert "bad-parent" in pgot[0][-1][1]
+        assert pgot[1] == []
