@@ -122,7 +122,20 @@
    arrive, the verified buffer taken from the sink manager, gated by K1
    and held to every byte of generation 1 (``seed``); a second trigger
    answers ``already_complete`` with no origin request
-   (``seed_again``);
+   (``seed_again``); then the port's own ``Daemon`` built from a
+   ``DaemonConfig`` (``dfdaemon``: the device sink, the stand-in
+   scheduler, a 2 s GC loop and the object gateway over an ``fs`` root
+   holding the shard, which the task-kind phases wrote and handed over,
+   and the webdataset token shards): a PUT through the gateway,
+   ``Dfstore.prefetch_object(..., device="tpu")`` landing the shard on
+   the card by K2, ``download_to_device`` claiming that sink (a reuse
+   hit: no landing, no origin read; the gate by K1), the whole object, a
+   Range window and a ranged task read through the gateway and held to
+   the host bytes, the first 64 batches of epoch 0 through the gateway
+   into ``DeviceFeed`` (``dfdaemon_epoch``, one K2 a batch), and
+   ``stop()``: the stand-in scheduler saw the host's announces (with a
+   clock sample) and its leave, the GC loop ran and reclaimed no live
+   store, the sinks closed;
 6. spreads the main path's verified sink over a device mesh (the
    ``mesh`` path, a world of one rank over NCCL: the card holds one
    GPU): ``initialize_distributed`` with explicit arguments,
@@ -160,7 +173,8 @@
     bench.py``) and prints its JSON line;
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
-    gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again),
+    gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again,
+    dfdaemon, dfdaemon_epoch),
     prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
@@ -213,6 +227,8 @@ from dragonfly2_tpu_torch.client.device import (
     local_base_manifest,
     swap_generation,
 )
+from dragonfly2_tpu_torch.daemon.config import DaemonConfig
+from dragonfly2_tpu_torch.daemon.daemon import Daemon
 from dragonfly2_tpu_torch.daemon.peer.device_sink import (
     DeviceSinkError,
     DeviceSinkManager,
@@ -2564,20 +2580,43 @@ class StandInScheduler:
     message's flight digest; the pieces' ``timings`` (and the failures'
     reasons, against the parent) feed a ``PodAggregator`` by host, as the
     JAX scheduler's reports feed its ``pod_flight`` (the digests go to
-    its pod lens, which has no stand-in here)."""
+    its pod lens, which has no stand-in here). ``Scheduler.AnnounceHost``
+    (checked against its schema) records the host by id and answers as
+    the JAX scheduler answers a host it keeps no scorecard of,
+    ``{ok, sched_wall}``; ``Scheduler.LeaveHost`` drops it, ``{ok}``
+    false for a host it does not know. ``hosts`` holds the announced
+    hosts, ``announces`` each announce's body and ``left`` the ids that
+    left."""
 
     def __init__(self, storage, host: dict):
         self.storage = storage
         self.host = host
         self.server = Server("standin.scheduler")
         self.server.register_stream("Scheduler.AnnouncePeer", self._announce)
+        self.server.register_unary("Scheduler.AnnounceHost",
+                                   self._announce_host)
+        self.server.register_unary("Scheduler.LeaveHost", self._leave_host)
         self.records: dict[str, dict] = {}
         self.pod = flight.PodAggregator()
         self._ended: dict[str, asyncio.Event] = {}
+        self.hosts: dict[str, dict] = {}
+        self.announces: list[dict] = []
+        self.left: list[str] = []
 
     async def serve(self) -> str:
         await self.server.serve(NetAddr.tcp(P2P_HOST, 0))
         return f"{P2P_HOST}:{self.server.port()}"
+
+    async def _announce_host(self, body, ctx) -> dict:
+        self.announces.append(dict(body))
+        self.hosts[body["id"]] = {k: v for k, v in body.items()
+                                  if k not in ("telemetry", "clock")}
+        return {"ok": True, "sched_wall": flight.anchored_wall()}
+
+    async def _leave_host(self, body, ctx) -> dict:
+        host_id = (body or {}).get("id", "")
+        self.left.append(host_id)
+        return {"ok": self.hosts.pop(host_id, None) is not None}
 
     def answer(self, body: dict) -> dict:
         task_id = body["task_id"]
@@ -3301,7 +3340,8 @@ async def _seed_triggers(data_dir: str, url: str, content: np.ndarray,
 
 def phase_task_kinds(content: np.ndarray, gen2: np.ndarray, spans: dict,
                      layout, base_ref: DeltaManifest, new_m: DeltaManifest,
-                     device: torch.device) -> tuple[dict, dict]:
+                     device: torch.device,
+                     keep: str | None = None) -> tuple[dict, dict]:
     """Both generations served over HTTP from a process of its own. The
     ``daemon_delta`` path: generation 1 lands through the port's daemon,
     then ``download_delta`` to generation 2 runs the daemon's delta task
@@ -3310,7 +3350,9 @@ def phase_task_kinds(content: np.ndarray, gen2: np.ndarray, spans: dict,
     changed spans fetched as ranged tasks) and the device swap (reused
     chunks copied out of the live buffer, the gate by K1). The ``seed``
     path: a fresh daemon seeded with generation 1 by a scheduler's
-    trigger, landed by K2 as it arrives. Returns the two reports."""
+    trigger, landed by K2 as it arrives. Returns the two reports. With
+    ``keep``, generation 1's file moves there at the end (the ``dfdaemon``
+    phase serves it: no second 5 GB write)."""
     tmp = tempfile.mkdtemp(prefix="df-chip-tasks-")
     gw = d = None
     plan = plan_delta(new_m, base_ref)
@@ -3422,6 +3464,9 @@ def phase_task_kinds(content: np.ndarray, gen2: np.ndarray, spans: dict,
                         f"seed {what}: launches {seed[what]['launches']}, "
                         f"want K1 {k1_n}, K2 {k2}")
         seed["want_k2"] = k2
+        if keep is not None:
+            gw.close()   # its map of the file goes with it
+            os.replace(paths[0], keep)
         return delta, seed
     finally:
         if gw is not None:
@@ -3429,6 +3474,452 @@ def phase_task_kinds(content: np.ndarray, gen2: np.ndarray, spans: dict,
         if d is not None:
             d.close()
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# --------------------------------------------------------------------- #
+# The daemon proper (dfdaemon): the port's Daemon built from a config, its
+# object gateway over an fs backend, a `?device=tpu` prefetch onto the
+# card, the claim, reads through the gateway and a cut epoch through it
+# --------------------------------------------------------------------- #
+
+DFD_GC_INTERVAL = 2.0
+DFD_EPOCH_BATCHES = 64
+DFD_NOTE_KEY = "chip_smoke.json"
+
+
+class SinkClock:
+    """The first call into a sink manager (a piece, or a finalize that
+    backfills), the return of its last finalize and the pieces handed to
+    it, taken by wrapping the methods of the daemon's own
+    ``DeviceSinkManager`` instance; with the manager's ``busy_s`` at
+    ``reset``."""
+
+    def __init__(self, sinks: DeviceSinkManager):
+        self.sinks = sinks
+        self.reset()
+        on_piece, finalize = sinks.on_piece, sinks.finalize
+
+        async def timed_on_piece(*args):
+            if self.first is None:
+                self.first = time.perf_counter()
+            self.pieces += 1
+            await on_piece(*args)
+
+        async def timed_finalize(*args):
+            if self.first is None:
+                self.first = time.perf_counter()
+            try:
+                return await finalize(*args)
+            finally:
+                self.finalized = time.perf_counter()
+
+        sinks.on_piece, sinks.finalize = timed_on_piece, timed_finalize
+
+    def reset(self) -> None:
+        self.first = self.finalized = None
+        self.pieces = 0
+        self.busy_from = self.sinks.busy_s
+
+
+def epoch_split(recorder: flight.FlightRecorder, requests: list) -> dict:
+    """Where an epoch sample's time goes. ``requests`` holds each sample's
+    ``read_object_range`` wall at the client and its ranged task's id.
+    The recorder still holds the flights of the newest tasks: each is
+    folded (``flight.analyze``), and the sample's wall splits into its
+    task's phases, the task's unphased rest (``other``) and the time
+    outside the task (the HTTP exchange and the handler thread's entry
+    into the daemon's loop and out of it)."""
+    folds, outside = [], []
+    for wall, task_id in requests:
+        tf = recorder.get(task_id) if task_id else None
+        if tf is not None and tf.state == "done":
+            f = flight.analyze(tf)
+            folds.append(f)
+            outside.append(wall - f["wall_s"])
+    events: dict = {}
+    for f in folds:
+        for name, n in f["event_counts"].items():
+            events[name] = events.get(name, 0) + n
+    return {"requests": len(requests),
+            "request": _quantiles([w for w, _ in requests]),
+            "tasks_folded": len(folds),
+            "task_wall": _quantiles([f["wall_s"] for f in folds]),
+            "phases_s": {ph: sum(f["phases"][ph] for f in folds)
+                         for ph in flight.PHASES},
+            "other_s": sum(f["other_s"] for f in folds),
+            "outside_task": _quantiles(outside),
+            "event_counts": events}
+
+
+def split_line(sp: dict) -> str:
+    """One printed line of an epoch split: the folded samples' walls
+    summed and each part's share of them."""
+    whole = sp["task_wall"]["sum_s"] + sp["outside_task"]["sum_s"]
+    parts = {**{k: v for k, v in sp["phases_s"].items() if v > 0},
+             "other": sp["other_s"],
+             "outside the task": sp["outside_task"]["sum_s"]}
+    shares = ", ".join(f"{k} {v:.4f} s ({v / whole:.1%})"
+                       for k, v in parts.items())
+    r, t, o = sp["request"], sp["task_wall"], sp["outside_task"]
+    return (f"a sample's request at the client p50 {r['p50_s'] * 1e3:.3f} "
+            f"ms, p99 {r['p99_s'] * 1e3:.3f} ms over {sp['requests']}; its "
+            f"ranged task p50 {t['p50_s'] * 1e3:.3f} ms, p99 "
+            f"{t['p99_s'] * 1e3:.3f} ms, outside it p50 "
+            f"{o['p50_s'] * 1e3:.3f} ms, p99 {o['p99_s'] * 1e3:.3f} ms; the "
+            f"{sp['tasks_folded']} folded samples' {whole:.4f} s = {shares};"
+            f" events {json.dumps(sp['event_counts'], sort_keys=True)}")
+
+
+def _host_equal(data, content: np.ndarray, off: int) -> bool:
+    """Whether ``data`` (bytes-like) is ``content`` at ``off``."""
+    got = np.frombuffer(data, np.uint8)
+    return got.size == content[off:off + got.size].size and bool(
+        np.array_equal(got, content[off:off + got.size]))
+
+
+async def _stream_equal(store: Dfstore, bucket: str, key: str,
+                        content: np.ndarray) -> int:
+    """Stream a whole object through the gateway, each chunk held to the
+    host bytes at its offset; returns the bytes streamed."""
+    off = 0
+    async for chunk in await store.stream_object(bucket, key):
+        if not _host_equal(chunk, content, off):
+            raise AssertionError(f"dfdaemon: GET of {key} differs from the "
+                                 f"host bytes in {off}..{off + len(chunk)}")
+        off += len(chunk)
+    return off
+
+
+async def _dfdaemon(root: str, content: np.ndarray, spans: dict, layout,
+                    shard_keys: list[str], ids: np.ndarray, seed: int,
+                    device: torch.device, epoch_batches: int,
+                    batch: int) -> dict:
+    objects = os.path.join(root, "objects")
+    sched = StandInScheduler(_NoParent(), host_record("chip-dfdaemon-sched"))
+    addr = await sched.serve()
+    config = DaemonConfig.from_dict({
+        "work_home": os.path.join(root, "home"),
+        "host": {"hostname": "chip-dfdaemon", "ip": P2P_HOST},
+        "scheduler": {"addrs": [addr]},
+        "metrics_port": 0,
+        "gc_interval": DFD_GC_INTERVAL,
+        "tpu_sink": {"enabled": True, "batch_pieces": BATCH_PIECES},
+        "object_storage": {"enabled": True, "backend": "fs",
+                           "backend_options": {"root": objects}}})
+    d = Daemon(config, device=device)
+    gc_runs, reclaimed, live_reclaimed = [], [], []
+    storage_gc = d.storage.gc
+
+    def counted_gc():
+        # A failed task's store (the loader's index misses) is invalid and
+        # the GC's to reclaim; a live one must survive it.
+        invalid = {s.metadata.task_id for s in d.storage.tasks()
+                   if s.metadata.invalid}
+        got = storage_gc()
+        gc_runs.append(time.perf_counter())
+        reclaimed.extend(got)
+        live_reclaimed.extend(t for t in got if t not in invalid)
+        return got
+
+    d.storage.gc = counted_gc
+    sinks = d.task_manager.device_sinks
+    clock = SinkClock(sinks)
+    t0 = time.perf_counter()
+    await d.start()
+    out = {"start_s": time.perf_counter() - t0}
+    host_id = d.announcer.host_id
+    store = Dfstore(f"http://{P2P_HOST}:{d.object_storage.port}",
+                    timeout=600.0)
+    url = d.object_storage.backend.object_url(GATEWAY_BUCKET, GATEWAY_KEY)
+    host = torch.from_numpy(content).to(device)
+    try:
+        note = json.dumps({"source": "chip_smoke", "key": GATEWAY_KEY,
+                           "bytes": int(content.size)}).encode()
+        digest = await store.put_object(GATEWAY_BUCKET, DFD_NOTE_KEY, note,
+                                        mode="write_back")
+        if digest != "sha256:" + hashlib.sha256(note).hexdigest():
+            raise AssertionError(f"dfdaemon: PUT answered {digest}")
+        out["put"] = {"bytes": len(note), "digest": digest}
+
+        # The prefetch onto the card, through the gateway.
+        await asyncio.sleep(0)
+        clock.reset()
+        _sync(device)
+        base = _memory_mark(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        resp = await store.prefetch_object(GATEWAY_BUCKET, GATEWAY_KEY,
+                                           device="tpu")
+        _sync(device)
+        wall = time.perf_counter() - t0
+        task_id = resp["task_id"]
+        land_s = clock.finalized - clock.first
+        busy = sinks.busy_s - clock.busy_from
+        prefetched = sinks.get(task_id)
+        out["prefetch"] = {
+            "answer": resp, "wall_s": wall, "land_s": land_s,
+            "sink_busy_s": busy, "sink_busy_share": busy / land_s,
+            "launches": checksum.launch_counts(),
+            "peak_device_bytes": _memory_mark(device, peak=True) - base,
+            "scheduler": (await sched.summary(task_id)).get(task_id, {})}
+        if prefetched is not None:
+            out["prefetch"].update({key: getattr(prefetched.sink, key) for key
+                                    in ("host_checksum_s", "stage_s",
+                                        "stage_wait_s")})
+
+        # The claim: a reuse hit that takes the prefetched sink.
+        clock.reset()
+        registered = len(sched.records)
+        origin_before = dict(d.piece_manager.timings)
+        zero_launches()
+        t0 = time.perf_counter()
+        result = await download_to_device(d, url, tag=GATEWAY_BUCKET)
+        claim_s = time.perf_counter() - t0
+        claim_launches = checksum.launch_counts()
+        u8 = result.as_bytes_array()
+        verify_u8_against_host(u8, result.sink.sink.piece_size,
+                               result.sink.sink.host_checksums)
+        tensors = result.load_safetensors()
+        _sync(device)
+        equal = bool(torch.equal(u8, host))
+        bad = [name for name, _ in layout
+               if tensors[name].dtype != torch.bfloat16
+               or not torch.equal(tensors[name].reshape(-1).view(torch.uint8),
+                                  host[spans[name][0]:spans[name][1]])]
+        out["claim"] = {
+            "claim_s": claim_s, "from_reuse": result.from_reuse,
+            "same_task": result.task_id == task_id,
+            "same_sink": result.sink is prefetched,
+            "pieces_landed": clock.pieces,
+            "origin_read": d.piece_manager.timings != origin_before,
+            "new_registrations": len(sched.records) - registered,
+            "claim_launches": claim_launches, "equal": equal,
+            "tensors": len(tensors), "tensors_differing": bad}
+        tensors = u8 = result = prefetched = None
+        gate = checksum.launch_counts()
+        out["gate_launches"] = gate
+        out["launches"] = {k: v + gate[k]
+                           for k, v in out["prefetch"]["launches"].items()}
+
+        # Reads through the gateway: whole (sendfile off the complete
+        # store), a Range window and a ranged task, cold then reused.
+        zero_launches()
+        t0 = time.perf_counter()
+        whole = await _stream_equal(store, GATEWAY_BUCKET, GATEWAY_KEY,
+                                    content)
+        whole_s = time.perf_counter() - t0
+        # 64 MiB + 7 B at an offset on no piece or page boundary.
+        a = content.size // 3 + 12345
+        b = min(a + (64 << 20) + 6, content.size - 1)
+        t0 = time.perf_counter()
+        window = await store.get_object(GATEWAY_BUCKET, GATEWAY_KEY,
+                                        f"bytes={a}-{b}")
+        window_s = time.perf_counter() - t0
+        # The tensor closest to 32 MiB (a projection at full width).
+        name = min(layout, key=lambda t: abs(
+            spans[t[0]][1] - spans[t[0]][0] - (32 << 20)))[0]
+        lo, hi = spans[name]
+        ranged = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            attrs, data = await store.read_object_range(GATEWAY_BUCKET,
+                                                        GATEWAY_KEY, lo, hi)
+            ranged.append({"s": time.perf_counter() - t0, **attrs,
+                           "equal": len(data) == hi - lo
+                           and _host_equal(data, content, lo)})
+        want_id = idgen.task_id_v1(url, tag=GATEWAY_BUCKET,
+                                   range_header=f"bytes={lo}-{hi - 1}")
+        out["reads"] = {
+            "whole_bytes": whole, "whole_s": whole_s,
+            "window": [a, b], "window_equal":
+                len(window) == b + 1 - a and _host_equal(window, content, a),
+            "window_s": window_s, "ranged_tensor": name,
+            "ranged_bytes": hi - lo, "ranged": ranged,
+            "ranged_task_id_ok": [r["task_id"] == want_id for r in ranged],
+            "launches": checksum.launch_counts()}
+
+        # A cut epoch through the gateway into DeviceFeed.
+        opts = LoaderOptions(seed=seed, num_hosts=1,
+                             interleave=WDS_INTERLEAVE, readahead=WDS_READAHEAD)
+        t0 = time.perf_counter()
+        loader = await PodShardedLoader(store, WDS_BUCKET, shard_keys,
+                                        options=opts).prepare()
+        prepare_s = time.perf_counter() - t0
+        n = epoch_batches * batch
+        plan = [k for _, k in loader.plan(0)][:n]
+        record_bytes = ids.shape[2] * 4
+        feed = DeviceFeed("tokens", record_bytes, batch, pad=True,
+                          device=device)
+        got = torch.empty((n, record_bytes), dtype=torch.uint8,
+                          pin_memory=_on_card(device))
+        keys, row, on_device = [], 0, True
+        # Each sample's request timed at the client, with its task id.
+        requests, read_range = [], store.read_object_range
+
+        async def timed_read_range(*args, **kwargs):
+            t = time.perf_counter()
+            attrs, data = await read_range(*args, **kwargs)
+            requests.append((time.perf_counter() - t, attrs.get("task_id")))
+            return attrs, data
+
+        store.read_object_range = timed_read_range
+        _sync(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        async with contextlib.aclosing(loader.epoch(0)) as samples, \
+                contextlib.aclosing(feed.batches(samples)) as it:
+            async for bt in it:
+                on_device &= bt.on_device and bt.array.device.type == \
+                    device.type
+                got[row:row + len(bt.keys)].copy_(bt.array, non_blocking=True)
+                keys += bt.keys
+                row += len(bt.keys)
+                if row >= n:
+                    break
+        _sync(device)
+        epoch_s = time.perf_counter() - t0
+        store.read_object_range = read_range
+        epoch_launches = checksum.launch_counts()
+        order = np.array([[int(k[:5]), int(k[5:])] for k in keys])
+        rows_equal = bool(np.array_equal(
+            got.numpy(), ids[order[:, 0], order[:, 1]].view(np.uint8))) \
+            if len(keys) == n else False
+        out["epoch"] = {
+            "prepare_s": prepare_s, "samples": len(keys),
+            "batches": -(-len(keys) // batch), "record_bytes": record_bytes,
+            "epoch_s": epoch_s, "samples_per_s": len(keys) / epoch_s,
+            "in_plan_order": keys == plan, "on_device": on_device,
+            "rows_equal": rows_equal, "launches": epoch_launches,
+            "outstanding_buffers": loader.pool.stats()["outstanding"],
+            "split": epoch_split(d.task_manager.flight, requests)}
+        out["stores"] = len(d.storage.tasks())
+        # The GC loop has run over the live stores at least once.
+        deadline = time.monotonic() + 3 * DFD_GC_INTERVAL
+        while not gc_runs and time.monotonic() < deadline:
+            await asyncio.sleep(0.05)
+    finally:
+        await store.close()
+        del host
+        t0 = time.perf_counter()
+        await d.stop()
+        out["stop_s"] = time.perf_counter() - t0
+        await sched.server.close()
+    out["scheduler_hosts"] = {
+        "announces": len(sched.announces),
+        "announce_keys": sorted(sched.announces[0]) if sched.announces
+        else [], "clock_samples": sum("clock" in a for a in sched.announces),
+        "left": sched.left, "still_registered": sorted(sched.hosts),
+        "host_id": host_id}
+    out["gc"] = {"runs": len(gc_runs), "reclaimed_invalid": len(reclaimed),
+                 "reclaimed_live": live_reclaimed}
+    out["sinks_closed"] = sinks._exec._shutdown
+    return out
+
+
+def phase_dfdaemon(root: str, content: np.ndarray, spans: dict, layout,
+                   seed: int, vocab: int, device: torch.device, *,
+                   epoch_batches: int = DFD_EPOCH_BATCHES,
+                   batch: int = FEED_BATCH, **wds_shape) -> dict:
+    """The port's ``Daemon`` from a ``DaemonConfig`` (the device sink at
+    the main path's batch, the gateway on an ``fs`` backend whose root
+    holds the shard, moved there by the task-kind phases, and the
+    ``config4_webdataset`` token shards; the stand-in scheduler; a 2 s GC
+    interval): a PUT through the gateway, ``Dfstore.prefetch_object(...,
+    device="tpu")`` landing the shard on the card, ``download_to_device``
+    claiming that sink (a reuse hit: no second landing, no origin read),
+    the whole object, a Range window and a ranged task read through the
+    gateway and held to the host bytes, then a cut epoch (the first
+    ``epoch_batches`` batches) through the gateway into ``DeviceFeed``,
+    held to the host records; ``stop()``. Checks the stand-in scheduler's
+    announces and the leave, a GC run that reclaimed nothing, the sinks
+    closed, and the launches of each step. The caller owns ``root`` and
+    removes it."""
+    shard = os.path.join(root, "objects", GATEWAY_BUCKET, GATEWAY_KEY)
+    wds_dir = os.path.join(root, "objects", WDS_BUCKET)
+    t0 = time.perf_counter()
+    shards, ids = wds_shards(seed, vocab, **wds_shape)
+    os.makedirs(wds_dir, exist_ok=True)
+    for key, data in shards.items():
+        with open(os.path.join(wds_dir, key), "wb") as f:
+            f.write(data)
+    shard_bytes = sum(len(data) for data in shards.values())
+    del shards
+    make_s = time.perf_counter() - t0
+    # The stores: the shard's, the webdataset shards' whole-object
+    # stores and the epoch's ranged tasks, with a GiB to spare.
+    need = content.size + 2 * shard_bytes + (1 << 30)
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise RuntimeError(f"the dfdaemon phase needs {need} B free "
+                           f"under {root}; {free} B are")
+    if os.path.getsize(shard) != content.size:
+        raise AssertionError("dfdaemon: the shard's file was not handed "
+                             "over whole")
+    out = asyncio.run(_dfdaemon(root, content, spans, layout,
+                                sorted(os.listdir(wds_dir)), ids, seed,
+                                device, epoch_batches, batch))
+    out.update(wds_make_s=make_s, wds_shard_bytes=shard_bytes)
+    n_pieces = compute_piece_count(content.size,
+                                   compute_piece_size(content.size))
+    k2 = -(-n_pieces // BATCH_PIECES)
+    pre, claim, reads, ep = (out["prefetch"], out["claim"], out["reads"],
+                             out["epoch"])
+    answer = pre["answer"]
+    if (answer["state"], answer["content_length"], answer["from_reuse"],
+            answer["device_verified"]) != ("done", content.size, False, True):
+        raise AssertionError(f"dfdaemon prefetch: {answer}")
+    sched = pre["scheduler"]
+    if (sched.get("is_seed") or sched.get("reported") != n_pieces
+            or sched.get("messages", {}).get("download_finished") != 1):
+        raise AssertionError(f"dfdaemon prefetch at the scheduler: {sched}")
+    if not (claim["from_reuse"] and claim["same_task"] and claim["same_sink"]
+            and claim["pieces_landed"] == 0 and not claim["origin_read"]
+            and claim["equal"]
+            and not claim["tensors_differing"]
+            and claim["new_registrations"] == 0
+            and claim["tensors"] == len(layout)):
+        raise AssertionError(f"dfdaemon claim: {claim}")
+    if (reads["whole_bytes"] != content.size or not reads["window_equal"]
+            or [r["equal"] for r in reads["ranged"]] != [True, True]
+            or [r["from_reuse"] for r in reads["ranged"]] != [False, True]
+            or reads["ranged_task_id_ok"] != [True, True]):
+        raise AssertionError(f"dfdaemon reads: {reads}")
+    if not (ep["samples"] == epoch_batches * batch and ep["in_plan_order"]
+            and ep["on_device"] and ep["rows_equal"]
+            and ep["outstanding_buffers"] == 0
+            and ep["split"]["requests"] >= ep["samples"]
+            and ep["split"]["tasks_folded"] > 0):
+        raise AssertionError(f"dfdaemon epoch: {ep}")
+    hosts = out["scheduler_hosts"]
+    wire_keys = sorted(host_record("x")) + ["telemetry"]
+    if (hosts["announces"] < 2 or hosts["clock_samples"] < 1
+            or hosts["announce_keys"] != sorted(wire_keys)
+            or hosts["left"] != [hosts["host_id"]]
+            or hosts["still_registered"]):
+        raise AssertionError(f"dfdaemon: the scheduler saw {hosts}")
+    if out["gc"]["runs"] < 1 or out["gc"]["reclaimed_live"]:
+        raise AssertionError(f"dfdaemon: GC {out['gc']}")
+    if not out["sinks_closed"]:
+        raise AssertionError("dfdaemon: the sink manager is still open")
+    if _on_card(device):
+        want = {"chunk_checksums": 2, "land_and_checksum": k2,
+                "gear_candidates": 0}
+        none = {"chunk_checksums": 0, "land_and_checksum": 0,
+                "gear_candidates": 0}
+        for what, got, w in (
+                ("prefetch", pre["launches"], {**want, "chunk_checksums": 0}),
+                ("claim", claim["claim_launches"], none),
+                ("gate after the claim", out["gate_launches"],
+                 {**none, "chunk_checksums": 2}),
+                ("prefetch and claim", out["launches"], want),
+                ("reads", reads["launches"], none),
+                ("epoch", ep["launches"], {**none, "land_and_checksum":
+                                           epoch_batches})):
+            if got != w:
+                raise AssertionError(f"dfdaemon {what}: launches {got}, "
+                                     f"want {w}")
+    out["want_k2"] = k2
+    return out
 
 
 # --------------------------------------------------------------------- #
@@ -3569,7 +4060,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k3_chunker: int, want_k3_manifest: int,
                    want_k2_wds: int, want_k3_gateway: int,
                    want_k2_daemon: int, want_k2_p2p: int,
-                   want_k2_pex: int, want_k2_seed: int) -> None:
+                   want_k2_pex: int, want_k2_seed: int,
+                   want_k2_dfdaemon: int, want_k2_dfdaemon_epoch: int
+                   ) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -3593,7 +4086,10 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     gate, no K2. The seed path: K2 once per batch as the seed lands, K1
     twice in the gate after the take; the seed_again path: K2 once per
     batch as the second trigger lands the device copy again from the
-    store, no K1."""
+    store, no K1. The dfdaemon path: K2 once per batch as the gateway's
+    prefetch lands the shard, none in the claim or the reads through the
+    gateway, K1 twice in the gate after the claim; the dfdaemon_epoch
+    path: K2 once a batch of the cut epoch."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -3610,7 +4106,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "daemon": k(6, want_k2_daemon), "p2p": k(4, want_k2_p2p),
             "pex": k(2, want_k2_pex),
             "daemon_delta": k(2, 0, want_k3_manifest),
-            "seed": k(2, want_k2_seed), "seed_again": k(0, want_k2_seed)}
+            "seed": k(2, want_k2_seed), "seed_again": k(0, want_k2_seed),
+            "dfdaemon": k(2, want_k2_dfdaemon),
+            "dfdaemon_epoch": k(0, want_k2_dfdaemon_epoch)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -3996,53 +4494,94 @@ def main(argv=None) -> int:
           f"copies {ctm['assemble_device_ms']:.4f} ms on the card; swap "
           f"{cdc['swap_s']:.3f} s with the fallback; peak device memory "
           f"{cdc['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
-    dd, seed = phase_task_kinds(content, gen2, spans, layout, base_ref,
-                                gen2_m, device)
-    del gen2, gen2_m
+    # The dfdaemon phase serves the shard's file the task-kind phases wrote.
+    dfd_root = tempfile.mkdtemp(prefix="df-chip-dfdaemon-")
+    try:
+        dfd_shard = os.path.join(dfd_root, "objects", GATEWAY_BUCKET,
+                                 GATEWAY_KEY)
+        os.makedirs(os.path.dirname(dfd_shard))
+        dd, seed = phase_task_kinds(content, gen2, spans, layout, base_ref,
+                                    gen2_m, device, keep=dfd_shard)
+        del gen2, gen2_m
+        torch.cuda.empty_cache()
+        dt, sw = dd["delta_timings"], dd["swap_timings"]
+        print("daemon delta:", json.dumps(dd))
+        print(f"daemon delta: generation 1 -> 2 through the port's daemon: "
+              f"download_delta {dd['swap_s']:.3f} s (generation 1 landed "
+              f"first in {dd['generation1_s']:.3f} s); the delta task reused "
+              f"{dd['stats']['reused_bytes']} B from the base store and "
+              f"fetched {dd['stats']['fetched_bytes']} B (plan_delta: "
+              f"{dd['plan_reused']} / {dd['plan_fetched']}), the origin "
+              f"served {dd['origin_bytes']} B in {dd['spans']} span tasks "
+              f"(plan.fetched_bytes {dd['plan_fetched']} + one 1-byte probe a "
+              f"span), corrupt_base {dd['stats']['corrupt_base']}; the task's "
+              f"split: resolve {dt.get('resolve_s', 0):.3f} s (of it the base "
+              f"manifest built by K3 {dt.get('base_manifest_s', 0):.3f} s), "
+              f"assemble {dt.get('assemble_s', 0):.3f} s (base reads "
+              f"{dt.get('base_read_s', 0):.3f} s, sha256 "
+              f"{dt.get('sha256_s', 0):.3f} s, span waits "
+              f"{dt.get('span_wait_s', 0):.3f} s, store writes "
+              f"{dt.get('store_write_s', 0):.3f} s), finalize "
+              f"{dt.get('finalize_s', 0):.3f} s; the swap: staged "
+              f"{dd['staged_bytes']} B, reused {dd['reused_device_bytes']} B "
+              f"device to device, assemble {sw['assemble_s']:.4f} s, gate "
+              f"{sw['gate_s']:.4f} s; K3 "
+              f"{dd['launches']['gear_candidates']}, K1 "
+              f"{dd['launches']['chunk_checksums']}, K2 "
+              f"{dd['launches']['land_and_checksum']}; peak device memory "
+              f"{dd['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+        s1, s2 = seed["seed"], seed["again"]
+        print("seed:", json.dumps(seed))
+        print(f"seed: Peer.TriggerDownloadTask ACK in "
+              f"{s1['ack_s'] * 1e3:.2f} ms (before the seed landed); trigger "
+              f"to verified device buffer {s1['trigger_to_verified_s']:.3f} "
+              f"s, land_s {s1['land_s']:.4f} s, "
+              f"the sink's worker busy {s1['sink_busy_s']:.4f} s "
+              f"({s1['sink_busy_s'] / s1['land_s']:.0%}) = host checksum "
+              f"{s1['host_checksum_s']:.4f} s + staging "
+              f"{s1['stage_s']:.4f} s + the rest; registered as a seed, "
+              f"{s1['scheduler'].get('reported')} pieces reported; K2 "
+              f"{s1['launches']['land_and_checksum']}, K1 "
+              f"{s1['launches']['chunk_checksums']}; the second trigger "
+              f"answered already_complete with no origin request, its device "
+              f"copy landed again from the store (K2 "
+              f"{s2['launches']['land_and_checksum']}) in "
+              f"{s2['land_s']:.4f} s; "
+              f"peak device memory {s1['peak_device_bytes'] / 1e9:.3f} GB on "
+              f"{smi}")
+        dfd = phase_dfdaemon(dfd_root, content, spans, layout, args.seed,
+                             LLAMA_8B["vocab"], device)
+    finally:
+        shutil.rmtree(dfd_root, ignore_errors=True)
     torch.cuda.empty_cache()
-    dt, sw = dd["delta_timings"], dd["swap_timings"]
-    print("daemon delta:", json.dumps(dd))
-    print(f"daemon delta: generation 1 -> 2 through the port's daemon: "
-          f"download_delta {dd['swap_s']:.3f} s (generation 1 landed first "
-          f"in {dd['generation1_s']:.3f} s); the delta task reused "
-          f"{dd['stats']['reused_bytes']} B from the base store and fetched "
-          f"{dd['stats']['fetched_bytes']} B (plan_delta: "
-          f"{dd['plan_reused']} / {dd['plan_fetched']}), the origin served "
-          f"{dd['origin_bytes']} B in {dd['spans']} span tasks "
-          f"(plan.fetched_bytes {dd['plan_fetched']} + one 1-byte probe a "
-          f"span), corrupt_base {dd['stats']['corrupt_base']}; the task's "
-          f"split: resolve {dt.get('resolve_s', 0):.3f} s (of it the base "
-          f"manifest built by K3 {dt.get('base_manifest_s', 0):.3f} s), "
-          f"assemble {dt.get('assemble_s', 0):.3f} s (base reads "
-          f"{dt.get('base_read_s', 0):.3f} s, sha256 "
-          f"{dt.get('sha256_s', 0):.3f} s, span waits "
-          f"{dt.get('span_wait_s', 0):.3f} s, store writes "
-          f"{dt.get('store_write_s', 0):.3f} s), finalize "
-          f"{dt.get('finalize_s', 0):.3f} s; the swap: staged "
-          f"{dd['staged_bytes']} B, reused {dd['reused_device_bytes']} B "
-          f"device to device, assemble {sw['assemble_s']:.4f} s, gate "
-          f"{sw['gate_s']:.4f} s; K3 "
-          f"{dd['launches']['gear_candidates']}, K1 "
-          f"{dd['launches']['chunk_checksums']}, K2 "
-          f"{dd['launches']['land_and_checksum']}; peak device memory "
-          f"{dd['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
-    s1, s2 = seed["seed"], seed["again"]
-    print("seed:", json.dumps(seed))
-    print(f"seed: Peer.TriggerDownloadTask ACK in {s1['ack_s'] * 1e3:.2f} ms "
-          f"(before the seed landed); trigger to verified device buffer "
-          f"{s1['trigger_to_verified_s']:.3f} s, land_s {s1['land_s']:.4f} s, "
-          f"the sink's worker busy {s1['sink_busy_s']:.4f} s "
-          f"({s1['sink_busy_s'] / s1['land_s']:.0%}) = host checksum "
-          f"{s1['host_checksum_s']:.4f} s + staging {s1['stage_s']:.4f} s + "
-          f"the rest; registered as a seed, "
-          f"{s1['scheduler'].get('reported')} pieces reported; K2 "
-          f"{s1['launches']['land_and_checksum']}, K1 "
-          f"{s1['launches']['chunk_checksums']}; the second trigger "
-          f"answered already_complete with no origin request, its device "
-          f"copy landed again from the store (K2 "
-          f"{s2['launches']['land_and_checksum']}) in {s2['land_s']:.4f} s; "
-          f"peak device memory {s1['peak_device_bytes'] / 1e9:.3f} GB on "
-          f"{smi}")
+    print("dfdaemon:", json.dumps(dfd))
+    pre, claim, reads = dfd["prefetch"], dfd["claim"], dfd["reads"]
+    print(f"dfdaemon: the port's Daemon from a DaemonConfig up in "
+          f"{dfd['start_s']:.3f} s; POST .../prefetch/{GATEWAY_KEY}"
+          f"?device=tpu {pre['wall_s']:.3f} s wall, land_s "
+          f"{pre['land_s']:.4f} s, the sink's worker busy "
+          f"{pre['sink_busy_s']:.4f} s ({pre['sink_busy_share']:.1%}), "
+          f"device_verified {pre['answer']['device_verified']}, K2 "
+          f"{pre['launches']['land_and_checksum']}, K1 "
+          f"{pre['launches']['chunk_checksums']}, "
+          f"{pre['scheduler'].get('reported')} pieces reported to the "
+          f"stand-in scheduler; the claim (download_to_device, a reuse "
+          f"hit on the prefetched sink, no landing, no origin read) "
+          f"{claim['claim_s']:.4f} s, then the gate K1 "
+          f"{dfd['launches']['chunk_checksums']}, {claim['tensors']} "
+          f"tensors equal to the shard; through the gateway: the whole "
+          f"object {reads['whole_bytes']} B in {reads['whole_s']:.3f} s "
+          f"({reads['whole_bytes'] / reads['whole_s'] / 1e9:.2f} GB/s), a "
+          f"{reads['window'][1] - reads['window'][0] + 1} B Range window in "
+          f"{reads['window_s']:.3f} s, the ranged task of "
+          f"{reads['ranged_bytes']} B cold {reads['ranged'][0]['s']:.4f} s "
+          f"then reused {reads['ranged'][1]['s']:.4f} s; stop "
+          f"{dfd['stop_s']:.3f} s (announces {dfd['scheduler_hosts']['announces']}, "
+          f"left {dfd['scheduler_hosts']['left']}, GC runs "
+          f"{dfd['gc']['runs']}, live stores reclaimed "
+          f"{len(dfd['gc']['reclaimed_live'])}, failed ones "
+          f"{dfd['gc']['reclaimed_invalid']}) "
+          f"on {smi}")
     gwm = phase_gateway_manifest(content, base_ref, device)
     torch.cuda.empty_cache()
     k3s = k3["at_stream_chunk"]
@@ -4116,6 +4655,16 @@ def main(argv=None) -> int:
           f"{k2_wds_ms / 1e3 / wds['epoch_s']:.2%} of the epoch's wall time; "
           f"peak device memory {wds['peak_device_bytes'] / 1e9:.3f} GB on "
           f"{smi}")
+    ep = dfd["epoch"]
+    print(f"dfdaemon epoch: the first {ep['batches']} batches of epoch 0 "
+          f"({ep['samples']} samples, each a ranged task) through the "
+          f"port's gateway into DeviceFeed in {ep['epoch_s']:.3f} s: "
+          f"{ep['samples_per_s']:.0f} samples/s against the stand-in "
+          f"gateway's {wds['samples_per_s']:.0f} samples/s in this call "
+          f"({ep['samples_per_s'] / wds['samples_per_s']:.2f}x); prepare "
+          f"{ep['prepare_s']:.3f} s; K2 {ep['launches']['land_and_checksum']}"
+          f" on {smi}")
+    print(f"dfdaemon epoch split: {split_line(ep['split'])}")
 
     ent = phase_entry(device)
     torch.cuda.empty_cache()
@@ -4159,12 +4708,14 @@ def main(argv=None) -> int:
              "daemon": dmn["launches"], "p2p": p2p["launches"],
              "pex": pex["launches"],
              "daemon_delta": dd["launches"], "seed": s1["launches"],
-             "seed_again": s2["launches"]}
+             "seed_again": s2["launches"], "dfdaemon": dfd["launches"],
+             "dfdaemon_epoch": dfd["epoch"]["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
                    sum(dmn["want_k2"].values()), p2p["want_k2"],
-                   pex["want_k2"], seed["want_k2"])
+                   pex["want_k2"], seed["want_k2"], dfd["want_k2"],
+                   DFD_EPOCH_BATCHES)
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

@@ -42,7 +42,8 @@ forms.
 Intended divergence from the JAX conductor: no QoS dispatch gate.
 
 ``conductor_factory`` builds the task manager's conductor factory, as the
-JAX ``Daemon._make_conductor`` does, until the daemon itself is ported.
+JAX ``Daemon._make_conductor`` does: the daemon (``daemon/daemon.py``)
+gives it the config's worker count, report batch and ``seed_peer``.
 """
 
 from __future__ import annotations
@@ -102,9 +103,9 @@ ANNOUNCE_BYTES = metrics.counter(
     ("direction",))
 
 MAX_RESCHEDULES = 8
-# Piece workers a P2P pull runs, and the most piece reports one
-# pieces_finished message carries (the JAX daemon's config defaults; the
-# port has no daemon config yet).
+# The defaults of the piece workers a P2P pull runs and of the most piece
+# reports one pieces_finished message carries (the daemon's config sets
+# them: download.parent_concurrency and download.report_batch).
 PIECE_WORKERS = 4
 REPORT_BATCH = 32
 # One ranged GET covers up to this many contiguous pieces a parent holds
@@ -140,12 +141,14 @@ class PeerTaskConductor:
         host_info: dict,
         meta: dict | None = None,
         is_seed: bool = False,
+        piece_parallelism: int = PIECE_WORKERS,
         limiter: Limiter | None = None,
         on_piece=None,
         disable_back_source: bool = False,
         local_range_source=None,
         quarantine=None,
         flight=None,
+        report_batch: int = REPORT_BATCH,
     ):
         self.task_id = task_id
         self.peer_id = peer_id
@@ -155,10 +158,14 @@ class PeerTaskConductor:
         self.piece_manager = piece_manager
         self.host_info = host_info
         self.meta = meta or {}
-        # A seed trigger's task registers as a seed's. (A daemon configured
-        # as a seed peer registers every task so; that comes with the
-        # daemon's config.)
+        # A seed trigger's task, or any task of a daemon configured as a
+        # seed peer, registers as a seed's.
         self.is_seed = is_seed
+        self.piece_parallelism = piece_parallelism
+        # The cap of a coalesced pieces_finished message: idle traffic
+        # still flushes single reports at once, a backlog grows batches
+        # toward it and a recovery re-report drains in messages of it.
+        self.report_batch = max(1, int(report_batch))
         self.limiter = limiter or Limiter()
         self.on_piece = on_piece
         self.disable_back_source = disable_back_source
@@ -198,7 +205,7 @@ class PeerTaskConductor:
         # Piece reports coalesce into pieces_finished batches: the first
         # flushes at once (the scheduler's "peer became a usable parent"
         # wake-up must not lag), later ones within the flush window share
-        # a message, up to REPORT_BATCH.
+        # a message, up to report_batch.
         self._pending_reports: deque = deque()
         self._flush_task: asyncio.Task | None = None
         self._last_flush = 0.0
@@ -474,7 +481,7 @@ class PeerTaskConductor:
 
         receiver = asyncio.ensure_future(self._receive_scheduler_loop())
         workers = [asyncio.ensure_future(self._piece_worker(i))
-                   for i in range(PIECE_WORKERS)]
+                   for i in range(self.piece_parallelism)]
         try:
             try:
                 await asyncio.gather(*workers)
@@ -985,7 +992,7 @@ class PeerTaskConductor:
         loop = asyncio.get_running_loop()
         while True:
             wait = self._last_flush + self._REPORT_FLUSH_S - loop.time()
-            if wait > 0 and len(self._pending_reports) < REPORT_BATCH:
+            if wait > 0 and len(self._pending_reports) < self.report_batch:
                 # A full batch waiting skips the window (it only grows
                 # batches).
                 await asyncio.sleep(wait)
@@ -1009,13 +1016,13 @@ class PeerTaskConductor:
         return {"type": "pieces_finished", "pieces": batch}
 
     async def _flush_reports(self) -> bool:
-        """Send the buffered reports in REPORT_BATCH-sized messages. False
+        """Send the buffered reports in report_batch-sized messages. False
         when the stream was down: the unsent batch is put back in order
         for the recovery path."""
         async with self._report_lock:
             pending = self._pending_reports
             while pending:
-                cap = min(REPORT_BATCH, len(pending))
+                cap = min(self.report_batch, len(pending))
                 batch = [pending.popleft() for _ in range(cap)]
                 self._last_flush = asyncio.get_running_loop().time()
                 try:
@@ -1082,13 +1089,16 @@ class PeerTaskConductor:
 
 
 def conductor_factory(*, scheduler_client, piece_manager, host_wire,
-                      task_manager=None):
+                      task_manager=None, piece_parallelism: int = PIECE_WORKERS,
+                      report_batch: int = REPORT_BATCH,
+                      seed_peer: bool = False):
     """The ``TaskManager``'s ``conductor_factory``, built as the JAX
     ``Daemon._make_conductor`` builds its conductors: the host record from
-    ``host_wire()`` (less its telemetry), the request's metadata, and
-    ``is_seed`` from the task (a seed trigger's); with ``task_manager``, a
-    ranged task's import from a local parent, the task's flight from the
-    task manager's recorder and its daemon-wide quarantine."""
+    ``host_wire()`` (less its telemetry), the request's metadata, ``is_seed``
+    from the task (a seed trigger's) or ``seed_peer``, and the piece
+    workers and report batch given; with ``task_manager``, a ranged task's
+    import from a local parent, the task's flight from the task manager's
+    recorder and its daemon-wide quarantine."""
 
     def make(*, task_id: str, peer_id: str, request, store, on_piece,
              is_seed: bool = False, limiter=None) -> PeerTaskConductor:
@@ -1116,7 +1126,9 @@ def conductor_factory(*, scheduler_client, piece_manager, host_wire,
             task_id=task_id, peer_id=peer_id, url=request.url, store=store,
             scheduler_client=scheduler_client, piece_manager=piece_manager,
             host_info=host_info, meta=meta,
-            is_seed=is_seed, limiter=limiter, on_piece=on_piece,
+            is_seed=is_seed or seed_peer,
+            piece_parallelism=piece_parallelism, report_batch=report_batch,
+            limiter=limiter, on_piece=on_piece,
             disable_back_source=getattr(request, "disable_back_source", False),
             local_range_source=local, flight=flight, quarantine=quarantine)
 

@@ -157,8 +157,10 @@ class DeviceSinkManager:
             self._admission = asyncio.Semaphore(max(1, self.max_tasks - 1))
         return self._admission
 
-    def close(self) -> None:
-        self._exec.shutdown(wait=False, cancel_futures=True)
+    def close(self, wait: bool = False) -> None:
+        """Stop the worker, dropping queued landings; ``wait``: until the
+        one in progress has returned."""
+        self._exec.shutdown(wait=wait, cancel_futures=True)
 
     async def _run(self, fn, *args):
         return await asyncio.get_running_loop().run_in_executor(

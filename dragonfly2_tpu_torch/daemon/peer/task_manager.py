@@ -67,8 +67,10 @@ failed, with the error), which feeds ``peer_task_phase_seconds``. One
 daemon-wide ``pkg/quarantine.ParentQuarantine`` (``quarantine``) is shared
 by every conductor and PEX pull.
 
-Not ported yet: the traffic shaper's wiring (it comes with the daemon's
-config and loop; downloads go through the piece manager's one limiter).
+Bandwidth: every download rides the traffic shaper's limiter for its
+task (``total_rate_limit`` split by ``traffic_shaper``, ``plain`` or
+``sampling``; the daemon runs the shaper's ``serve()`` loop), as the JAX
+task manager's do: the conductor's pieces, a PEX pull's and the origin's.
 """
 
 from __future__ import annotations
@@ -96,6 +98,7 @@ from dragonfly2_tpu_torch.daemon.peer.piece_manager import PieceManager
 from dragonfly2_tpu_torch.daemon.peer.synchronizer import (
     PieceTaskSynchronizer,
 )
+from dragonfly2_tpu_torch.daemon.peer.traffic_shaper import TrafficShaper
 from dragonfly2_tpu_torch.ops._build import KernelError
 from dragonfly2_tpu_torch.pkg import aio, dflog, idgen, metrics
 from dragonfly2_tpu_torch.pkg import flight as flightlib
@@ -241,7 +244,9 @@ class TaskManager:
         host_ip: str = "127.0.0.1",
         scheduler_client=None,
         conductor_factory=None,
+        total_rate_limit: int = 0,
         host_wire=None,
+        traffic_shaper: str = "plain",
         pex=None,
         prefetch: bool = False,
         device_sinks=None,
@@ -270,6 +275,10 @@ class TaskManager:
         # One decaying-penalty registry for every conductor and PEX pull,
         # keyed by a parent's serving endpoint.
         self.quarantine = ParentQuarantine()
+        # The daemon's download bandwidth, shared among its tasks.
+        self.shaper = TrafficShaper(
+            total_rate_limit if total_rate_limit > 0 else float("inf"),
+            algorithm=traffic_shaper)
         # The bounded task index of flights; tests inject one a daemon.
         self.flight = flight if flight is not None else flightlib.recorder()
         self.broker = PieceBroker()
@@ -306,46 +315,52 @@ class TaskManager:
             if progress_q is not None:
                 await progress_q.on_piece(st, rec)
 
-        if (self.scheduler_client is not None
-                and self.conductor_factory is not None):
-            conductor = self.conductor_factory(
-                task_id=task_id, peer_id=peer_id, request=req, store=store,
-                on_piece=on_piece, is_seed=is_seed,
-                limiter=self.piece_manager.limiter)
-            await conductor.run()
-            return conductor.from_p2p
-        if self.pex is not None:
-            # No scheduler: gossip may name holders. A failed pull (stale
-            # holders, a stall) falls back to the origin when allowed.
-            try:
-                if await self._pex_download(task_id, peer_id, store,
-                                            on_piece):
-                    return True
-            except DfError as e:
-                if req.disable_back_source:
-                    raise
-                log.warning("pex download failed, falling back to source",
-                            task_id=task_id[:16], error=str(e))
-        # A ranged task whose slice a local parent covers imports it
-        # without touching the origin (allowed even with the origin off the
-        # table). Origin reads go through the piece manager's own limiter.
-        if await self.import_range_from_local_parent(store, req, on_piece):
+        limiter = self.shaper.start_task(task_id)
+        try:
+            if (self.scheduler_client is not None
+                    and self.conductor_factory is not None):
+                conductor = self.conductor_factory(
+                    task_id=task_id, peer_id=peer_id, request=req,
+                    store=store, on_piece=on_piece, is_seed=is_seed,
+                    limiter=limiter)
+                await conductor.run()
+                return conductor.from_p2p
+            if self.pex is not None:
+                # No scheduler: gossip may name holders. A failed pull
+                # (stale holders, a stall) falls back to the origin when
+                # allowed.
+                try:
+                    if await self._pex_download(task_id, peer_id, store,
+                                                on_piece, limiter):
+                        return True
+                except DfError as e:
+                    if req.disable_back_source:
+                        raise
+                    log.warning("pex download failed, falling back to "
+                                "source", task_id=task_id[:16], error=str(e))
+            # A ranged task whose slice a local parent covers imports it
+            # without touching the origin (allowed even with the origin off
+            # the table).
+            if await self.import_range_from_local_parent(store, req,
+                                                         on_piece):
+                return False
+            if req.disable_back_source:
+                raise DfError(Code.ClientBackSourceError,
+                              "no scheduler and back-to-source disabled")
+            if LocalTaskStore.completion_digest_applies(
+                    req.meta.digest, req.range is not None):
+                # Back-source piece digests are self-computed, so the
+                # completion re-hash is certain: overlap it.
+                store.start_prefix_hasher(req.meta.digest)
+            await self.piece_manager.download_source(
+                store, req.url, req.meta.header,
+                content_range=req.range, on_piece=on_piece, limiter=limiter)
             return False
-        if req.disable_back_source:
-            raise DfError(Code.ClientBackSourceError,
-                          "no scheduler and back-to-source disabled")
-        if LocalTaskStore.completion_digest_applies(
-                req.meta.digest, req.range is not None):
-            # Back-source piece digests are self-computed, so the
-            # completion re-hash is certain: overlap it.
-            store.start_prefix_hasher(req.meta.digest)
-        await self.piece_manager.download_source(
-            store, req.url, req.meta.header,
-            content_range=req.range, on_piece=on_piece)
-        return False
+        finally:
+            self.shaper.finish_task(task_id)
 
     async def _pex_download(self, task_id: str, peer_id: str, store,
-                            on_piece) -> bool:
+                            on_piece, limiter) -> bool:
         """Pull every piece from the holders gossip names, with no
         scheduler: their piece maps over ``Peer.SyncPieceTasks``, one GET
         a piece, four workers, failures penalized in the quarantine. False
@@ -366,7 +381,6 @@ class TaskManager:
                       "upload_port": m.upload_port}}
             for m in holders])
         log.info("pex download", task_id=task_id[:16], holders=len(holders))
-        limiter = self.piece_manager.limiter
 
         async def worker() -> None:
             while not dispatcher.is_complete():

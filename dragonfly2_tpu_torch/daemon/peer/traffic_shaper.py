@@ -6,9 +6,9 @@ each task's bytes every interval and re-splits the total in proportion to
 observed need, so one hot checkpoint pull does not starve under an even
 split and idle tasks release their bandwidth.
 
-The port's ``TaskManager`` does not drive it yet: its options and the
-``serve()`` loop that re-splits a sampling shaper come with the daemon's
-config and loop.
+The ``TaskManager`` owns one (``total_rate_limit``, ``traffic_shaper``)
+and takes each task's limiter from it; the daemon runs the ``serve()``
+loop that re-splits a sampling shaper.
 """
 
 from __future__ import annotations

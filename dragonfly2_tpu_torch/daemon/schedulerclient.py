@@ -4,9 +4,9 @@
 A consistent-hash pick of a scheduler per task, the AnnouncePeer stream
 the conductor drives (opened on the task's ring owner, failing over
 clockwise), routed unary calls classified by ``RPC_TABLE``, and the
-ring-rebuild observers that let a conductor re-home its stream. The host
-announcements (``announce_host``, ``leave_host``) come with the daemon's
-announcer.
+ring-rebuild observers that let a conductor re-home its stream, and the
+host announcements the daemon's announcer sends to every ring member
+(``announce_host``, ``leave_host``).
 """
 
 from __future__ import annotations
@@ -200,6 +200,32 @@ class SchedulerClient:
             idempotent = RPC_TABLE.get(method) == IDEMPOTENT
         return await self._routed_call(task_id, method, body, timeout,
                                        idempotent=idempotent)
+
+    async def announce_host(self, host_wire: dict) -> "dict | None":
+        """``Scheduler.AnnounceHost`` to every scheduler (each keeps its own
+        view of the hosts). Returns the first answer: it carries the
+        scheduler's ``sched_wall`` clock echo and this host's scorecard."""
+        first: "dict | None" = None
+        for addr in self._ring.members():
+            try:
+                resp = await self._client_for_addr(addr).call(
+                    "Scheduler.AnnounceHost", host_wire, timeout=10.0)
+                if first is None and isinstance(resp, dict):
+                    first = resp
+            except DfError as e:
+                log.warning("announce host failed", addr=addr,
+                            error=e.message)
+        return first
+
+    async def leave_host(self, host_id: str) -> None:
+        """``Scheduler.LeaveHost`` to every scheduler; a failure is
+        dropped (the scheduler's host GC ends the host anyway)."""
+        for addr in self._ring.members():
+            try:
+                await self._client_for_addr(addr).call(
+                    "Scheduler.LeaveHost", {"id": host_id}, timeout=5.0)
+            except DfError:
+                pass
 
     async def announce_task(self, body: dict) -> None:
         """Advertise a locally complete task (an import). Idempotent

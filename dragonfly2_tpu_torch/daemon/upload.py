@@ -27,7 +27,8 @@ Each payload served stamps the task's flight on this daemon
 (``pkg/flight.for_task``): ``EV_UPLOAD_SERVE`` with the piece number (-1
 for a range) and the bytes.
 
-HTTP/1.1 with keep-alive, one ``df-upload`` thread a connection. The
+HTTP/1.1 with keep-alive on ``pkg/httpserver.py``: one ``df-upload``
+thread a connection, and ``close`` waits for them. The
 ``tenant`` query is accepted and not accounted (the QoS plane is not
 ported). Not ported either: the native upload server and TLS.
 """
@@ -35,13 +36,13 @@ ported). Not ported either: the native upload server and TLS.
 from __future__ import annotations
 
 import os
-import sys
 import threading
-from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from http.server import BaseHTTPRequestHandler
 from urllib.parse import parse_qs, urlsplit
 
 from dragonfly2_tpu_torch.pkg import dflog, metrics
 from dragonfly2_tpu_torch.pkg import flight as flightlib
+from dragonfly2_tpu_torch.pkg.httpserver import ThreadedServer
 from dragonfly2_tpu_torch.pkg.piece import Range
 from dragonfly2_tpu_torch.pkg.ratelimit import BlockingLimiter
 
@@ -62,22 +63,6 @@ class _Reply(Exception):
         super().__init__(text)
         self.status = status
         self.text = text
-
-
-class _Server(ThreadingHTTPServer):
-    request_queue_size = 128
-    manager: "UploadManager"
-
-    def process_request(self, request, client_address):
-        t = threading.Thread(target=self.process_request_thread,
-                             args=(request, client_address),
-                             name="df-upload", daemon=True)
-        t.start()
-
-    def handle_error(self, request, client_address):
-        # A child that cancels a piece cuts its connection mid-body.
-        if not isinstance(sys.exc_info()[1], ConnectionError):
-            super().handle_error(request, client_address)
 
 
 class _Handler(BaseHTTPRequestHandler):
@@ -121,19 +106,15 @@ class UploadManager:
         self.concurrent_limit = concurrent_limit
         self.concurrent = 0
         self._mu = threading.Lock()
-        self._server: _Server | None = None
-        self._thread: threading.Thread | None = None
+        self._server: ThreadedServer | None = None
         self._port = 0
 
     def serve(self, host: str, port: int = 0) -> int:
         """Listen on ``host:port`` (0: a free port) on a thread of its own;
         returns the port."""
-        self._server = _Server((host, port), _Handler)
+        self._server = ThreadedServer((host, port), _Handler, "upload")
         self._server.manager = self
-        self._thread = threading.Thread(target=self._server.serve_forever,
-                                        name="df-upload-accept", daemon=True)
-        self._thread.start()
-        self._port = self._server.server_address[1]
+        self._port = self._server.start()
         log.info("upload server up", port=self._port)
         return self._port
 
@@ -143,9 +124,7 @@ class UploadManager:
 
     def close(self) -> None:
         if self._server is not None:
-            self._server.shutdown()
-            self._server.server_close()
-            self._thread.join(timeout=10)
+            self._server.close()
             self._server = None
 
     def _acquire(self) -> None:

@@ -77,3 +77,11 @@ def seed_peer_id_v1(ip: str) -> str:
     """A seed peer's id: ``peer_id_v1`` with the ``_Seed`` suffix the
     scheduler reads as the mark of a seed."""
     return f"{peer_id_v1(ip)}_Seed"
+
+
+def host_id(hostname: str, port: int | None = None) -> str:
+    """A host's id: the hostname, or hostname-port when several daemons
+    share a host."""
+    if port is None:
+        return hostname
+    return f"{hostname}-{port}"

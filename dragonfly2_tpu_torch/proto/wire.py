@@ -5,8 +5,9 @@ of ``dragonfly2_tpu/proto/wire.py``, cut to the methods its
 ``FlightReport``, ``PodTimeline``) and the peer service
 (``Peer.SyncPieceTasks``, ``GetPieceTasks``, ``TriggerDownloadTask``,
 ``StatTask``, ``DeleteTask``, ``Daemon.FlightReport``), plus
-``Scheduler.PodTimeline``, which ``Daemon.PodTimeline`` proxies, and the
-messages a conductor sends on ``Scheduler.AnnouncePeer``
+``Scheduler.PodTimeline``, which ``Daemon.PodTimeline`` proxies,
+``Scheduler.AnnounceHost`` and ``Scheduler.LeaveHost``, which the
+daemon's announcer sends, and the messages a conductor sends on ``Scheduler.AnnouncePeer``
 (``STREAM_MSGS``: the piece reports with their ``timings``, the packed
 batch envelope, the resume with its ``piece_bitmap``, and the terminal
 messages with the flight digest), which ``validate_stream_msg`` checks.
@@ -138,7 +139,24 @@ FLIGHT_DIGEST = Msg(
     pieces=F(list), events=F(list), clock=F(list),
 )
 
+# The previous announce's round trip, bracketing the scheduler's echoed
+# ``sched_wall``: the pod lens's clock alignment of this host.
+CLOCK_SAMPLE = Msg(
+    "ClockSample",
+    t0=F(float, required=True), t1=F(float, required=True),
+    echo=F(float, required=True),
+)
+
 UNARY: dict[str, Msg] = {
+    # The scheduler's host registry: the announcer's periodic announce and
+    # its leave at the daemon's stop.
+    "Scheduler.AnnounceHost": Msg(
+        "AnnounceHost",
+        id=F(str, required=True), hostname=F(str), ip=F(str), port=F(int),
+        upload_port=F(int), type=F(int), idc=F(str), location=F(str),
+        tpu_slice=F(str), tpu_worker_index=F(int), telemetry=F(dict),
+        clock=F(dict, spec=CLOCK_SAMPLE)),
+    "Scheduler.LeaveHost": Msg("LeaveHost", id=F(str, required=True)),
     # The scheduler's merged cross-host timeline, which Daemon.PodTimeline
     # proxies.
     "Scheduler.PodTimeline": Msg(

@@ -120,6 +120,23 @@ class ResourceClient(abc.ABC):
 class Registry:
     def __init__(self):
         self._clients: dict[str, ResourceClient] = {}
+        self._retains = 0
+        self._close_when_idle = False
+
+    def retain(self) -> "Registry":
+        """A user with streams in flight (a running daemon) takes a
+        reference; the clients' pooled connections close only when the
+        last user releases and a stopping user asked for it."""
+        self._retains += 1
+        return self
+
+    async def release(self, *, close_when_idle: bool = False) -> None:
+        if close_when_idle:
+            self._close_when_idle = True
+        self._retains = max(0, self._retains - 1)
+        if self._retains == 0 and self._close_when_idle:
+            self._close_when_idle = False
+            await self.close_all()
 
     def register(self, scheme: str, client: ResourceClient) -> None:
         self._clients[scheme.lower()] = client

@@ -3,9 +3,10 @@ GC: the port's copy of ``dragonfly2_tpu/storage/manager.py``.
 
 The stores live at ``<data_dir>/tasks/<task_id[:3]>/<task_id>``, as the
 JAX package lays them out, so either package's ``reload`` restores the
-other's. The port has no upload server yet, so it has no serving-index
-observer, and no daemon loop that calls ``gc`` on a timer, so it has no
-GC interval and ``gc`` closes no idle data-file descriptors.
+other's. ``gc`` (the daemon runs it every ``gc_interval``) also closes
+the data-file descriptor of a store idle longer than ``fd_idle_close``
+(``gc_interval`` when 0); the store reopens it at its next read. Not
+ported: the serving-index observer of the JAX native upload server.
 """
 
 from __future__ import annotations
@@ -30,6 +31,10 @@ class StorageOption:
     data_dir: str
     task_ttl: float = 3 * 60 * 60.0          # reference DataExpireTime default
     disk_gc_threshold: int = 0               # bytes; 0 = unlimited
+    gc_interval: float = 60.0
+    # Idle seconds before an un-expired store drops its data-file fd (lazily
+    # reopened). 0 = follow gc_interval.
+    fd_idle_close: float = 0.0
 
 
 class StorageManager:
@@ -139,6 +144,11 @@ class StorageManager:
                 self.delete_task(task_id)
                 reclaimed.append(task_id)
                 continue
+            # Without this a long-lived daemon holds one fd per task it
+            # ever served until the task's TTL delete.
+            idle_close = self.opt.fd_idle_close or self.opt.gc_interval
+            if now - m.last_access > idle_close:
+                store.close()
         if self.opt.disk_gc_threshold > 0:
             usage = sum(s.disk_usage() for s in self._stores.values())
             if usage > self.opt.disk_gc_threshold:

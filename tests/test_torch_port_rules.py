@@ -206,6 +206,212 @@ def test_the_p2p_half_imports_without_msgpack_or_aiohttp():
         ("aiohttp", "msgpack"))] == []
 
 
+def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
+    """The daemon and its new services (config, announcer, transport, the
+    object gateway and its ``fs`` backend, ``/metrics``) import none of
+    the JAX side, ``aiohttp`` or ``msgpack`` (the card machine has
+    neither), nor ``yaml`` or ``psutil`` (not known to be there: the
+    config reads YAML through a lazy import, the announcer's telemetry
+    comes from the standard library); and with none of the last four
+    importable a daemon still builds, starts with its gateway and stops."""
+    code = ("import asyncio, json, sys, tempfile\n"
+            "import dragonfly2_tpu_torch.daemon.daemon\n"
+            "import dragonfly2_tpu_torch.daemon.objectstorage\n"
+            "import dragonfly2_tpu_torch.pkg.metrics_server\n"
+            "import dragonfly2_tpu_torch.pkg.objectstorage.fs\n"
+            "loaded = sorted(sys.modules)\n"
+            "for m in ('aiohttp', 'msgpack', 'yaml', 'psutil'):\n"
+            "    sys.modules[m] = None\n"
+            "from dragonfly2_tpu_torch.daemon.config import DaemonConfig\n"
+            "from dragonfly2_tpu_torch.daemon.daemon import Daemon\n"
+            "home = tempfile.mkdtemp()\n"
+            "cfg = DaemonConfig.from_dict({'work_home': home, 'host': {\n"
+            "    'hostname': 'h', 'ip': '127.0.0.1'}, 'metrics_port': 0,\n"
+            "    'object_storage': {'enabled': True, 'backend_options': {\n"
+            "        'root': home + '/b'}}, 'tpu_sink': {'enabled': True}})\n"
+            "async def main():\n"
+            "    d = Daemon(cfg, device='cpu')\n"
+            "    await d.start()\n"
+            "    await d.stop()\n"
+            "asyncio.run(main())\n"
+            "print(json.dumps(loaded))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.daemon.announcer",
+            "dragonfly2_tpu_torch.daemon.config",
+            "dragonfly2_tpu_torch.daemon.transport",
+            "dragonfly2_tpu_torch.pkg.httpserver"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
+        "aiohttp", "msgpack", "yaml", "psutil")] == []
+
+
+def _top_level_imports(tree: ast.Module) -> list[str]:
+    """Modules imported where a module's import runs them: its body and
+    the ``if``/``try``/``with`` blocks in it, not functions or classes."""
+    out, todo = [], list(tree.body)
+    while todo:
+        node = todo.pop()
+        if isinstance(node, ast.Import):
+            out += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            out.append(node.module)
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                todo += getattr(node, field, [])
+        elif isinstance(node, ast.ExceptHandler):
+            todo += node.body
+    return out
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_yaml_or_psutil_at_module_level(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    assert [n for n in _top_level_imports(tree)
+            if n.split(".")[0] in ("yaml", "psutil")] == []
+
+
+def test_the_daemons_http_servers_name_their_threads(run_async, tmp_path):
+    """The upload server's, the gateway's and ``/metrics``' accept and
+    connection threads carry ``df-`` names, and none is left after their
+    close."""
+    import asyncio
+    import http.client
+
+    from dragonfly2_tpu_torch.daemon.objectstorage import ObjectStorageService
+    from dragonfly2_tpu_torch.daemon.upload import UploadManager
+    from dragonfly2_tpu_torch.pkg.metrics_server import MetricsServer
+    from dragonfly2_tpu_torch.pkg.objectstorage.fs import FSObjectStorage
+
+    def get(port: int, path: str) -> set:
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        c.request("GET", path)
+        c.getresponse().read()
+        names = {t.name for t in threading.enumerate()}
+        c.close()
+        return names
+
+    async def run():
+        gw = ObjectStorageService(FSObjectStorage(str(tmp_path)), None)
+        ms = MetricsServer()
+        up = UploadManager(None)
+        gport = await gw.serve("127.0.0.1", 0)
+        mport = await ms.serve("127.0.0.1", 0)
+        uport = up.serve("127.0.0.1", 0)
+        loop = asyncio.get_running_loop()
+        try:
+            names = await loop.run_in_executor(None, get, gport, "/healthy")
+            names |= await loop.run_in_executor(None, get, mport, "/metrics")
+            names |= await loop.run_in_executor(None, get, uport, "/healthy")
+        finally:
+            await gw.close()
+            await ms.close()
+            await loop.run_in_executor(None, up.close)
+        servers = {f"df-{n}{s}" for n in ("gateway", "metrics", "upload")
+                   for s in ("", "-accept")}
+        assert servers <= names
+        left = {t.name for t in threading.enumerate()}
+        assert not left & servers
+
+    run_async(run())
+
+
+def test_the_intended_divergences_of_the_daemon(run_async, tmp_path):
+    """What the daemon slice leaves out, pinned: the gateway adopts no
+    ``traceparent`` (no tracing in the port); ``/metrics`` has no
+    ``/debug`` routes; ``prof.enabled`` (the default) installs no runtime
+    observatory; ``fs`` is the only object-storage backend; the
+    announcer's telemetry is the JAX keys from the standard library; the
+    transport has no proxy half (rules, default tag, ``should_use_p2p``)
+    until the proxy is ported, and the GC runner no ``run`` that nothing
+    calls."""
+    import asyncio
+    import http.client
+    import inspect
+
+    from dragonfly2_tpu.daemon import announcer as jannouncer
+    from dragonfly2_tpu.daemon import objectstorage as jgateway
+    from dragonfly2_tpu.daemon import transport as jtransport
+    from dragonfly2_tpu.pkg import cache as jcache
+    from dragonfly2_tpu.pkg import metrics_server as jms
+    from dragonfly2_tpu_torch.daemon import announcer as pannouncer
+    from dragonfly2_tpu_torch.daemon import objectstorage as pgateway
+    from dragonfly2_tpu_torch.daemon import transport as ptransport
+    from dragonfly2_tpu_torch.pkg import cache as pcache
+    from dragonfly2_tpu_torch.daemon.config import DaemonConfig
+    from dragonfly2_tpu_torch.daemon.daemon import Daemon
+    from dragonfly2_tpu_torch.pkg import metrics_server as pms
+    from dragonfly2_tpu_torch.pkg.objectstorage import NOT_PORTED
+
+    assert hasattr(jgateway, "tracing") and not hasattr(pgateway, "tracing")
+    with open(pgateway.__file__) as f:
+        assert "tracing." not in f.read()
+    assert jms.MetricsServer.debug_routes()
+    assert pms.MetricsServer.ROUTES == ("/metrics", "/healthy")
+    assert not hasattr(pms.MetricsServer, "debug_routes")
+    assert NOT_PORTED == ("s3", "gcs", "oss", "obs")
+    import importlib.util
+    for name in NOT_PORTED:
+        # The JAX package has each of these backends; the port none.
+        assert importlib.util.find_spec(
+            f"dragonfly2_tpu.pkg.objectstorage.{name}") is not None
+        assert importlib.util.find_spec(
+            f"dragonfly2_tpu_torch.pkg.objectstorage.{name}") is None
+    assert hasattr(jannouncer, "psutil") and not hasattr(pannouncer,
+                                                         "psutil")
+    for name in ("ProxyRule", "rules_from_config", "HDR_NO_P2P"):
+        assert hasattr(jtransport, name) and not hasattr(ptransport, name)
+    assert hasattr(jtransport.P2PTransport, "should_use_p2p")
+    assert not hasattr(ptransport.P2PTransport, "should_use_p2p")
+    assert set(inspect.signature(jtransport.P2PTransport).parameters) - set(
+        inspect.signature(ptransport.P2PTransport).parameters) == {
+        "rules", "default_tag"}
+    assert hasattr(jcache.GC, "run") and not hasattr(pcache.GC, "run")
+
+    def get(port: int, path: str) -> int:
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        try:
+            c.request("GET", path, headers={
+                "traceparent": "00-" + "1" * 32 + "-" + "2" * 16 + "-01"})
+            r = c.getresponse()
+            r.read()
+            return r.status, r.getheader("traceparent")
+        finally:
+            c.close()
+
+    async def run():
+        cfg = DaemonConfig.from_dict({
+            "work_home": str(tmp_path), "metrics_port": 0,
+            "host": {"hostname": "h", "ip": "127.0.0.1"},
+            "object_storage": {"enabled": True, "backend_options": {
+                "root": str(tmp_path / "b")}}})
+        assert cfg.prof.enabled
+        d = Daemon(cfg, device="cpu")
+        await d.start()
+        loop = asyncio.get_running_loop()
+        try:
+            assert not hasattr(d, "prof_obs")
+            assert d.task_manager.flight.runtime is None
+            assert await loop.run_in_executor(
+                None, get, d.metrics.port, "/debug/stacks") == (404, None)
+            assert await loop.run_in_executor(
+                None, get, d.object_storage.port, "/healthy") == (200, None)
+        finally:
+            await d.stop()
+        jd = jannouncer.Announcer.host_wire.__code__.co_names
+        assert "_telemetry" in jd
+        keys = set(pannouncer.Announcer(cfg, None, peer_port=1,
+                                        upload_port=2)._telemetry())
+        assert keys == set(jannouncer.Announcer._telemetry()) == {
+            "cpu_percent", "mem_percent", "disk_free"}
+
+    run_async(run())
+
+
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_sources_import_no_msgpack(path):
@@ -222,8 +428,8 @@ def test_sources_import_no_msgpack(path):
 
 def test_the_intended_divergences_of_the_p2p_half():
     """What the P2P half leaves out, pinned: no QoS gate in the conductor
-    (its worker count and report batch are constants until the daemon's
-    config); no native piece fetch, no native upload server and no native
+    (its worker count and report batch come from the daemon's config, the
+    old constants their defaults); no native piece fetch, no native upload server and no native
     report decoder (``report_backend()`` is ``"numpy"``); no TLS on the
     drpc client and server or the upload server; ``stamp_running`` kept
     with no caller. What it has as the JAX half does: the flight recorder
@@ -256,13 +462,17 @@ def test_the_intended_divergences_of_the_p2p_half():
     def params(fn) -> set:
         return set(inspect.signature(fn).parameters)
 
-    # The QoS gate, the worker count and the report batch come from the
-    # daemon's config in JAX; the port has none yet, so there is no gate
-    # and the two are fixed. The seed flag comes from the request (a seed
-    # trigger) in both, and so do the flight and the quarantine (the task
-    # manager's).
+    # The QoS gate comes from the daemon's config in JAX; the port has no
+    # QoS plane, so there is no gate. The worker count and the report
+    # batch come from the config in both, with the same defaults. The seed
+    # flag comes from the request (a seed trigger) or the config in both,
+    # and so do the flight and the quarantine (the task manager's).
     assert params(jcond.PeerTaskConductor) - params(pcond.PeerTaskConductor) \
-        == {"wfq", "piece_parallelism", "report_batch"}
+        == {"wfq"}
+    for name, default in (("piece_parallelism", 4), ("report_batch", 32)):
+        assert inspect.signature(pcond.PeerTaskConductor).parameters[
+            name].default == inspect.signature(
+                jcond.PeerTaskConductor).parameters[name].default == default
     assert (pcond.PIECE_WORKERS, pcond.REPORT_BATCH) == (4, 32)
     assert {"is_seed", "quarantine", "flight"} <= params(
         pcond.PeerTaskConductor)
@@ -346,11 +556,13 @@ def test_the_intended_divergences_of_the_p2p_half():
         assert set(port._stream) == set(jax._stream)
         assert set(port._unary) == set(jax._unary)
     # The port's wire schemas are the JAX ones of the methods it serves,
-    # and of the scheduler method Daemon.PodTimeline proxies.
+    # of the scheduler method Daemon.PodTimeline proxies and of the host
+    # announcements its announcer sends.
     methods = set(served.peer_server._unary) | set(
         served.download_server._unary)
     assert set(pwire.UNARY) == (methods & set(jwire.UNARY)) | {
-        "Scheduler.PodTimeline"}
+        "Scheduler.PodTimeline", "Scheduler.AnnounceHost",
+        "Scheduler.LeaveHost"}
     assert set(pwire.STREAM_OPEN) == (set(served.peer_server._stream) | set(
         served.download_server._stream)) & set(jwire.STREAM_OPEN)
     assert set(pwire.STREAM_MSGS) == {"Scheduler.AnnouncePeer"}

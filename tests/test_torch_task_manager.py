@@ -531,8 +531,8 @@ def test_the_task_manager_keeps_its_threads_named(run_async, tmp_path):
 
 
 def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
-    """What the port's task manager leaves out or adds, pinned: no
-    traffic-shaper options until a daemon loop drives the shaper; PEX and
+    """What the port's task manager leaves out or adds, pinned: the
+    traffic shaper's options as in JAX (the daemon drives its loop); PEX and
     the flight recorder as the JAX task manager has them (the same flight
     events in the task manager and the delta engine, but the PEX pull's
     ``EV_LANDED`` of each piece, which the JAX one leaves out; a PEX
@@ -541,8 +541,9 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
     ``device=`` (where a base manifest is built) and keeps its time split
     in ``delta_timings``; no native-transport commit (``record_piece``,
     ``data_fd``) or serving observer in the store (its certification came
-    with the P2P half); no GC interval or idle-fd close until a GC loop
-    exists; no unused option fields."""
+    with the P2P half); the GC interval and idle-fd close of the JAX
+    storage options (the daemon's GC loop runs ``gc``), but not its
+    ``keep_storage``, which nothing reads; no unused option fields."""
     import dataclasses
     import inspect
     import re
@@ -562,16 +563,14 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
 
     j = params(JTM)
     p = params(PTM)
-    assert p < j
-    assert j - p == {"total_rate_limit", "traffic_shaper"}
+    assert p == j
     for name in ("start_stream_task", "start_seed_task", "start_delta_task",
                  "_maybe_prefetch", "_run_background_download",
                  "_finalize_device_for_seed", "_persistent_call",
                  "_import_local", "_stream_ordered", "_stream_from_store",
                  "_pex_download", "_pex_announce"):
         assert hasattr(JTM, name) and hasattr(PTM, name), name
-    assert params(PTM._pex_download) == params(JTM._pex_download) - {
-        "limiter"}
+    assert params(PTM._pex_download) == params(JTM._pex_download)
     assert params(PTM.start_delta_task) - params(JTM.start_delta_task) \
         == {"device"}
     # Options nothing sets are the JAX package's alone: the port's chunk
@@ -606,8 +605,10 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
     jax, port = _managers(tmp_path)
     assert port.delta_timings == {} and port.delta_stats == {}
     assert not hasattr(jax, "delta_timings")
-    # The traffic shaper is not wired; the quarantine is one a daemon.
-    assert hasattr(jax, "shaper") and not hasattr(port, "shaper")
+    # The traffic shaper is wired as in JAX; the quarantine is one a
+    # daemon.
+    assert (port.shaper.algorithm, port.shaper.total_rate) == (
+        jax.shaper.algorithm, jax.shaper.total_rate)
     assert isinstance(port.quarantine, ParentQuarantine)
     assert port.pex is None and jax.pex is None
     for name in ("record_piece", "data_fd"):
@@ -619,8 +620,7 @@ def test_the_intended_divergences_from_the_jax_daemon(tmp_path):
     def fields(cls) -> set:
         return {f.name for f in dataclasses.fields(cls)}
 
-    assert fields(JOpt) - fields(POpt) == {"keep_storage", "gc_interval",
-                                           "fd_idle_close"}
+    assert fields(JOpt) - fields(POpt) == {"keep_storage"}
     assert fields(JPMOption) - fields(PPMOption) == {"compute_digest",
                                                     "chunk_size"}
 
