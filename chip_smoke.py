@@ -65,7 +65,14 @@
    the bytes the parent served, the reports the scheduler saw (packed
    batches decoded, every piece with its digest, the pieces' timings
    rolled up by host in a ``PodAggregator``, the terminal message's
-   flight digest) and the digest store against the shard's sha256; then
+   flight digest) and the digest store against the shard's sha256, the
+   parent's upload server accounting the bytes it served by tenant in
+   unlimited ``TenantBuckets``; then, the child's stores removed, a fresh
+   child whose piece workers pass a ``WFQGate`` of 2 x the parent
+   concurrency pulls the shard as the tenant ``trainer``
+   (``Daemon.Download``, ``device: "tpu"``; ``p2p_qos``): every byte, the
+   gate's grants by class, its ``land_s`` beside the first pull's, and
+   each pull's bytes by tenant equal to the shard; then
    pulls the shard over PEX with no scheduler anywhere (``pex``: a holder
    daemon in a process of its own gossips its task over UDP with a shared
    secret; the child's ``TaskManager`` finds it with a ``PeerExchange``
@@ -135,7 +142,22 @@
    into ``DeviceFeed`` (``dfdaemon_epoch``, one K2 a batch), and
    ``stop()``: the stand-in scheduler saw the host's announces (with a
    clock sample) and its leave, the GC loop ran and reclaimed no live
-   store, the sinks closed;
+   store, the sinks closed; then the port's ``Daemon`` as a registry
+   mirror and an intercepting proxy (``proxy``: ``proxy.enabled`` with
+   ``hijack_https`` for the registry's host and its ephemeral port
+   white-listed, ``qos.enabled``) in front of a stand-in HTTPS registry
+   in a process of its own (``StandInRegistry``: ``http.server`` and
+   ``ssl``, its leaf forged by a second ``CertAuthority``, trusted
+   through ``DRAGONFLY_SSL_CA_FILE``) serving the shard as a blob and a
+   JSON manifest: the blob through the mirror (plaintext to the client,
+   TLS to the registry, back-to-source into the store), the blob again
+   through a hijacked CONNECT trusting only the daemon's CA (no registry
+   request: ``sendfile`` off the store through TLS), a Range inside the
+   tunnel (206, the exact bytes), the manifest passed through
+   (``via="direct"``), each sha256 held to the shard's; then
+   ``Daemon.Download`` of the blob's registry URL with ``device: "tpu"``
+   off the proxy-filled store (no registry request), the verified buffer
+   gated by K1 and held to every byte;
 6. spreads the main path's verified sink over a device mesh (the
    ``mesh`` path, a world of one rank over NCCL: the card holds one
    GPU): ``initialize_distributed`` with explicit arguments,
@@ -174,7 +196,7 @@
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
     gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again,
-    dfdaemon, dfdaemon_epoch),
+    dfdaemon, dfdaemon_epoch, p2p_qos, proxy),
     prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
@@ -191,12 +213,15 @@ import contextlib
 import ctypes
 import dataclasses
 import hashlib
+import http.client
 import io
 import json
 import mmap
 import multiprocessing
 import os
+import re
 import shutil
+import ssl
 import sys
 import tarfile
 import tempfile
@@ -238,7 +263,11 @@ from dragonfly2_tpu_torch.daemon.peer.piece_manager import (
     PieceManager,
     PieceManagerOption,
 )
-from dragonfly2_tpu_torch.daemon.peer.conductor import conductor_factory
+from dragonfly2_tpu_torch.daemon.peer.conductor import (
+    PIECE_WORKERS,
+    conductor_factory,
+)
+from dragonfly2_tpu_torch.daemon.proxy import PROXY_BYTES, PROXY_REQUESTS
 from dragonfly2_tpu_torch.daemon.peer.task_manager import (
     COMPLETION_REHASH,
     SEED_DEVICE_FAILURES,
@@ -283,6 +312,7 @@ from dragonfly2_tpu_torch.ops.safetensors import load_from_sink
 from dragonfly2_tpu_torch.parallel import ici, multihost
 from dragonfly2_tpu_torch.daemon.pex import PeerExchange
 from dragonfly2_tpu_torch.pkg import flight, idgen
+from dragonfly2_tpu_torch.pkg.certify import CertAuthority
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import (
     Range,
@@ -293,6 +323,8 @@ from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
 from dragonfly2_tpu_torch.pkg.types import NetAddr
 from dragonfly2_tpu_torch.proto import reportcodec, wire
 from dragonfly2_tpu_torch.proto.common import UrlMeta
+from dragonfly2_tpu_torch.qos import TenantBuckets, WFQGate
+from dragonfly2_tpu_torch.qos.wfq import GRANTS, TENANT_UPLOAD_BYTES
 from dragonfly2_tpu_torch.rpc import Client, Server
 from dragonfly2_tpu_torch.storage import StorageManager, StorageOption
 
@@ -2176,13 +2208,15 @@ class StandInDaemon:
     ``TaskManager`` over them (the process-wide flight recorder, its own
     quarantine); with ``scheduler`` (an address), a ``SchedulerClient`` on
     it and the port's conductor factory over the task manager (each
-    conductor built is kept in ``conductors``), else no scheduler; with
-    ``pex``, a ``PeerExchange`` the caller starts. ``serve_download()``
+    conductor built is kept in ``conductors``, each gated by ``wfq`` when
+    given), else no scheduler; with ``pex``, a ``PeerExchange`` the caller
+    starts. ``serve_download()``
     serves its download service (``DaemonRpcServer``) on loopback and
     gives a drpc client to it."""
 
     def __init__(self, data_dir: str, device: torch.device,
-                 scheduler: str = "", pex: PeerExchange | None = None):
+                 scheduler: str = "", pex: PeerExchange | None = None,
+                 wfq: WFQGate | None = None):
         self.storage = StorageManager(StorageOption(data_dir=data_dir))
         self.storage.reload()
         self.piece_manager = PieceManager(PieceManagerOption(),
@@ -2203,7 +2237,7 @@ class StandInDaemon:
                 scheduler_client=self.scheduler_client,
                 piece_manager=self.piece_manager,
                 host_wire=lambda: host_record("chip-child"),
-                task_manager=self.task_manager)
+                task_manager=self.task_manager, wfq=wfq)
 
             def factory(**kw):
                 self.conductors.append(make(**kw))
@@ -2720,11 +2754,18 @@ class StandInScheduler:
         return out
 
 
+# The tenants the p2p phase's pulls carry: the first two untagged, the
+# gated pull's a trainer's.
+P2P_TENANTS = ("default", "trainer")
+
+
 class P2PParentDaemon:
     """The parent's daemon: the port's ``StorageManager``, ``PieceManager``
     and ``TaskManager`` (no scheduler: it fetches back-to-source), its
-    ``UploadManager`` and ``DaemonRpcServer``, and the stand-in scheduler
-    over its storage; with ``pex_secret``, a ``PeerExchange`` on loopback
+    ``UploadManager`` (with unlimited tenant buckets, which account the
+    bytes served by tenant) and ``DaemonRpcServer``, and the stand-in
+    scheduler over its storage; with ``pex_secret``, a ``PeerExchange`` on
+    loopback
     sealed with it (started before the fetches, so each completed task is
     gossiped)."""
 
@@ -2733,7 +2774,10 @@ class P2PParentDaemon:
         self.task_manager = TaskManager(
             self.storage, PieceManager(PieceManagerOption(),
                                        limiter=Limiter()))
-        self.upload = UploadManager(self.storage)
+        # Unlimited tenant buckets: pure accounting of the bytes served
+        # by tenant (peer_upload_bytes_total{tenant}).
+        self.upload = UploadManager(self.storage,
+                                    qos_buckets=TenantBuckets())
         upload_port = self.upload.serve(P2P_HOST)
         self.rpc = DaemonRpcServer(self.task_manager)
         await self.rpc.serve_peer(NetAddr.tcp(P2P_HOST, 0))
@@ -2804,6 +2848,8 @@ def _p2p_parent(conn, path: str, data_dir: str, sha: str,
             conn.send({"origin": gw.requests(),
                        "upload_bytes": UPLOAD_BYTES.value(),
                        "upload_requests": UPLOAD_REQUESTS.value("ok"),
+                       "tenant_bytes": {t: TENANT_UPLOAD_BYTES.value(t)
+                                        for t in P2P_TENANTS},
                        "scheduler": scheduler,
                        "cpu_s": time.process_time()})
     finally:
@@ -2894,6 +2940,9 @@ async def _p2p_requests(d: StandInDaemon, url: str, sha: str,
             "upload_bytes": after["upload_bytes"] - before["upload_bytes"],
             "upload_requests": after["upload_requests"]
             - before["upload_requests"],
+            "tenant_bytes": {t: after["tenant_bytes"][t]
+                             - before["tenant_bytes"][t]
+                             for t in P2P_TENANTS},
             "scheduler": after["scheduler"].get(result.task_id, {}),
             "rehash": {"skipped": COMPLETION_REHASH.value("skipped")
                        - rehash[0],
@@ -2918,6 +2967,64 @@ async def _p2p_requests(d: StandInDaemon, url: str, sha: str,
     return out
 
 
+async def _p2p_gated(d: StandInDaemon, url: str, parent: P2PParent,
+                     host: torch.Tensor, gate: WFQGate, device) -> dict:
+    """The gated pull: ``Daemon.Download`` (``device: "tpu"``) with the
+    tenant ``trainer`` from a fresh child whose piece workers pass the
+    QoS gate; the verified buffer taken from the sink manager, gated by K1
+    and held to every byte."""
+    sinks = d.device_sinks
+    cli = await d.serve_download()
+    task_id = FileTaskRequest(url=url, output="").task_id()
+    try:
+        await asyncio.sleep(0)
+        sinks.reset()
+        before = parent.stats()
+        grants = {c: GRANTS.value(c) for c in ("interactive", "normal",
+                                              "background")}
+        _sync(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        stream = await cli.open_stream("Daemon.Download", {
+            "url": url, "device": "tpu", "meta": {"tenant": "trainer"}})
+        frames = []
+        while (msg := await stream.recv(timeout=600.0)) is not None:
+            frames.append(msg)
+        last = frames[-1]
+        if (last["state"] != "done" or not last["from_p2p"]
+                or not last["device_verified"]):
+            raise AssertionError(f"p2p gated: the download ended {last}")
+        sink = sinks.take(task_id)
+        u8 = sink.as_bytes_array()
+        verify_u8_against_host(u8, sink.sink.piece_size,
+                               sink.sink.host_checksums)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        launches = checksum.launch_counts()
+        equal = bool(torch.equal(u8, host))
+        after = parent.stats(task_id)
+        out = {"task_id": task_id, "bytes": int(u8.numel()), "equal": equal,
+               "wall_s": wall, "launches": launches,
+               "land_s": sinks.finalized - sinks.first,
+               "sink_busy_s": sinks.busy_s - sinks.busy_from,
+               "grants": {c: GRANTS.value(c) - n for c, n in grants.items()},
+               "gate_active": gate.active, "gate_capacity": gate.capacity,
+               "conductors": len(d.conductors),
+               "tenant": d.conductors[-1].tenant if d.conductors else "",
+               "origin": _origin_delta(before["origin"], after["origin"]),
+               "upload_bytes": after["upload_bytes"] - before["upload_bytes"],
+               "tenant_bytes": {t: after["tenant_bytes"][t]
+                                - before["tenant_bytes"][t]
+                                for t in P2P_TENANTS},
+               "parent_cpu_s": after["cpu_s"] - before["cpu_s"]}
+        sink = u8 = None
+        return out
+    finally:
+        await cli.close()
+        await d.rpc.close()
+        await d.scheduler_client.close()
+
+
 def phase_p2p(content: np.ndarray, spans: dict, layout,
               device: torch.device) -> dict:
     """The shard pulled from a parent on this host, in a process of its
@@ -2928,7 +3035,12 @@ def phase_p2p(content: np.ndarray, spans: dict, layout,
     origin request, the bytes the parent served, the reports the
     scheduler saw, each request's launches, the digest request's skipped
     re-hash, and (after the timed window) that store's digest against the
-    shard's sha256."""
+    shard's sha256. Then the first child's stores go, and a fresh child
+    whose piece workers pass a ``WFQGate`` of 2 x the parent concurrency
+    pulls the shard again as the tenant ``trainer`` (``gated``): every
+    byte, its launches, the gate's grants, and the parent's bytes served
+    by tenant (its upload server accounts them in unlimited
+    ``TenantBuckets``), each pull's tenant the content's size."""
     tmp = tempfile.mkdtemp(prefix="df-chip-p2p-")
     parent = d = None
     try:
@@ -2993,12 +3105,46 @@ def phase_p2p(content: np.ndarray, spans: dict, layout,
         validate_s = time.perf_counter() - t0
         if got != sha or store.metadata.digest != sha:
             raise AssertionError(f"p2p digest: the child's store holds {got}")
+        for what in ("plain", "digest"):
+            if out[what]["tenant_bytes"] != {"default": content.size,
+                                             "trainer": 0}:
+                raise AssertionError(f"p2p {what}: the parent served by "
+                                     f"tenant {out[what]['tenant_bytes']}")
         launches = {k: sum(out[w]["launches"][k] for w in ("plain", "digest"))
                     for k in out["plain"]["launches"]}
+
+        # The gated pull, from a fresh child: the first one's stores go.
+        store = None
+        d.close()
+        d = None
+        shutil.rmtree(os.path.join(tmp, "child"))
+        gate = WFQGate(2 * PIECE_WORKERS)
+        d = StandInDaemon(os.path.join(tmp, "child2"), device,
+                          scheduler=info["scheduler"], wfq=gate)
+        host = torch.from_numpy(content).to(device)
+        gated = asyncio.run(_p2p_gated(d, info["url"], parent, host, gate,
+                                       device))
+        del host
+        if not gated["equal"] or gated["bytes"] != content.size:
+            raise AssertionError(f"p2p gated: landed bytes differ {gated}")
+        if (gated["origin"] or gated["upload_bytes"] != content.size
+                or gated["tenant_bytes"] != {"default": 0,
+                                             "trainer": content.size}
+                or gated["tenant"] != "trainer"):
+            raise AssertionError(f"p2p gated: the parent saw {gated}")
+        if (gated["gate_active"] != 0 or gated["grants"]["normal"] < 1
+                or gated["grants"]["interactive"]
+                or gated["grants"]["background"]):
+            raise AssertionError(f"p2p gated: the gate {gated}")
+        if _on_card(device) and gated["launches"] != {
+                "chunk_checksums": 2, "land_and_checksum": k2,
+                "gear_candidates": 0}:
+            raise AssertionError(f"p2p gated: launches {gated['launches']}, "
+                                 f"want K1 2, K2 {k2}")
         return {**out, "launches": launches, "sha256": sha,
                 "validated": got, "validate_s": validate_s,
                 "parent_fetch_s": info["fetch_s"], "pieces": n_pieces,
-                "want_k2": 2 * k2}
+                "want_k2": 2 * k2, "gated": gated}
     finally:
         if d is not None:
             d.close()
@@ -3923,6 +4069,408 @@ def phase_dfdaemon(root: str, content: np.ndarray, spans: dict, layout,
 
 
 # --------------------------------------------------------------------- #
+# The proxy: the port's Daemon as a registry mirror and an intercepting
+# proxy in front of a stand-in HTTPS registry. Mirror pull -> Proxy ->
+# P2PTransport -> stream task (back-to-source over TLS) -> the store; the
+# hijacked pull: CONNECT -> start_tls with a forged leaf -> sendfile off
+# the store through TLS; the pass-through on http.client; then
+# Daemon.Download (device "tpu") off the proxy-filled store -> K2 -> K1
+# --------------------------------------------------------------------- #
+
+REGISTRY_REPO = "tpu-p2p/weights"
+
+
+class _RegistryServer(ThreadingHTTPServer):
+    """``http.server`` over TLS: each connection is wrapped, and its
+    handshake made, on its own thread."""
+
+    daemon_threads = True
+    request_queue_size = 128
+
+    def __init__(self, addr, handler, ctx: ssl.SSLContext):
+        super().__init__(addr, handler)
+        self.ctx = ctx
+        self.mu = threading.Lock()
+        self.counts: dict = {}
+
+    def finish_request(self, request, client_address):
+        try:
+            request = self.ctx.wrap_socket(request, server_side=True)
+        except (ssl.SSLError, OSError):
+            return
+        super().finish_request(request, client_address)
+
+    def count(self, path: str, n: int) -> None:
+        with self.mu:
+            c = self.counts.setdefault(path, [0, 0])
+            c[0] += 1
+            c[1] += n
+
+
+class _RegistryHandler(BaseHTTPRequestHandler):
+    """A stand-in OCI registry: one blob (the shard's file, ranged GETs
+    answered 206) and its manifest; requests and bytes counted by path."""
+
+    protocol_version = "HTTP/1.1"
+
+    def log_message(self, *args):
+        pass
+
+    def do_GET(self):
+        srv = self.server
+        if self.path == srv.manifest_path:
+            body = srv.manifest
+            self.send_response(200)
+            self.send_header("Content-Type",
+                             "application/vnd.oci.image.manifest.v1+json")
+            self.send_header("Content-Length", str(len(body)))
+            self.send_header("Docker-Content-Digest", "sha256:" +
+                             hashlib.sha256(body).hexdigest())
+            self.end_headers()
+            self.wfile.write(body)
+            srv.count(self.path, len(body))
+            return
+        if self.path != srv.blob_path:
+            self.send_error(404)
+            return
+        total = srv.size
+        start, end = 0, total - 1
+        rng = self.headers.get("Range")
+        if rng:
+            a, _, b = rng.split("=", 1)[1].partition("-")
+            start, end = int(a), min(int(b) if b else total - 1, total - 1)
+            self.send_response(206)
+            self.send_header("Content-Range", f"bytes {start}-{end}/{total}")
+        else:
+            self.send_response(200)
+        n = end - start + 1
+        self.send_header("Accept-Ranges", "bytes")
+        self.send_header("Content-Type", "application/octet-stream")
+        self.send_header("Content-Length", str(n))
+        self.end_headers()
+        buf = memoryview(bytearray(min(n, 4 << 20)))
+        sent = 0
+        try:
+            while sent < n:
+                k = os.preadv(srv.fd, [buf[:n - sent]], start + sent)
+                self.wfile.write(buf[:k])
+                sent += k
+        finally:
+            srv.count(self.path, sent)
+
+
+def _registry_child(conn, path: str, sha: str, cert_pem: bytes,
+                    key_pem: bytes) -> None:
+    """The body of ``StandInRegistry``'s process: serve the blob and its
+    manifest over TLS until told to stop; answer the request counts."""
+    ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+    with tempfile.NamedTemporaryFile(suffix=".pem") as f:
+        f.write(cert_pem + key_pem)
+        f.flush()
+        ctx.load_cert_chain(f.name)
+    srv = _RegistryServer((P2P_HOST, 0), _RegistryHandler, ctx)
+    srv.fd = os.open(path, os.O_RDONLY)
+    srv.size = os.fstat(srv.fd).st_size
+    srv.blob_path = f"/v2/{REGISTRY_REPO}/blobs/{sha}"
+    srv.manifest_path = f"/v2/{REGISTRY_REPO}/manifests/latest"
+    srv.manifest = json.dumps({
+        "schemaVersion": 2,
+        "mediaType": "application/vnd.oci.image.manifest.v1+json",
+        "layers": [{"mediaType": "application/octet-stream", "digest": sha,
+                    "size": srv.size}]}).encode()
+    thread = threading.Thread(target=srv.serve_forever,
+                              name="df-registry-accept", daemon=True)
+    thread.start()
+    try:
+        conn.send({"port": srv.server_address[1], "manifest": srv.manifest,
+                   "blob_path": srv.blob_path,
+                   "manifest_path": srv.manifest_path})
+        while True:
+            msg = conn.recv()
+            if msg[0] == "stop":
+                conn.send(None)
+                return
+            with srv.mu:
+                conn.send({p: list(c) for p, c in srv.counts.items()})
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        os.close(srv.fd)
+
+
+class StandInRegistry(StandInProcess):
+    """A stand-in HTTPS registry in a process of its own (spawned), with a
+    leaf ``cert_pem``/``key_pem`` forged by a CA of its own: the shard's
+    file as ``/v2/tpu-p2p/weights/blobs/<sha>`` and a JSON manifest as
+    ``.../manifests/latest``. ``endpoint()`` gives its port, the
+    manifest's bytes and both paths; ``requests()`` the requests and bytes
+    by path."""
+
+    def __init__(self, path: str, sha: str, cert_pem: bytes, key_pem: bytes):
+        super().__init__(None, path, sha, cert_pem, key_pem)
+
+    def start(self) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_registry_child,
+                                 args=(child, *self._args), daemon=True,
+                                 name="df-standin-registry")
+        self._proc.start()
+        child.close()
+
+
+def _pull(conn: http.client.HTTPConnection, path: str,
+          headers: dict | None = None, keep: bool = False) -> dict:
+    """One GET on ``conn``: its status, length, sha256, time to the
+    answer's head and wall time; with ``keep`` its body."""
+    t0 = time.perf_counter()
+    conn.request("GET", path, headers=headers or {})
+    resp = conn.getresponse()
+    head_s = time.perf_counter() - t0
+    h = hashlib.sha256()
+    buf = memoryview(bytearray(8 << 20))
+    n, kept = 0, []
+    while k := resp.readinto(buf):
+        h.update(buf[:k])
+        if keep:
+            kept.append(bytes(buf[:k]))
+        n += k
+    out = {"status": resp.status, "bytes": n,
+           "sha256": "sha256:" + h.hexdigest(), "head_s": head_s,
+           "wall_s": time.perf_counter() - t0,
+           "content_range": resp.getheader("Content-Range")}
+    if keep:
+        out["body"] = b"".join(kept)
+    return out
+
+
+def _vias() -> dict:
+    return {v: (PROXY_REQUESTS.value(v), PROXY_BYTES.value(v))
+            for v in ("p2p", "direct", "hijack", "tunnel")}
+
+
+def _via_delta(before: dict) -> dict:
+    now = _vias()
+    return {v: [now[v][0] - before[v][0], now[v][1] - before[v][1]]
+            for v in now if now[v] != before[v]}
+
+
+def range_window(total: int) -> tuple[int, int]:
+    """The Range asked inside the tunnel: 64 MiB + 7 B at an offset on no
+    piece or page boundary."""
+    a = total // 5 + 4321
+    return a, min(a + (64 << 20) + 6, total - 1)
+
+
+async def _proxy(root: str, content: np.ndarray, reg: StandInRegistry,
+                 info: dict, device: torch.device) -> dict:
+    sched = StandInScheduler(_NoParent(), host_record("chip-proxy-sched"))
+    addr = await sched.serve()
+    reg_url = f"https://{P2P_HOST}:{info['port']}"
+    config = DaemonConfig.from_dict({
+        "work_home": os.path.join(root, "home"),
+        "host": {"hostname": "chip-proxy", "ip": P2P_HOST},
+        "scheduler": {"addrs": [addr]},
+        "metrics_port": -1, "gc_interval": 3600,
+        "tpu_sink": {"enabled": True, "batch_pieces": BATCH_PIECES},
+        "qos": {"enabled": True},
+        # The stand-in registry's port is ephemeral: off the default
+        # white list [443, 80], its CONNECT would be refused (403).
+        "proxy": {"enabled": True, "registry_mirror": reg_url,
+                  "hijack_https": True,
+                  "hijack_hosts": [f"^{re.escape(P2P_HOST)}$"],
+                  "white_list_ports": [443, 80, info["port"]]}})
+    t0 = time.perf_counter()
+    d = Daemon(config, device=device)
+    sinks = d.task_manager.device_sinks
+    clock = SinkClock(sinks)
+    await d.start()
+    out = {"start_s": time.perf_counter() - t0}
+    port = d.proxy.port
+    blob, manifest = info["blob_path"], info["manifest_path"]
+    loop = asyncio.get_running_loop()
+    plain = http.client.HTTPConnection(P2P_HOST, port, timeout=600)
+    tunnel = http.client.HTTPSConnection(
+        P2P_HOST, port, timeout=600, context=d.proxy.ca.trust_context())
+    tunnel.set_tunnel(P2P_HOST, info["port"])
+    host = torch.from_numpy(content).to(device)
+    url = reg_url + blob
+    task_id = FileTaskRequest(url=url, output="").task_id()
+
+    async def store_done(t0: float) -> float:
+        """Seconds from ``t0`` until the blob's store is complete."""
+        while d.storage.find_completed_task(task_id) is None:
+            await asyncio.sleep(0.005)
+        return time.perf_counter() - t0
+
+    try:
+        zero_launches()
+        steps = {}
+        for what, conn, path, headers, keep in (
+                ("mirror", plain, blob, None, False),
+                ("hijack", tunnel, blob, None, False),
+                ("range", tunnel, blob, {"Range": "bytes={}-{}".format(
+                    *range_window(content.size))}, True),
+                ("direct", plain, manifest, None, True)):
+            before, vias = reg.requests(), _vias()
+            # The mirror pull's split: the back-to-source (the store
+            # complete) against the client's last byte.
+            done = (asyncio.ensure_future(store_done(time.perf_counter()))
+                    if what == "mirror" else None)
+            r = await loop.run_in_executor(None, _pull, conn, path, headers,
+                                           keep)
+            if done is not None:
+                r["store_done_s"] = await asyncio.wait_for(done, 60)
+            await asyncio.sleep(0.05)   # the proxy counts after its write
+            r["registry"] = _origin_delta(before, reg.requests())
+            r["via"] = _via_delta(vias)
+            steps[what] = r
+        out["pull_launches"] = checksum.launch_counts()
+        a, b = range_window(content.size)
+        rng = steps["range"]
+        rng["equal"] = _host_equal(rng.pop("body"), content, a) and \
+            rng["bytes"] == b - a + 1
+        man = steps["direct"]
+        man["equal"] = man.pop("body") == info["manifest"]
+        out["steps"] = steps
+
+        # Onto the card, off the store the proxy filled.
+        # The stream task's store is the file task's: one task id.
+        out["same_task"] = d.storage.find_completed_task(
+            task_id) is not None
+        cli = Client(NetAddr.unix(config.unix_sock))
+        before = reg.requests()
+        clock.reset()
+        _sync(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        try:
+            stream = await cli.open_stream("Daemon.Download", {
+                "url": url, "device": "tpu"})
+            frames = []
+            while (msg := await stream.recv(timeout=600.0)) is not None:
+                frames.append(msg)
+        finally:
+            await cli.close()
+        last = frames[-1]
+        sink = sinks.take(task_id)
+        u8 = sink.as_bytes_array()
+        verify_u8_against_host(u8, sink.sink.piece_size,
+                               sink.sink.host_checksums)
+        _sync(device)
+        wall = time.perf_counter() - t0
+        out["device"] = {
+            "answer": {k: last.get(k) for k in (
+                "state", "task_id", "content_length", "from_reuse",
+                "from_p2p", "device_verified")},
+            "wall_s": wall, "land_s": clock.finalized - clock.first,
+            "sink_busy_s": sinks.busy_s - clock.busy_from,
+            "pieces": clock.pieces, "equal": bool(torch.equal(u8, host)),
+            "launches": checksum.launch_counts(),
+            "registry": _origin_delta(before, reg.requests())}
+        sink = u8 = None
+        out["registry_total"] = reg.requests()
+    finally:
+        plain.close()
+        tunnel.close()
+        del host
+        t0 = time.perf_counter()
+        await d.stop()
+        out["stop_s"] = time.perf_counter() - t0
+        await sched.server.close()
+    return out
+
+
+def phase_proxy(root: str, content: np.ndarray, sha: str,
+                device: torch.device) -> dict:
+    """The port's ``Daemon`` as a registry mirror and an intercepting
+    proxy (``proxy.enabled``, ``hijack_https`` for the registry's host, its
+    ephemeral port white-listed; ``qos.enabled``; the device sink; the
+    stand-in scheduler with no parent) in front of ``StandInRegistry``
+    over the shard's file (``root/objects/...``, which the dfdaemon phase
+    served), its leaf forged by a second ``CertAuthority``, which the
+    daemon trusts through ``DRAGONFLY_SSL_CA_FILE``: the blob through the
+    mirror (plaintext to the client, TLS to the registry: back-to-source
+    into the store), the same blob through a hijacked CONNECT trusting
+    only the daemon's CA (no registry request: off the store by
+    ``sendfile`` through TLS), a Range inside the tunnel (206, the exact
+    bytes), the manifest passed through (``via="direct"``), then
+    ``Daemon.Download`` of the blob's registry URL with ``device: "tpu"``
+    off the proxy-filled store (no registry request): the verified buffer
+    gated by K1 and held to every byte. The caller owns ``root``."""
+    shard = os.path.join(root, "objects", GATEWAY_BUCKET, GATEWAY_KEY)
+    need = content.size + (1 << 30)      # one more store, a GiB to spare
+    free = shutil.disk_usage(root).free
+    if free < need:
+        raise RuntimeError(f"the proxy phase needs {need} B free under "
+                           f"{root}; {free} B are")
+    proxy_root = os.path.join(root, "proxy")
+    os.makedirs(proxy_root)
+    registry_ca = CertAuthority.generate(common_name="chip-registry-ca")
+    bundle = os.path.join(proxy_root, "registry-ca.pem")
+    with open(bundle, "wb") as f:
+        f.write(registry_ca.ca_cert_pem)
+    reg = StandInRegistry(shard, sha, *registry_ca.forge_leaf(P2P_HOST))
+    env = os.environ.get("DRAGONFLY_SSL_CA_FILE")
+    try:
+        reg.start()
+        info = reg.endpoint()
+        os.environ["DRAGONFLY_SSL_CA_FILE"] = bundle
+        out = asyncio.run(_proxy(proxy_root, content, reg, info, device))
+    finally:
+        if env is None:
+            os.environ.pop("DRAGONFLY_SSL_CA_FILE", None)
+        else:
+            os.environ["DRAGONFLY_SSL_CA_FILE"] = env
+        reg.close()
+        shutil.rmtree(proxy_root, ignore_errors=True)
+    n_pieces = compute_piece_count(content.size,
+                                   compute_piece_size(content.size))
+    k2 = -(-n_pieces // BATCH_PIECES)
+    steps, dev = out["steps"], out["device"]
+    blob = info["blob_path"]
+    mirror, hijack = steps["mirror"], steps["hijack"]
+    for what, r in (("mirror", mirror), ("hijack", hijack)):
+        if (r["status"], r["bytes"], r["sha256"]) != (200, content.size, sha):
+            raise AssertionError(f"proxy {what}: {r}")
+    if (blob not in mirror["registry"]
+            or mirror["registry"][blob][1] < content.size
+            or mirror["via"].get("p2p", [0])[0] != 1):
+        raise AssertionError(f"proxy mirror: {mirror}")
+    if (hijack["registry"] or hijack["via"].get("hijack", [0])[0] != 1
+            or hijack["via"].get("p2p") != [1, content.size]):
+        raise AssertionError(f"proxy hijack: {hijack}")
+    a, b = range_window(content.size)
+    rng = steps["range"]
+    if (rng["status"] != 206 or not rng["equal"] or rng["registry"]
+            or rng["content_range"] != f"bytes {a}-{b}/{content.size}"):
+        raise AssertionError(f"proxy range: {rng}")
+    man = steps["direct"]
+    if (man["status"] != 200 or not man["equal"]
+            or man["via"].get("direct", [0])[0] != 1
+            or set(man["registry"]) != {info["manifest_path"]}):
+        raise AssertionError(f"proxy pass-through: {man}")
+    answer = dev["answer"]
+    if (answer["state"] != "done" or answer["content_length"] != content.size
+            or not answer["from_reuse"] or not answer["device_verified"]
+            or not dev["equal"] or dev["registry"] or not out["same_task"]):
+        raise AssertionError(f"proxy onto the card: {dev} "
+                             f"{out['same_task']}")
+    none = {"chunk_checksums": 0, "land_and_checksum": 0,
+            "gear_candidates": 0}
+    if out["pull_launches"] != none:
+        raise AssertionError(f"proxy pulls launched {out['pull_launches']}")
+    if _on_card(device) and dev["launches"] != {
+            "chunk_checksums": 2, "land_and_checksum": k2,
+            "gear_candidates": 0}:
+        raise AssertionError(f"proxy onto the card: launches "
+                             f"{dev['launches']}, want K1 2, K2 {k2}")
+    out["launches"] = dev["launches"]
+    out["want_k2"] = k2
+    return out
+
+
+# --------------------------------------------------------------------- #
 # The entry and bench pair: entry(), the train step, the device bench
 # --------------------------------------------------------------------- #
 
@@ -4061,8 +4609,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k2_wds: int, want_k3_gateway: int,
                    want_k2_daemon: int, want_k2_p2p: int,
                    want_k2_pex: int, want_k2_seed: int,
-                   want_k2_dfdaemon: int, want_k2_dfdaemon_epoch: int
-                   ) -> None:
+                   want_k2_dfdaemon: int, want_k2_dfdaemon_epoch: int,
+                   want_k2_proxy: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -4089,7 +4637,10 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     store, no K1. The dfdaemon path: K2 once per batch as the gateway's
     prefetch lands the shard, none in the claim or the reads through the
     gateway, K1 twice in the gate after the claim; the dfdaemon_epoch
-    path: K2 once a batch of the cut epoch."""
+    path: K2 once a batch of the cut epoch. The p2p_qos path (the gated
+    pull) and the proxy path (its pulls launch nothing; the landing off
+    the proxy-filled store): K2 once per batch of the landing, K1 twice in
+    the gate after it."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -4108,7 +4659,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "daemon_delta": k(2, 0, want_k3_manifest),
             "seed": k(2, want_k2_seed), "seed_again": k(0, want_k2_seed),
             "dfdaemon": k(2, want_k2_dfdaemon),
-            "dfdaemon_epoch": k(0, want_k2_dfdaemon_epoch)}
+            "dfdaemon_epoch": k(0, want_k2_dfdaemon_epoch),
+            "p2p_qos": k(2, want_k2_proxy), "proxy": k(2, want_k2_proxy)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -4436,6 +4988,20 @@ def main(argv=None) -> int:
               f"{sched['clock_samples']} clock samples; per-host rollup "
               f"(PodAggregator): {json.dumps(sched['pod']['hosts'])}")
     print(flight_line("p2p no digest", p2p["flight"]) + f" on {smi}")
+    gt = p2p["gated"]
+    print(f"p2p gated: a fresh child with a WFQGate of "
+          f"{gt['gate_capacity']} slots pulled {gt['bytes']} B as the tenant "
+          f"{gt['tenant']} in {gt['wall_s']:.3f} s, land_s "
+          f"{gt['land_s']:.4f} s beside the ungated first pull's "
+          f"{p2p['plain']['land_s']:.4f} s "
+          f"({gt['land_s'] / p2p['plain']['land_s']:.3f}x); the gate's "
+          f"grants by class {json.dumps(gt['grants'])}; the parent's "
+          f"peer_upload_bytes_total by tenant: the first pull "
+          f"{json.dumps(p2p['plain']['tenant_bytes'])}, the sha256 pull "
+          f"{json.dumps(p2p['digest']['tenant_bytes'])}, the gated pull "
+          f"{json.dumps(gt['tenant_bytes'])}; K2 "
+          f"{gt['launches']['land_and_checksum']}, K1 "
+          f"{gt['launches']['chunk_checksums']} on {smi}")
     pex = phase_pex(content, spans, layout, device)
     torch.cuda.empty_cache()
     print("pex:", json.dumps(pex))
@@ -4551,6 +5117,8 @@ def main(argv=None) -> int:
               f"{smi}")
         dfd = phase_dfdaemon(dfd_root, content, spans, layout, args.seed,
                              LLAMA_8B["vocab"], device)
+        torch.cuda.empty_cache()
+        prx = phase_proxy(dfd_root, content, p2p["sha256"], device)
     finally:
         shutil.rmtree(dfd_root, ignore_errors=True)
     torch.cuda.empty_cache()
@@ -4582,6 +5150,35 @@ def main(argv=None) -> int:
           f"{len(dfd['gc']['reclaimed_live'])}, failed ones "
           f"{dfd['gc']['reclaimed_invalid']}) "
           f"on {smi}")
+    st, dev = prx["steps"], prx["device"]
+    print("proxy:", json.dumps(prx))
+    print(f"proxy: the port's Daemon as a registry mirror and intercepting "
+          f"proxy up in {prx['start_s']:.3f} s; the mirror pull (plaintext "
+          f"to the client, TLS to the stand-in registry, back-to-source "
+          f"into the store) {st['mirror']['bytes']} B in "
+          f"{st['mirror']['wall_s']:.3f} s "
+          f"({st['mirror']['bytes'] / st['mirror']['wall_s'] / 1e9:.3f} "
+          f"GB/s; the answer's head at {st['mirror']['head_s']:.3f} s, "
+          f"the store complete at {st['mirror']['store_done_s']:.3f} s), "
+          f"sha256 equal, the registry served "
+          f"{json.dumps(st['mirror']['registry'])}, proxy_requests_total"
+          f"{{via=\"p2p\"}} +{st['mirror']['via']['p2p'][0]}; the hijacked "
+          f"warm pull through CONNECT (TLS with a forged leaf, sendfile off "
+          f"the store) {st['hijack']['bytes']} B in "
+          f"{st['hijack']['wall_s']:.3f} s "
+          f"({st['hijack']['bytes'] / st['hijack']['wall_s'] / 1e9:.3f} "
+          f"GB/s), sha256 equal, {len(st['hijack']['registry'])} new "
+          f"registry requests; a Range in the tunnel {st['range']['status']} "
+          f"{st['range']['bytes']} B equal in {st['range']['wall_s']:.4f} s; "
+          f"the manifest passed through (via direct) in "
+          f"{st['direct']['wall_s'] * 1e3:.2f} ms; Daemon.Download onto the "
+          f"card off the proxy-filled store {dev['wall_s']:.3f} s (land_s "
+          f"{dev['land_s']:.4f} s, the sink's worker busy "
+          f"{dev['sink_busy_s']:.4f} s), from_reuse "
+          f"{dev['answer']['from_reuse']}, {len(dev['registry'])} new "
+          f"registry requests, K2 {dev['launches']['land_and_checksum']}, "
+          f"K1 {dev['launches']['chunk_checksums']}, every byte equal; stop "
+          f"{prx['stop_s']:.3f} s on {smi}")
     gwm = phase_gateway_manifest(content, base_ref, device)
     torch.cuda.empty_cache()
     k3s = k3["at_stream_chunk"]
@@ -4709,13 +5306,15 @@ def main(argv=None) -> int:
              "pex": pex["launches"],
              "daemon_delta": dd["launches"], "seed": s1["launches"],
              "seed_again": s2["launches"], "dfdaemon": dfd["launches"],
-             "dfdaemon_epoch": dfd["epoch"]["launches"]}
+             "dfdaemon_epoch": dfd["epoch"]["launches"],
+             "p2p_qos": p2p["gated"]["launches"],
+             "proxy": prx["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
                    sum(dmn["want_k2"].values()), p2p["want_k2"],
                    pex["want_k2"], seed["want_k2"], dfd["want_k2"],
-                   DFD_EPOCH_BATCHES)
+                   DFD_EPOCH_BATCHES, prx["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

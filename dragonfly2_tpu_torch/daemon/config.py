@@ -130,8 +130,11 @@ class PexOption:
 
 @dataclass
 class QoSOption:
-    """The tenant QoS plane's settings (not ported: enabling it is refused
-    by the daemon)."""
+    """The daemon's half of the tenant QoS plane (``qos/``): with
+    ``enabled``, one ``WFQGate`` of ``dispatch_capacity`` slots (0: twice
+    ``download.parent_concurrency``) in front of every task's piece
+    workers, and the upload cap split into per-tenant buckets, each at
+    least ``upload_min_share_fraction`` of it."""
 
     enabled: bool = False
     dispatch_capacity: int = 0

@@ -11,12 +11,22 @@ Construction, in the JAX order:
   GC interval and idle-descriptor close, reloaded from disk;
 - the piece manager under the download rate;
 - the scheduler client when ``scheduler.addrs`` names schedulers;
+- with ``qos.enabled``, the QoS plane (``qos/``): one ``WFQGate`` of
+  ``qos.dispatch_capacity`` slots (2 x ``download.parent_concurrency``
+  when 0) that every conductor's piece workers share, and
+  ``TenantBuckets`` splitting ``upload.rate_limit`` among the tenants the
+  upload server serves;
 - the upload server;
 - the port's ``DeviceSinkManager`` on ``device`` when ``tpu_sink.enabled``
   (a ``device: "tpu"`` request lands there on the card);
 - the ``TaskManager`` (total rate, traffic shaper, ``prefetch``), the drpc
   services (``DaemonRpcServer``, whose delta tasks build base manifests on
-  ``device``) and, when ``object_storage.enabled``, the object gateway;
+  ``device``), with ``proxy.enabled`` the forward proxy and registry
+  mirror (``daemon/proxy.py`` over a ``P2PTransport`` with the config's
+  rules; with ``hijack_https`` or ``sni_hijack`` its CA,
+  ``proxy.ca_cert``/``ca_key`` or one generated and kept under
+  ``<work_home>/ca``) and, when ``object_storage.enabled``, the object
+  gateway;
 - the GC task: the stores' GC, then the device sinks' TTL sweep, every
   ``gc_interval``.
 
@@ -25,11 +35,13 @@ of every stored piece), the traffic shaper's loop, the flight recorder's
 ``dump_dir``, ``keep_bundles`` and ``clock_offset_s``, ``/metrics`` on
 loopback at ``metrics_port`` (-1: none), the download service on
 ``unix_sock``, the peer service on ``download.peer_port`` (-1: none), the
-upload server, the gateway, PEX when enabled (gossiping every completed
-store), the announcer when there is a scheduler, and the GC loop.
+upload server, the proxy on ``proxy.port`` and, with ``sni_enabled``, its
+SNI listener on ``sni_port``, the gateway, PEX when enabled (gossiping
+every completed store), the announcer when there is a scheduler, and the
+GC loop.
 ``stop()``: the GC loop, the shaper, PEX, ``/metrics``, the announcer
-(its ``leave_host``), the scheduler client, the gateway, the upload
-server, the drpc services, the sink worker (waited for), the origin
+(its ``leave_host``), the scheduler client, the proxy, the gateway, the
+upload server, the drpc services, the sink worker (waited for), the origin
 clients' pooled connections, then the stores.
 
 The conductor gets ``download.parent_concurrency`` piece workers,
@@ -39,16 +51,16 @@ telemetry. ``download.calculate_digest`` sets nothing: the port's piece
 path always records each piece's CRC-32C, fused into the store write.
 
 Refused at construction with ``ValueError`` naming the ``ROADMAP.md``
-item, since the port does not have them yet: ``proxy.enabled`` (the
-forward proxy and registry mirror), ``qos.enabled`` (the QoS plane),
-``manager_addr`` (the manager-sourced dynconfig) and an object-storage
-backend other than ``fs``. ``prof.enabled`` (true by default) is accepted
-and no runtime observatory is installed: ``pkg/prof`` is not ported.
+item, since the port does not have them yet: ``manager_addr`` (the
+manager-sourced dynconfig) and an object-storage backend other than
+``fs``. ``prof.enabled`` (true by default) is accepted and no runtime
+observatory is installed: ``pkg/prof`` is not ported.
 """
 
 from __future__ import annotations
 
 import asyncio
+import os
 
 from dragonfly2_tpu_torch import default_device
 from dragonfly2_tpu_torch.daemon.announcer import Announcer
@@ -77,12 +89,6 @@ def refuse_unported(config: DaemonConfig) -> None:
     """Raise ValueError for a service the config enables that the port
     does not have yet; nothing goes on without it."""
     unported = []
-    if config.proxy.enabled:
-        unported.append("proxy.enabled: the forward proxy and registry "
-                        "mirror (ROADMAP A7.1 item 7, with pkg/certify and "
-                        "TLS)")
-    if config.qos.enabled:
-        unported.append("qos.enabled: the QoS plane (ROADMAP A7.1 item 7)")
     if config.manager_addr:
         unported.append("manager_addr: the manager-sourced dynconfig "
                         "(ROADMAP A7.1 item 7, after A7.2's manager client)")
@@ -125,8 +131,20 @@ class Daemon:
         self.scheduler_client: SchedulerClient | None = None
         if config.scheduler.addrs:
             self.scheduler_client = SchedulerClient(config.scheduler.addrs)
+        self.qos_gate = None
+        qos_buckets = None
+        if config.qos.enabled:
+            from dragonfly2_tpu_torch import qos as qoslib
+
+            capacity = config.qos.dispatch_capacity or (
+                2 * max(1, config.download.parent_concurrency))
+            self.qos_gate = qoslib.WFQGate(capacity)
+            qos_buckets = qoslib.TenantBuckets(
+                float(config.upload.rate_limit),
+                min_share_fraction=config.qos.upload_min_share_fraction)
         self.upload = UploadManager(self.storage,
-                                    rate_limit=config.upload.rate_limit)
+                                    rate_limit=config.upload.rate_limit,
+                                    qos_buckets=qos_buckets)
         device_sinks = None
         if config.tpu_sink.enabled:
             from dragonfly2_tpu_torch.daemon.peer.device_sink import (
@@ -156,8 +174,31 @@ class Daemon:
                 task_manager=self.task_manager,
                 piece_parallelism=config.download.parent_concurrency,
                 report_batch=config.download.report_batch,
-                seed_peer=config.seed_peer)
+                seed_peer=config.seed_peer, wfq=self.qos_gate)
         self.rpc = DaemonRpcServer(self.task_manager, device=self.device)
+        self.proxy = None
+        if config.proxy.enabled:
+            from dragonfly2_tpu_torch.daemon.proxy import Proxy
+            from dragonfly2_tpu_torch.daemon.transport import (
+                P2PTransport,
+                rules_from_config,
+            )
+
+            ca = None
+            if config.proxy.hijack_https or config.proxy.sni_hijack:
+                from dragonfly2_tpu_torch.pkg.certify import CertAuthority
+
+                ca = CertAuthority.load_or_generate(
+                    config.proxy.ca_cert, config.proxy.ca_key,
+                    persist_dir=os.path.join(config.work_home, "ca"))
+            self.proxy = Proxy(
+                P2PTransport(self.task_manager,
+                             rules=rules_from_config(config.proxy.rules)),
+                registry_mirror=config.proxy.registry_mirror,
+                max_concurrency=config.proxy.max_concurrency,
+                white_list_ports=config.proxy.white_list_ports,
+                cert_authority=ca,
+                hijack_hosts=config.proxy.hijack_hosts)
         self.object_storage = None
         if config.object_storage.enabled:
             from dragonfly2_tpu_torch.daemon.objectstorage import (
@@ -261,6 +302,12 @@ class Daemon:
             await self.rpc.serve_peer(NetAddr.tcp(
                 self.config.host.ip, self.config.download.peer_port))
         self.upload.serve(self.config.host.ip, self.config.upload.port)
+        if self.proxy is not None:
+            await self.proxy.serve(self.config.host.ip, self.config.proxy.port)
+            if self.config.proxy.sni_enabled:
+                await self.proxy.serve_sni(
+                    self.config.host.ip, self.config.proxy.sni_port,
+                    hijack=self.config.proxy.sni_hijack)
         if self.object_storage is not None:
             await self.object_storage.serve(self.config.host.ip,
                                             self.config.object_storage.port)
@@ -310,6 +357,8 @@ class Daemon:
             await self.announcer.stop()
         if self.scheduler_client is not None:
             await self.scheduler_client.close()
+        if self.proxy is not None:
+            await self.proxy.close()
         if self.object_storage is not None:
             await self.object_storage.close()
         await asyncio.to_thread(self.upload.close)

@@ -39,17 +39,19 @@ than twice the list's length; every register or reconnect answer renews
 the flag, so a failover to a scheduler without it goes back to the dict
 forms.
 
-Intended divergence from the JAX conductor: no QoS dispatch gate.
+With ``wfq`` (the daemon's ``qos.WFQGate``) every piece worker takes a
+slot of the gate, in its priority's dispatch class, for each request it
+issues.
 
 ``conductor_factory`` builds the task manager's conductor factory, as the
 JAX ``Daemon._make_conductor`` does: the daemon (``daemon/daemon.py``)
-gives it the config's worker count, report batch and ``seed_peer``.
+gives it the config's worker count, report batch, ``seed_peer`` and,
+with ``qos.enabled``, the gate.
 """
 
 from __future__ import annotations
 
 import asyncio
-import re
 from collections import deque
 
 from dragonfly2_tpu_torch.daemon.peer.piece_dispatcher import (
@@ -73,6 +75,7 @@ from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.piece import PieceInfo, Range, compute_piece_count
 from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
 from dragonfly2_tpu_torch.proto import reportcodec
+from dragonfly2_tpu_torch.qos import normalize_tenant
 from dragonfly2_tpu_torch.rpc import codec
 from dragonfly2_tpu_torch.storage.local_store import LocalTaskStore
 
@@ -112,22 +115,6 @@ REPORT_BATCH = 32
 # (availability decides the real run lengths).
 SPAN_MAX_PIECES = 8
 
-# The tenant tag every piece request carries (the JAX package's
-# qos.normalize_tenant): the safe identifier charset, "default" when empty.
-DEFAULT_TENANT = "default"
-_TENANT_RE = re.compile(r"^[A-Za-z0-9][A-Za-z0-9._-]{0,63}$")
-_TENANT_STRIP = re.compile(r"[^A-Za-z0-9._-]+")
-
-
-def normalize_tenant(tenant: str | None) -> str:
-    if not tenant:
-        return DEFAULT_TENANT
-    if _TENANT_RE.match(tenant):
-        return tenant
-    cleaned = _TENANT_STRIP.sub("", tenant)[:64].lstrip("._-")
-    return cleaned or DEFAULT_TENANT
-
-
 class PeerTaskConductor:
     def __init__(
         self,
@@ -149,6 +136,7 @@ class PeerTaskConductor:
         quarantine=None,
         flight=None,
         report_batch: int = REPORT_BATCH,
+        wfq=None,
     ):
         self.task_id = task_id
         self.peer_id = peer_id
@@ -192,6 +180,10 @@ class PeerTaskConductor:
         self.downloader = PieceDownloader()
         # Every upstream piece request carries the task's tenant tag.
         self.tenant = normalize_tenant(self.meta.get("tenant"))
+        # The daemon's QoS gate (``qos.WFQGate``), shared by every task's
+        # piece workers, or None; a request's class is its priority's.
+        self.wfq = wfq
+        self._qos_priority = int(self.meta.get("priority", 3) or 3)
         self.synchronizer: PieceTaskSynchronizer | None = None
         # This host's slice, which labels pulled bytes by parent locality.
         self.own_slice = (host_info or {}).get("tpu_slice", "") or ""
@@ -855,13 +847,28 @@ class PeerTaskConductor:
                     return
                 continue
             run = self.dispatcher.extend_run(assignment, SPAN_MAX_PIECES)
-            if len(run) > 1 and await self._download_run(run):
+            if self.wfq is None:
+                await self._dispatch_assignment(assignment, run)
                 continue
-            for extra in run[1:]:
-                # The run is ineligible: hand the reservations back and
-                # pull the head piece alone.
-                self.dispatcher.release_assignment(extra)
-            await self._download_one(assignment)
+            # The QoS gate: the assignment is held while this worker waits
+            # its DWRR turn, so the order requests go out across tasks
+            # follows the class weights. Taken after dispatcher.get(), so
+            # a worker parked in a starvation wait holds no slot.
+            await self.wfq.acquire(self._qos_priority)
+            try:
+                await self._dispatch_assignment(assignment, run)
+            finally:
+                self.wfq.release()
+
+    async def _dispatch_assignment(self, assignment: PieceAssignment,
+                                   run: list[PieceAssignment]) -> None:
+        if len(run) > 1 and await self._download_run(run):
+            return
+        for extra in run[1:]:
+            # The run is ineligible: hand the reservations back and pull
+            # the head piece alone.
+            self.dispatcher.release_assignment(extra)
+        await self._download_one(assignment)
 
     async def _landed(self, a: PieceAssignment, rec) -> None:
         p = a.parent
@@ -1091,14 +1098,15 @@ class PeerTaskConductor:
 def conductor_factory(*, scheduler_client, piece_manager, host_wire,
                       task_manager=None, piece_parallelism: int = PIECE_WORKERS,
                       report_batch: int = REPORT_BATCH,
-                      seed_peer: bool = False):
+                      seed_peer: bool = False, wfq=None):
     """The ``TaskManager``'s ``conductor_factory``, built as the JAX
     ``Daemon._make_conductor`` builds its conductors: the host record from
     ``host_wire()`` (less its telemetry), the request's metadata, ``is_seed``
     from the task (a seed trigger's) or ``seed_peer``, and the piece
-    workers and report batch given; with ``task_manager``, a ranged task's
-    import from a local parent, the task's flight from the task manager's
-    recorder and its daemon-wide quarantine."""
+    workers, report batch and QoS gate (``wfq``) given; with
+    ``task_manager``, a ranged task's import from a local parent, the
+    task's flight from the task manager's recorder and its daemon-wide
+    quarantine."""
 
     def make(*, task_id: str, peer_id: str, request, store, on_piece,
              is_seed: bool = False, limiter=None) -> PeerTaskConductor:
@@ -1130,6 +1138,7 @@ def conductor_factory(*, scheduler_client, piece_manager, host_wire,
             piece_parallelism=piece_parallelism, report_batch=report_batch,
             limiter=limiter, on_piece=on_piece,
             disable_back_source=getattr(request, "disable_back_source", False),
-            local_range_source=local, flight=flight, quarantine=quarantine)
+            local_range_source=local, flight=flight, quarantine=quarantine,
+            wfq=wfq)
 
     return make

@@ -1,18 +1,22 @@
 """The P2P transport, which turns HTTP GETs into stream tasks: the port's
-copy of ``fetch`` and ``sendfile_window`` from
-``dragonfly2_tpu/daemon/transport.py``, used by the object gateway
-(``daemon/objectstorage.py``). The proxy's half (its rules, a default tag
-and ``should_use_p2p``) comes with the proxy, which is not ported yet.
+copy of ``dragonfly2_tpu/daemon/transport.py``, used by the proxy
+(``daemon/proxy.py``) and the object gateway (``daemon/objectstorage.py``).
 
-``fetch`` pops ``Range`` and the ``X-Dragonfly-{Tag,Application,Filter}``
-headers (case-insensitively), which set the task's identity, and starts
-the stream task. ``sendfile_window`` says when a fetch's bytes can go from
-the store's data file to the socket by ``sendfile``.
+``should_use_p2p`` decides P2P or direct, as the reference's
+``shouldUseDragonfly``: only a GET, never with ``X-Dragonfly-No-P2P``, the
+first ``ProxyRule`` whose regex matches wins, and a registry blob URL
+(content-addressed) rides P2P with no rule. ``fetch`` pops ``Range`` and
+the ``X-Dragonfly-{Tag,Application,Filter}`` headers (case-insensitively;
+the tag defaults to ``default_tag``), which set the task's identity, and
+starts the stream task. ``sendfile_window`` says when a fetch's bytes can
+go from the store's data file to the socket by ``sendfile``.
 """
 
 from __future__ import annotations
 
 import os
+import re
+from dataclasses import dataclass, field
 
 from dragonfly2_tpu_torch.daemon.peer.task_manager import StreamTaskRequest
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
@@ -22,6 +26,10 @@ from dragonfly2_tpu_torch.proto.common import UrlMeta
 HDR_TAG = "X-Dragonfly-Tag"
 HDR_APPLICATION = "X-Dragonfly-Application"
 HDR_FILTER = "X-Dragonfly-Filter"
+HDR_NO_P2P = "X-Dragonfly-No-P2P"
+
+# Registry blob URLs are content-addressed: always safe to P2P.
+_BLOB_RE = re.compile(r"/v2/.+/blobs/sha256:[0-9a-f]{64}")
 
 
 def _pop_header(headers: dict[str, str], name: str, default: str = "") -> str:
@@ -33,9 +41,52 @@ def _pop_header(headers: dict[str, str], name: str, default: str = "") -> str:
     return default
 
 
+@dataclass
+class ProxyRule:
+    """A proxy rule of the config: a regex and the direct/useHTTPS flags."""
+
+    regex: str
+    direct: bool = False           # a match bypasses P2P
+    use_https: bool = False        # rewrite the scheme when hijacking
+    _compiled: re.Pattern = field(init=False, repr=False, default=None)
+
+    def __post_init__(self):
+        self._compiled = re.compile(self.regex)
+
+    def matches(self, url: str) -> bool:
+        return bool(self._compiled.search(url))
+
+
+def rules_from_config(rule_dicts: list[dict]) -> list[ProxyRule]:
+    """Proxy rules from the config's dicts {regex, use_dragonfly, direct}:
+    a rule bypasses P2P with direct=true or use_dragonfly=false (the
+    reference honours both spellings); a rule with no regex is dropped."""
+    return [ProxyRule(regex=r.get("regex", ""),
+                      direct=bool(r.get("direct", False))
+                      or not r.get("use_dragonfly", True),
+                      use_https=bool(r.get("use_https", False)))
+            for r in rule_dicts if r.get("regex")]
+
+
 class P2PTransport:
-    def __init__(self, task_manager):
+    def __init__(self, task_manager, *, rules: list[ProxyRule] | None = None,
+                 default_tag: str = ""):
         self.task_manager = task_manager
+        self.rules = rules or []
+        self.default_tag = default_tag
+
+    def should_use_p2p(self, method: str, url: str,
+                       headers: dict[str, str] | None = None) -> bool:
+        if method.upper() != "GET":
+            return False
+        if headers and any(k.lower() == HDR_NO_P2P.lower()
+                           and str(v).lower() in ("1", "true")
+                           for k, v in headers.items()):
+            return False
+        for rule in self.rules:
+            if rule.matches(url):
+                return not rule.direct
+        return bool(_BLOB_RE.search(url))
 
     @staticmethod
     def sendfile_window(attrs: dict, rng, total: int):
@@ -84,7 +135,7 @@ class P2PTransport:
             except ValueError as e:
                 raise DfError(Code.BadRequest, f"bad range: {e}")
         meta = UrlMeta(
-            tag=_pop_header(headers, HDR_TAG),
+            tag=_pop_header(headers, HDR_TAG, self.default_tag),
             application=_pop_header(headers, HDR_APPLICATION),
             filter=_pop_header(headers, HDR_FILTER),
             header=headers,

@@ -17,8 +17,15 @@ Routes, queries, statuses and headers are the JAX server's:
   downloading (its data file is then shorter than the content).
 - The bytes go from the store's data file to the socket by
   ``os.sendfile``; the store is pinned while it is served, so the
-  storage GC cannot remove it mid-send.
-- ``rate_limit`` (bytes/s, 0 = none) is one token bucket the serving
+  storage GC cannot remove it mid-send. With ``ssl_context`` the server
+  speaks TLS (``pkg/httpserver``, each handshake on its connection's
+  thread) and the body goes through the TLS socket in reads of
+  ``TLS_CHUNK``: a raw ``sendfile`` would write plaintext past the TLS
+  layer.
+- ``qos_buckets`` (``qos.TenantBuckets``) debits the ``tenant`` query's
+  bucket for each payload and attributes its bytes
+  (``peer_upload_bytes_total{tenant}``), before the flat limiter.
+  ``rate_limit`` (bytes/s, 0 = none) is one token bucket the serving
   threads share; ``concurrent_limit`` (0 = none) counts requests in
   flight. Metric families: ``upload_bytes_total``,
   ``upload_requests_total{result}``, ``upload_concurrency``.
@@ -28,9 +35,8 @@ Each payload served stamps the task's flight on this daemon
 for a range) and the bytes.
 
 HTTP/1.1 with keep-alive on ``pkg/httpserver.py``: one ``df-upload``
-thread a connection, and ``close`` waits for them. The
-``tenant`` query is accepted and not accounted (the QoS plane is not
-ported). Not ported either: the native upload server and TLS.
+thread a connection, and ``close`` waits for them. Not ported: the native
+upload server.
 """
 
 from __future__ import annotations
@@ -47,6 +53,9 @@ from dragonfly2_tpu_torch.pkg.piece import Range
 from dragonfly2_tpu_torch.pkg.ratelimit import BlockingLimiter
 
 log = dflog.get("daemon.upload")
+
+# The read a TLS connection's body goes out in.
+TLS_CHUNK = 1 << 20
 
 UPLOAD_BYTES = metrics.counter("upload_bytes_total",
                                "Piece bytes served to other peers")
@@ -99,8 +108,11 @@ class _Handler(BaseHTTPRequestHandler):
 
 class UploadManager:
     def __init__(self, storage, *, rate_limit: int = 0,
-                 concurrent_limit: int = 0):
+                 concurrent_limit: int = 0, ssl_context=None,
+                 qos_buckets=None):
         self.storage = storage
+        self._ssl = ssl_context
+        self.qos_buckets = qos_buckets
         self.limiter = BlockingLimiter(rate_limit if rate_limit > 0
                                        else float("inf"))
         self.concurrent_limit = concurrent_limit
@@ -112,10 +124,12 @@ class UploadManager:
     def serve(self, host: str, port: int = 0) -> int:
         """Listen on ``host:port`` (0: a free port) on a thread of its own;
         returns the port."""
-        self._server = ThreadedServer((host, port), _Handler, "upload")
+        self._server = ThreadedServer((host, port), _Handler, "upload",
+                                      ssl_context=self._ssl)
         self._server.manager = self
         self._port = self._server.start()
-        log.info("upload server up", port=self._port)
+        log.info("upload server up", port=self._port,
+                 tls=self._ssl is not None)
         return self._port
 
     @property
@@ -177,6 +191,10 @@ class UploadManager:
         try:
             start, length = self._window(store, query,
                                          h.headers.get("Range"))
+            if self.qos_buckets is not None:
+                # The tenant's split of the cap and its byte attribution;
+                # the flat limiter stays the aggregate ceiling.
+                self.qos_buckets.wait(query.get("tenant", [""])[0], length)
             self.limiter.wait(length)
             fd = os.open(store.data_path, os.O_RDONLY)
             try:
@@ -199,14 +217,27 @@ class UploadManager:
                               f"{total if total >= 0 else size}")
                 h.send_header("Content-Length", str(length))
                 h.end_headers()
-                out = h.connection.fileno()
                 sent = 0
                 try:
-                    while sent < length:
-                        n = os.sendfile(out, fd, start + sent, length - sent)
-                        if n == 0:
-                            raise ConnectionResetError("sendfile sent nothing")
-                        sent += n
+                    if self._ssl is None:
+                        out = h.connection.fileno()
+                        while sent < length:
+                            n = os.sendfile(out, fd, start + sent,
+                                            length - sent)
+                            if n == 0:
+                                raise ConnectionResetError(
+                                    "sendfile sent nothing")
+                            sent += n
+                    else:
+                        buf = memoryview(bytearray(min(length, TLS_CHUNK)))
+                        while sent < length:
+                            n = os.preadv(fd, [buf[:length - sent]],
+                                          start + sent)
+                            if n == 0:
+                                raise ConnectionResetError(
+                                    "the data file ended early")
+                            h.connection.sendall(buf[:n])
+                            sent += n
                 finally:
                     # The bytes that left, not the bytes promised.
                     UPLOAD_BYTES.inc(sent)

@@ -6,23 +6,34 @@ One accept thread (``df-<name>-accept``) and one thread a connection
 (``df-<name>``), keep-alive. Every open connection is tracked, so ``close``
 can cut the idle kept-alive ones and wait for every connection's thread:
 no thread of the server outlives it.
+
+With ``ssl_context`` each accepted socket is wrapped, and its handshake
+made, on its own connection thread: the accept thread never waits on a
+client's handshake. A failed handshake closes that connection; nothing
+is answered in plaintext.
 """
 
 from __future__ import annotations
 
 import socket
+import ssl
 import sys
 import threading
 from http.server import ThreadingHTTPServer
+
+
+HANDSHAKE_TIMEOUT = 10.0
 
 
 class ThreadedServer(ThreadingHTTPServer):
     # aiohttp's listen backlog.
     request_queue_size = 128
 
-    def __init__(self, addr: tuple[str, int], handler, name: str):
+    def __init__(self, addr: tuple[str, int], handler, name: str, *,
+                 ssl_context: ssl.SSLContext | None = None):
         super().__init__(addr, handler)
         self.name = name
+        self.ssl_context = ssl_context
         self._mu = threading.Lock()
         self._conns: dict[threading.Thread, socket.socket] = {}
         self._accept: threading.Thread | None = None
@@ -49,6 +60,20 @@ class ThreadedServer(ThreadingHTTPServer):
 
     def _serve_connection(self, request, client_address) -> None:
         try:
+            if self.ssl_context is not None:
+                # A client that never finishes its handshake does not hold
+                # the thread (or close()) past the timeout.
+                request.settimeout(HANDSHAKE_TIMEOUT)
+                try:
+                    request = self.ssl_context.wrap_socket(request,
+                                                           server_side=True)
+                except (ssl.SSLError, OSError):
+                    request.close()
+                    return
+                request.settimeout(None)
+                with self._mu:
+                    # close() cuts the TLS socket, which owns the fd now.
+                    self._conns[threading.current_thread()] = request
             self.process_request_thread(request, client_address)
         finally:
             with self._mu:

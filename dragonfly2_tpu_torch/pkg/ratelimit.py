@@ -125,6 +125,28 @@ class BlockingLimiter:
         self._last = time.monotonic()
         self._lock = threading.Lock()
 
+    @property
+    def limit(self) -> float:
+        return self._limit
+
+    def _refill(self, now: float) -> None:
+        if self._limit != INF:
+            self._tokens = min(float(self._burst), self._tokens
+                               + (now - self._last) * self._limit)
+        self._last = now
+
+    def set_limit(self, limit: float) -> None:
+        """A new rate (> 0) from now on, as ``Limiter.set_limit`` re-tunes
+        one: a finite rate's burst is a second of it, and the tokens in
+        hand are kept up to that. It takes the lock a waiter sleeps
+        under, so it lands after that sleep."""
+        with self._lock:
+            self._refill(time.monotonic())
+            self._limit = limit
+            if limit != INF:
+                self._burst = max(int(limit), 1)
+            self._tokens = min(self._tokens, float(self._burst))
+
     def wait(self, n: int = 1) -> float:
         """Block until ``n`` tokens are available; returns seconds waited.
         A request larger than the bucket pays across several fills."""
@@ -135,10 +157,7 @@ class BlockingLimiter:
             take = min(n, self._burst)
             n -= take
             with self._lock:
-                now = time.monotonic()
-                self._tokens = min(float(self._burst), self._tokens
-                                   + (now - self._last) * self._limit)
-                self._last = now
+                self._refill(time.monotonic())
                 self._tokens -= take
                 if self._tokens < 0:
                     delay = -self._tokens / self._limit

@@ -1,6 +1,6 @@
 """Common small types: the port's copy of the parts of
-``dragonfly2_tpu/pkg/types.py`` it needs: ``NetAddr``, ``HostType`` and
-``parse_size``."""
+``dragonfly2_tpu/pkg/types.py`` it needs: ``NetAddr``, ``HostType``,
+``Priority`` and ``parse_size``."""
 
 from __future__ import annotations
 
@@ -36,6 +36,18 @@ _HOST_TYPE_NAMES = {
     HostType.WEAK_SEED: "weak",
 }
 _HOST_TYPE_BY_NAME = {v: k for k, v in _HOST_TYPE_NAMES.items()}
+
+
+class Priority(enum.IntEnum):
+    """Task priority levels (reference commonv2.Priority)."""
+
+    LEVEL0 = 0  # forbidden
+    LEVEL1 = 1  # background
+    LEVEL2 = 2
+    LEVEL3 = 3  # normal (default)
+    LEVEL4 = 4
+    LEVEL5 = 5
+    LEVEL6 = 6  # critical (e.g. pod-wide weight broadcast)
 
 
 @dataclass(frozen=True)

@@ -5,8 +5,10 @@ streams: a lazy connect, a reconnect on the next use after a capped,
 jittered backoff (a flapping scheduler is not redialled by every caller),
 and coded errors translated from the wire.
 
-Not ported: TLS (it comes with the daemon's config), the trace-context
-metadata and the chaos hooks.
+``ssl_context`` (``pkg/security.client_ssl_context``) puts TLS under a
+TCP connection, mTLS when it presents a client certificate; a unix socket
+stays plaintext, and TLS over vsock is refused at connect. Not ported:
+the trace-context metadata and the chaos hooks.
 """
 
 from __future__ import annotations
@@ -98,9 +100,11 @@ class Client:
     # jittered exponential delay instead of redialling on every use.
     BACKOFF = retry.RECONNECT
 
-    def __init__(self, addr: NetAddr, connect_timeout: float = 5.0):
+    def __init__(self, addr: NetAddr, connect_timeout: float = 5.0,
+                 *, ssl_context=None):
         self.addr = addr
         self._connect_timeout = connect_timeout
+        self._ssl = ssl_context
         self._ids = itertools.count(1)
         self._fw: FrameWriter | None = None
         self._reader_task: asyncio.Task | None = None
@@ -119,10 +123,14 @@ class Client:
         if self.addr.type == "tcp":
             host, port = self.addr.host_port()
             return await asyncio.wait_for(
-                asyncio.open_connection(host, port), self._connect_timeout)
+                asyncio.open_connection(host, port, ssl=self._ssl),
+                self._connect_timeout)
         if self.addr.type == "vsock":
             if not hasattr(socket, "AF_VSOCK"):
                 raise OSError("AF_VSOCK unsupported on this platform")
+            if self._ssl is not None:
+                # A configured TLS transport is never downgraded.
+                raise OSError("TLS over vsock is not supported")
             cid, port = self.addr.cid_port()
             sock = socket.socket(socket.AF_VSOCK, socket.SOCK_STREAM)
             sock.setblocking(False)

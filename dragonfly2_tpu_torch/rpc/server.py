@@ -2,9 +2,11 @@
 
 Unary and bidi-stream handlers keyed by "Service.Method", served on TCP,
 a unix socket or vsock. Request bodies of the methods in
-``proto/wire.py`` are checked at this boundary. Not ported: TLS (it comes
-with the daemon's config), the trace spans around handlers, and the
-stream-message schemas (the port serves no method that has one).
+``proto/wire.py`` are checked at this boundary. ``serve(addr,
+ssl_context=)`` (``pkg/security.server_ssl_context``) puts TLS under a TCP
+listener, mTLS when it requires client certificates; a unix socket and
+vsock stay plaintext. Not ported: the trace spans around handlers, and
+the stream-message schemas (the port serves no method that has one).
 """
 
 from __future__ import annotations
@@ -110,10 +112,11 @@ class Server:
     def register_stream(self, method: str, handler: StreamHandler) -> None:
         self._stream[method] = handler
 
-    async def serve(self, addr: NetAddr) -> None:
+    async def serve(self, addr: NetAddr, *, ssl_context=None) -> None:
         if addr.type == "tcp":
             host, port = addr.host_port()
-            srv = await asyncio.start_server(self._on_conn, host, port)
+            srv = await asyncio.start_server(self._on_conn, host, port,
+                                             ssl=ssl_context)
         elif addr.type == "unix":
             sock_dir = os.path.dirname(addr.addr)
             if sock_dir:

@@ -102,6 +102,9 @@ class _Exchange:
 
 
 class HTTPSourceClient(ResourceClient):
+    # Its worker threads are df-<THREADS>.
+    THREADS = "source-http"
+
     def __init__(self, workers: int = WORKERS):
         self._workers = workers
         self._mu = threading.Lock()
@@ -116,7 +119,7 @@ class HTTPSourceClient(ResourceClient):
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(
                     max_workers=self._workers,
-                    thread_name_prefix="df-source-http")
+                    thread_name_prefix=f"df-{self.THREADS}")
             return self._pool
 
     async def _run(self, fn, *args):

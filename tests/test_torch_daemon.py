@@ -18,8 +18,14 @@ On the CPU (``device="cpu"``), with the JAX ``SchedulerServer`` of
 - ``download.prefetch``, ``download.rate_limit`` and the sampling traffic
   shaper's loop act as in the JAX daemon;
 - the GC loop reclaims an expired task and sweeps the device sinks;
-- a config that enables a service the port lacks raises ``ValueError``
-  naming it, and ``Daemon(config)`` with no CUDA refuses to run unasked;
+- the proxy (its mirror, rules, white list, hijack hosts and a CA kept
+  under ``<work_home>/ca``) and the QoS plane (the gate every conductor
+  gets, the upload server's tenant buckets) are built as the JAX daemon
+  builds them, and a mirror pull through each daemon's proxy gives the
+  origin's bytes;
+- a config that enables a service the port lacks (the manager's
+  dynconfig, a cloud backend) raises ``ValueError`` naming it, and
+  ``Daemon(config)`` with no CUDA refuses to run unasked;
 - ``serve()`` honours ``alive_time``; ``/metrics`` serves the registry;
   no ``df-`` thread outlives ``stop()``.
 
@@ -313,8 +319,6 @@ def test_the_gc_loop_reclaims_an_expired_task_and_sweeps_the_sinks(
 
 
 @pytest.mark.parametrize("over,names", [
-    ({"proxy": {"enabled": True}}, "proxy.enabled"),
-    ({"qos": {"enabled": True}}, "qos.enabled"),
     ({"manager_addr": "127.0.0.1:65003"}, "manager_addr"),
     ({"object_storage": {"enabled": True, "backend": "s3"}},
      "backend 's3' is not ported yet"),
@@ -335,6 +339,106 @@ def test_a_config_that_needs_an_unported_service_is_refused(
     # Off, or a backend the gateway has: accepted.
     _port_daemon(_config(tmp_path, "ok", object_storage={
         "backend": over.get("object_storage", {}).get("backend", "fs")}))
+
+
+def _proxy_get(port: int, path: str, headers: dict | None = None):
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        c.request("GET", path, headers=headers or {})
+        r = c.getresponse()
+        return r.status, r.read()
+    finally:
+        c.close()
+
+
+def test_the_proxy_and_the_qos_plane_are_built_as_in_jax(run_async,
+                                                         tmp_path):
+    """``proxy.enabled`` with the HTTPS hijack and the SNI listener, and
+    ``qos.enabled``: both daemons build the same proxy (mirror, rules,
+    white list, hijack hosts, a CA persisted under ``<work_home>/ca``),
+    the same gate and the same tenant buckets; each serves the proxy and
+    its SNI listener, a mirror pull through each gives the origin's
+    bytes, a second pull none of the origin's; ``stop()`` closes them.
+    A restarted port daemon reloads its CA."""
+
+    async def run():
+        runner, origin, stats = await start_origin()
+        over = {"proxy": {"enabled": True, "hijack_https": True,
+                          "sni_enabled": True, "sni_hijack": True,
+                          "registry_mirror": f"http://127.0.0.1:{origin}",
+                          "rules": [{"regex": "/blob$"}],
+                          "hijack_hosts": [r"registry\.internal"],
+                          "white_list_ports": [443, origin]},
+                "qos": {"enabled": True, "upload_min_share_fraction": 0.25},
+                "download": {"parent_concurrency": 3},
+                "upload": {"rate_limit": "4MiB"}}
+        jd = _jax_daemon(_config(tmp_path, "jq", **over))
+        pd = _port_daemon(_config(tmp_path, "pq", **over))
+        out = {}
+        try:
+            for side, d in (("jax", jd), ("port", pd)):
+                await d.start()
+                p = d.proxy
+                before = stats["blob_streams"]
+                pulls = [await asyncio.to_thread(_proxy_get, p.port, "/blob")
+                         for _ in range(2)]
+                out[side] = {
+                    "mirror": p.registry_mirror,
+                    "rules": [(r.regex, r.direct) for r in p.transport.rules],
+                    "white": p.white_list_ports,
+                    "hijack": [h.pattern for h in p.hijack_hosts],
+                    "ca": sorted(os.listdir(os.path.join(d.config.work_home,
+                                                         "ca"))),
+                    "serving": (p._port > 0, p._sni_port > 0),
+                    "gate": d.qos_gate.capacity,
+                    "buckets": (d.upload.qos_buckets.total_rate,
+                                d.upload.qos_buckets.min_share_fraction),
+                    "pulls": [(st, hashlib.sha256(b).hexdigest())
+                              for st, b in pulls],
+                    "origin_streams": stats["blob_streams"] > before}
+                await d.stop()
+                assert p._server is None and p._sni_server is None
+        finally:
+            await runner.cleanup()
+        ca = open(os.path.join(pd.config.work_home, "ca", "proxy-ca.crt"),
+                  "rb").read()
+        again = _port_daemon(_config(tmp_path, "pq", **over))
+        assert again.proxy.ca.ca_cert_pem == ca
+        return out
+
+    out = run_async(run(), timeout=120)
+    assert out["port"] == out["jax"]
+    assert out["port"]["gate"] == 6
+    assert out["port"]["pulls"] == [
+        (200, hashlib.sha256(CONTENT).hexdigest())] * 2
+    assert out["port"]["ca"] == ["proxy-ca.crt", "proxy-ca.key"]
+
+
+def test_the_qos_gate_reaches_every_conductor(tmp_path):
+    """The daemon's conductor factory hands each conductor the one gate,
+    and a request's priority picks its class, as in JAX."""
+    import types
+
+    d = _port_daemon(_config(tmp_path, "g", scheduler=65004,
+                             qos={"enabled": True, "dispatch_capacity": 5}))
+    d.announcer = types.SimpleNamespace(host_wire=lambda: {})
+    made = []
+    for prio in (6, 0, 1):
+        req = FileTaskRequest(url="http://x/y", output="",
+                              meta=UrlMeta(priority=prio, tenant="t a"))
+        made.append(d.task_manager.conductor_factory(
+            task_id="t", peer_id="p", request=req, store=None,
+            on_piece=None))
+    assert d.qos_gate.capacity == 5
+    assert [c.wfq for c in made] == [d.qos_gate] * 3
+    assert [c._qos_priority for c in made] == [6, 3, 1]
+    assert {c.tenant for c in made} == {"ta"}
+    off = _port_daemon(_config(tmp_path, "o", scheduler=65004))
+    off.announcer = d.announcer
+    assert off.qos_gate is None and off.upload.qos_buckets is None
+    assert off.task_manager.conductor_factory(
+        task_id="t", peer_id="p", request=req, store=None,
+        on_piece=None).wfq is None
 
 
 def test_without_cuda_the_daemon_runs_only_when_asked(tmp_path, monkeypatch):

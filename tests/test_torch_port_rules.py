@@ -6,7 +6,10 @@
   every test process, and by an AST scan of the sources); nor does a
   rank process of ``dryrun_multichip``. The example twins import no JAX.
   The dataset plane and the object-gateway client import without
-  ``aiohttp`` (the card machine has none).
+  ``aiohttp`` (the card machine has none); no port source imports
+  ``cryptography`` (nor has the card machine it), and the daemon with its
+  proxy, CA and QoS plane runs with none of ``aiohttp``, ``msgpack`` or
+  ``cryptography`` importable.
 - Every thread the port or ``chip_smoke.py`` starts carries a ``df-``
   name (the profiler attributes by thread name).
 - Its entry points run on the card unless told ``device="cpu"``: without
@@ -207,20 +210,27 @@ def test_the_p2p_half_imports_without_msgpack_or_aiohttp():
 
 
 def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
-    """The daemon and its new services (config, announcer, transport, the
-    object gateway and its ``fs`` backend, ``/metrics``) import none of
-    the JAX side, ``aiohttp`` or ``msgpack`` (the card machine has
-    neither), nor ``yaml`` or ``psutil`` (not known to be there: the
-    config reads YAML through a lazy import, the announcer's telemetry
-    comes from the standard library); and with none of the last four
-    importable a daemon still builds, starts with its gateway and stops."""
+    """The daemon and its services (config, announcer, transport, the
+    object gateway and its ``fs`` backend, ``/metrics``, the proxy, the
+    CA, TLS and the QoS plane) import none of the JAX side, ``aiohttp``,
+    ``msgpack`` or ``cryptography`` (the card machine has none of them),
+    nor ``yaml`` or ``psutil`` (not known to be there: the config reads
+    YAML through a lazy import, the announcer's telemetry comes from the
+    standard library); and with none of those five importable a daemon
+    with the proxy (its HTTPS hijack and SNI listener) and the QoS plane
+    on still builds, starts with its gateway and stops."""
     code = ("import asyncio, json, sys, tempfile\n"
             "import dragonfly2_tpu_torch.daemon.daemon\n"
             "import dragonfly2_tpu_torch.daemon.objectstorage\n"
+            "import dragonfly2_tpu_torch.daemon.proxy\n"
+            "import dragonfly2_tpu_torch.pkg.certify\n"
+            "import dragonfly2_tpu_torch.pkg.security\n"
             "import dragonfly2_tpu_torch.pkg.metrics_server\n"
             "import dragonfly2_tpu_torch.pkg.objectstorage.fs\n"
+            "import dragonfly2_tpu_torch.qos\n"
             "loaded = sorted(sys.modules)\n"
-            "for m in ('aiohttp', 'msgpack', 'yaml', 'psutil'):\n"
+            "for m in ('aiohttp', 'msgpack', 'cryptography', 'yaml',\n"
+            "          'psutil'):\n"
             "    sys.modules[m] = None\n"
             "from dragonfly2_tpu_torch.daemon.config import DaemonConfig\n"
             "from dragonfly2_tpu_torch.daemon.daemon import Daemon\n"
@@ -228,10 +238,15 @@ def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
             "cfg = DaemonConfig.from_dict({'work_home': home, 'host': {\n"
             "    'hostname': 'h', 'ip': '127.0.0.1'}, 'metrics_port': 0,\n"
             "    'object_storage': {'enabled': True, 'backend_options': {\n"
-            "        'root': home + '/b'}}, 'tpu_sink': {'enabled': True}})\n"
+            "        'root': home + '/b'}}, 'tpu_sink': {'enabled': True},\n"
+            "    'proxy': {'enabled': True, 'hijack_https': True,\n"
+            "              'sni_enabled': True, 'sni_hijack': True},\n"
+            "    'qos': {'enabled': True}})\n"
             "async def main():\n"
             "    d = Daemon(cfg, device='cpu')\n"
             "    await d.start()\n"
+            "    assert d.proxy.port and d.proxy._sni_port and d.qos_gate\n"
+            "    d.proxy.ca.server_context('registry.local')\n"
             "    await d.stop()\n"
             "asyncio.run(main())\n"
             "print(json.dumps(loaded))\n")
@@ -243,9 +258,10 @@ def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
     assert {"dragonfly2_tpu_torch.daemon.announcer",
             "dragonfly2_tpu_torch.daemon.config",
             "dragonfly2_tpu_torch.daemon.transport",
+            "dragonfly2_tpu_torch.qos.wfq",
             "dragonfly2_tpu_torch.pkg.httpserver"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
-        "aiohttp", "msgpack", "yaml", "psutil")] == []
+        "aiohttp", "msgpack", "cryptography", "yaml", "psutil")] == []
 
 
 def _top_level_imports(tree: ast.Module) -> list[str]:
@@ -273,6 +289,22 @@ def test_sources_import_no_yaml_or_psutil_at_module_level(path):
         tree = ast.parse(f.read(), path)
     assert [n for n in _top_level_imports(tree)
             if n.split(".")[0] in ("yaml", "psutil")] == []
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_sources_import_no_cryptography(path):
+    """The CA, TLS and the proxy stand on ``ssl`` and the standard
+    library: ``cryptography`` is not on the card machine."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    assert [n for n in names if n.split(".")[0] == "cryptography"] == []
 
 
 def test_the_daemons_http_servers_name_their_threads(run_async, tmp_path):
@@ -326,9 +358,9 @@ def test_the_intended_divergences_of_the_daemon(run_async, tmp_path):
     ``/debug`` routes; ``prof.enabled`` (the default) installs no runtime
     observatory; ``fs`` is the only object-storage backend; the
     announcer's telemetry is the JAX keys from the standard library; the
-    transport has no proxy half (rules, default tag, ``should_use_p2p``)
-    until the proxy is ported, and the GC runner no ``run`` that nothing
-    calls."""
+    transport has the JAX proxy half (rules, default tag,
+    ``should_use_p2p``), which the proxy calls; the GC runner has no
+    ``run``, which nothing calls."""
     import asyncio
     import http.client
     import inspect
@@ -364,12 +396,12 @@ def test_the_intended_divergences_of_the_daemon(run_async, tmp_path):
     assert hasattr(jannouncer, "psutil") and not hasattr(pannouncer,
                                                          "psutil")
     for name in ("ProxyRule", "rules_from_config", "HDR_NO_P2P"):
-        assert hasattr(jtransport, name) and not hasattr(ptransport, name)
-    assert hasattr(jtransport.P2PTransport, "should_use_p2p")
-    assert not hasattr(ptransport.P2PTransport, "should_use_p2p")
-    assert set(inspect.signature(jtransport.P2PTransport).parameters) - set(
-        inspect.signature(ptransport.P2PTransport).parameters) == {
-        "rules", "default_tag"}
+        assert hasattr(jtransport, name) and hasattr(ptransport, name)
+    assert jtransport.HDR_NO_P2P == ptransport.HDR_NO_P2P
+    assert jtransport._BLOB_RE.pattern == ptransport._BLOB_RE.pattern
+    assert hasattr(ptransport.P2PTransport, "should_use_p2p")
+    assert set(inspect.signature(jtransport.P2PTransport).parameters) == set(
+        inspect.signature(ptransport.P2PTransport).parameters)
     assert hasattr(jcache.GC, "run") and not hasattr(pcache.GC, "run")
 
     def get(port: int, path: str) -> int:
@@ -427,12 +459,13 @@ def test_sources_import_no_msgpack(path):
 
 
 def test_the_intended_divergences_of_the_p2p_half():
-    """What the P2P half leaves out, pinned: no QoS gate in the conductor
-    (its worker count and report batch come from the daemon's config, the
-    old constants their defaults); no native piece fetch, no native upload server and no native
-    report decoder (``report_backend()`` is ``"numpy"``); no TLS on the
-    drpc client and server or the upload server; ``stamp_running`` kept
-    with no caller. What it has as the JAX half does: the flight recorder
+    """What the P2P half leaves out, pinned: no native piece fetch, no
+    native upload server and no native report decoder
+    (``report_backend()`` is ``"numpy"``); ``stamp_running`` kept with no
+    caller. What it has as the JAX half does: the conductor's parameters,
+    its QoS gate among them (its worker count and report batch come from
+    the daemon's config, the old constants their defaults); TLS on the
+    drpc client and server and the upload server; the flight recorder
     and the parent quarantine in the conductor and the dispatcher, the
     packed report and bitmap forms once the scheduler negotiates them,
     and every method of the JAX daemon's two services. The seed flag
@@ -462,13 +495,13 @@ def test_the_intended_divergences_of_the_p2p_half():
     def params(fn) -> set:
         return set(inspect.signature(fn).parameters)
 
-    # The QoS gate comes from the daemon's config in JAX; the port has no
-    # QoS plane, so there is no gate. The worker count and the report
-    # batch come from the config in both, with the same defaults. The seed
-    # flag comes from the request (a seed trigger) or the config in both,
-    # and so do the flight and the quarantine (the task manager's).
-    assert params(jcond.PeerTaskConductor) - params(pcond.PeerTaskConductor) \
-        == {"wfq"}
+    # The QoS gate, the worker count and the report batch come from the
+    # config in both, with the same defaults. The seed flag comes from the
+    # request (a seed trigger) or the config in both, and so do the flight
+    # and the quarantine (the task manager's).
+    assert params(jcond.PeerTaskConductor) == params(pcond.PeerTaskConductor)
+    assert inspect.signature(pcond.PeerTaskConductor).parameters[
+        "wfq"].default is None
     for name, default in (("piece_parallelism", 4), ("report_batch", 32)):
         assert inspect.signature(pcond.PeerTaskConductor).parameters[
             name].default == inspect.signature(
@@ -485,7 +518,6 @@ def test_the_intended_divergences_of_the_p2p_half():
     for module in (pcond, ptm):
         with open(module.__file__) as f:
             assert "locality_bytes" not in f.read()
-    assert params(pcond.PeerTaskConductor) < params(jcond.PeerTaskConductor)
     assert params(jdisp.PieceDispatcher) - params(pdisp.PieceDispatcher) \
         == {"max_parent_failures"}
     assert params(pdisp.PieceDispatcher) == {"quarantine", "flight"}
@@ -515,12 +547,11 @@ def test_the_intended_divergences_of_the_p2p_half():
                 if "stamp_running(" in f.read():
                     callers.append(path)
     assert callers == []
-    assert "ssl_context" in params(jupload.UploadManager)
-    assert "ssl_context" not in params(pupload.UploadManager)
-    assert "ssl_context" in params(JClient) and "ssl_context" in params(
-        JServer.serve)
-    assert "ssl_context" not in params(Client)
-    assert "ssl_context" not in params(Server.serve)
+    for have in (params(jupload.UploadManager), params(pupload.UploadManager),
+                 params(JClient), params(Client), params(JServer.serve),
+                 params(Server.serve)):
+        assert "ssl_context" in have
+    assert params(jupload.UploadManager) == params(pupload.UploadManager)
 
     # The report forms follow the negotiation, as in JAX.
     c = pcond.PeerTaskConductor(

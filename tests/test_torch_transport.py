@@ -1,10 +1,12 @@
 """The port's ``daemon/transport.py`` against the JAX one.
 
+``rules_from_config`` over the config's rule spellings and
+``should_use_p2p`` over a corpus of methods, URLs, headers and rule sets;
 ``sendfile_window`` over the same store states (complete or running,
 covered or not, every range shape); and ``fetch`` through each package's
 task manager over one ``file://`` origin: the same attrs (task id, length,
 geometry, resolved range, reuse) and the same bytes, with the identity
-headers in any case. Tolerance 0.
+headers in any case, and with a default tag. Tolerance 0.
 """
 
 from __future__ import annotations
@@ -26,6 +28,72 @@ from dragonfly2_tpu_torch.daemon.peer.piece_manager import PieceManager
 from dragonfly2_tpu_torch.daemon.peer.task_manager import TaskManager
 from dragonfly2_tpu_torch.pkg.piece import Range
 from dragonfly2_tpu_torch.storage import StorageManager, StorageOption
+
+
+RULE_DICTS = {
+    "both spellings": [{"regex": r"internal\.example", "use_dragonfly": False},
+                       {"regex": r"\.safetensors$", "use_dragonfly": True},
+                       {"regex": r"\.blocked$", "direct": True},
+                       {"regex": ""}],
+    "https flag": [{"regex": "a", "use_https": True}, {"regex": "b"}],
+    "truthy values": [{"regex": "x", "direct": 1, "use_https": "yes"},
+                      {"regex": "y", "use_dragonfly": 0}],
+    "none": [],
+}
+
+
+@pytest.mark.parametrize("name", RULE_DICTS)
+def test_rules_from_config_matches_jax(name):
+    got = ptransport.rules_from_config(RULE_DICTS[name])
+    want = jtransport.rules_from_config(RULE_DICTS[name])
+    assert [(r.regex, r.direct, r.use_https) for r in got] == [
+        (r.regex, r.direct, r.use_https) for r in want]
+
+
+RULE_SETS = {
+    "none": [],
+    "first match wins": [{"regex": r"internal\.example", "direct": True},
+                         {"regex": r"\.safetensors$"}],
+    "blobs direct": [{"regex": r"/blobs/", "use_dragonfly": False}],
+}
+METHODS = ["GET", "get", "HEAD", "POST"]
+URLS = ["http://x/v2/lib/app/blobs/sha256:" + "0" * 64,
+        "https://r.io/v2/a/b/c/blobs/sha256:" + "ab" * 32 + "?x=1",
+        "http://x/v2/lib/app/blobs/sha256:" + "0" * 63,
+        "http://host/model.safetensors",
+        "http://internal.example/model.safetensors",
+        "http://host/index.html",
+        "http://host/model.safetensors?sig=1"]
+HEADERS = {"none": None, "no-p2p true": {"X-Dragonfly-No-P2P": "true"},
+           "no-p2p lower 1": {"x-dragonfly-no-p2p": "1"},
+           "no-p2p false": {"X-Dragonfly-No-P2P": "false"}}
+
+
+@pytest.mark.parametrize("headers", HEADERS)
+@pytest.mark.parametrize("url", URLS, ids=range(len(URLS)))
+@pytest.mark.parametrize("method", METHODS)
+@pytest.mark.parametrize("rules", ["none", "first match wins"])
+def test_should_use_p2p_matches_jax(rules, method, url, headers):
+    rule_dicts = RULE_SETS[rules]
+    port = ptransport.P2PTransport(
+        None, rules=ptransport.rules_from_config(rule_dicts))
+    jax = jtransport.P2PTransport(
+        None, rules=jtransport.rules_from_config(rule_dicts))
+    h = HEADERS[headers]
+    assert port.should_use_p2p(method, url, h) == jax.should_use_p2p(
+        method, url, h)
+
+
+@pytest.mark.parametrize("url", URLS, ids=range(len(URLS)))
+def test_a_rule_can_take_registry_blobs_off_p2p(url):
+    rules = RULE_SETS["blobs direct"]
+    port = ptransport.P2PTransport(
+        None, rules=ptransport.rules_from_config(rules))
+    jax = jtransport.P2PTransport(
+        None, rules=jtransport.rules_from_config(rules))
+    assert port.should_use_p2p("GET", url) == jax.should_use_p2p("GET", url)
+    if "/blobs/" in url:
+        assert not port.should_use_p2p("GET", url)
 
 
 class _Store:
@@ -98,7 +166,15 @@ def test_fetch_gives_the_jax_task_ids_and_bytes(run_async, tmp_path):
         jax_tm = JTM(JSM(JSMOption(data_dir=str(tmp_path / "j"))), JPM())
         port = ptransport.P2PTransport(port_tm)
         jax = jtransport.P2PTransport(jax_tm)
+        tagged = (ptransport.P2PTransport(port_tm, default_tag="dt"),
+                  jtransport.P2PTransport(jax_tm, default_tag="dt"))
         for headers in cases:
+            # With a default tag, a request with no tag header gets it.
+            pa, pbody = await tagged[0].fetch(url, dict(headers))
+            ja, jbody = await tagged[1].fetch(url, dict(headers))
+            assert _ids(pa) == _ids(ja), headers
+            assert await _drain(pbody) == await _drain(jbody)
+            await asyncio.sleep(0.05)
             for _ in range(2):   # cold, then off the completed store
                 pa, pbody = await port.fetch(url, dict(headers))
                 ja, jbody = await jax.fetch(url, dict(headers))
