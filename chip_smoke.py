@@ -83,6 +83,22 @@
    (``Daemon.FlightReport`` over the port's drpc: the phase fold, each
    piece's device landing and its wait from the store write, events
    dropped) and checks that every piece landed and reached the device;
+   then lets the port's own scheduler pick the card's parents
+   (``swarm``: the port's ``SchedulerServer``, the origin and a seed
+   daemon each in a process of its own, children in this one): child 1
+   pulls the shard with its sha256 onto the card, the scheduler triggers
+   the seed (``Peer.TriggerDownloadTask``) and hands it out; child 2
+   registers once child 1 has landed a quarter of its pieces and is
+   handed the running child 1 beside the seed; then two fresh children
+   on one ``tpu_slice`` pull the shard's first quarter as a second object
+   with ``pod_broadcast``, each handed a stripe plan of two; checks the
+   origin served each object once, every buffer gated by K1 and held to
+   every byte, ``StatTask`` (succeeded, 3 peers) and ``ListHosts`` (the
+   seed a super seed), and prints each child's registration latency
+   (register to its first ``normal_task``, from its own flight), its
+   ``land_s``, the bytes the seed and the children uploaded, child 2's
+   certification wait and completion re-hashes, the stripe plans and the
+   seed's bytes for the striped object;
 5. hot-swaps the landed shard to a second generation (the last two
    layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
    through ``swap_generation``, the device half of ``download_delta``:
@@ -196,7 +212,7 @@
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
     gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again,
-    dfdaemon, dfdaemon_epoch, p2p_qos, proxy),
+    dfdaemon, dfdaemon_epoch, p2p_qos, proxy, swarm),
     prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
@@ -3318,6 +3334,565 @@ def phase_pex(content: np.ndarray, spans: dict, layout,
 
 
 # --------------------------------------------------------------------- #
+# The swarm: the port's own scheduler (scheduler/) in a process of its
+# own picks the parents of a small swarm of the port's daemons: a seed
+# daemon in a process of its own, triggered by the scheduler, and
+# children in this process landing on the card. Fan-out (the seed
+# trigger, a child on a running parent) and the striped slice broadcast
+# --------------------------------------------------------------------- #
+
+SWARM_SLICE = "chip-swarm-slice"
+SWARM_QUARTER_KEY = "swarm-quarter/" + GATEWAY_KEY
+
+
+def swarm_origin_objects(path: str) -> dict:
+    """The swarm's origin: the shard's file, mapped, and its first quarter
+    of bytes as a second object (a view of the same mapping)."""
+    data = origin_objects(path)[(ORIGIN_BUCKET, GATEWAY_KEY)]
+    quarter = memoryview(data)[:len(data) // 4]
+    return {(ORIGIN_BUCKET, GATEWAY_KEY): data,
+            (ORIGIN_BUCKET, SWARM_QUARTER_KEY): quarter}
+
+
+def swarm_scheduler_config() -> dict:
+    """The port's scheduler on loopback, its defaults otherwise: the
+    fleet observatory and the pod lens off (the port refuses the first and
+    installs neither), no metrics server, no GC pass during the run."""
+    return {"server": {"host": P2P_HOST, "port": 0},
+            "fleet": {"enabled": False}, "podlens": {"enabled": False},
+            "metrics_port": -1, "gc": {"interval": 3600.0}}
+
+
+def swarm_daemon_config(root: str, name: str, scheduler: str, *,
+                        seed: bool = False, tpu_slice: str = "",
+                        worker: int = -1) -> dict:
+    """A swarm daemon's config: its own work home, socket and ports on
+    loopback, the scheduler's address; a seed announces as a super seed
+    and lands nothing on the card, a child lands on it at the main path's
+    batch."""
+    home = os.path.join(root, name)
+    d = {"work_home": home,
+         "host": {"hostname": f"chip-swarm-{name}", "ip": P2P_HOST,
+                  "tpu_slice": tpu_slice, "tpu_worker_index": worker},
+         "download": {"unix_sock": os.path.join(home, "d.sock")},
+         "scheduler": {"addrs": [scheduler]},
+         "metrics_port": -1, "gc_interval": 3600.0}
+    if seed:
+        d["seed_peer"] = True
+    else:
+        d["tpu_sink"] = {"enabled": True, "batch_pieces": BATCH_PIECES}
+    return d
+
+
+def _swarm_child(conn, role: str, args: tuple) -> None:
+    """The body of a ``SwarmProcess``: the port's ``SchedulerServer``
+    (``role`` "scheduler") or a seed ``Daemon`` ("seed") on an event loop
+    of its own thread, then answers to the measured process until told to
+    stop."""
+    from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig
+    from dragonfly2_tpu_torch.scheduler.server import SchedulerServer
+
+    loop = asyncio.new_event_loop()
+    thread = threading.Thread(target=loop.run_forever,
+                              name=f"df-swarm-{role}", daemon=True)
+    thread.start()
+
+    def run(coro):
+        return asyncio.run_coroutine_threadsafe(coro, loop).result()
+
+    server = daemon = None
+    try:
+        if role == "scheduler":
+            server = SchedulerServer(SchedulerConfig.from_dict(
+                swarm_scheduler_config()))
+            run(server.start())
+            conn.send({"addr": f"{P2P_HOST}:{server.port()}"})
+        else:
+            root, scheduler, device = args
+            daemon = Daemon(DaemonConfig.from_dict(swarm_daemon_config(
+                root, "seed", scheduler, seed=True)), device=device)
+            run(daemon.start())
+            conn.send({"host_id": daemon.announcer.host_id,
+                       "upload_port": daemon.upload.port})
+        while True:
+            msg = conn.recv()
+            if msg[0] == "stop":
+                conn.send(None)
+                return
+            if msg[0] == "hosts":
+                # Pieces served by each host, as the reports' parents
+                # booked them at the scheduler.
+                conn.send({h.id: {"upload_count": h.upload_count,
+                                  "type": int(h.type)}
+                           for h in server.service.hosts.all()})
+            else:
+                conn.send({"upload_bytes": UPLOAD_BYTES.value(),
+                           "upload_requests": UPLOAD_REQUESTS.value("ok"),
+                           "cpu_s": time.process_time()})
+    finally:
+        if server is not None:
+            run(server.stop())
+        if daemon is not None:
+            run(daemon.stop())
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=10)
+
+
+class SwarmProcess(StandInProcess):
+    """The swarm's scheduler or seed in a process of its own (spawned), as
+    each is another host; ``endpoint()`` waits for it to serve and gives
+    what it serves (the scheduler's address; the seed's host id and upload
+    port), ``stats()`` the seed's upload counters, ``hosts()`` the
+    scheduler's pieces served by host."""
+
+    def __init__(self, role: str, *args):
+        super().__init__(None, *args)
+        self._role = role
+
+    def start(self) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_swarm_child,
+                                 args=(child, self._role, self._args),
+                                 daemon=True, name=f"df-swarm-{self._role}")
+        self._proc.start()
+        child.close()
+
+    def stats(self) -> dict:
+        return self._ask("stats")
+
+    def hosts(self) -> dict:
+        return self._ask("hosts")
+
+
+class SwarmChild:
+    """One swarm child: the port's ``Daemon`` from ``swarm_daemon_config``
+    on the card, its own flight recorder (two children of one task in one
+    process would otherwise share a flight), a ``SinkClock`` on its sink
+    manager, and every conductor it builds kept with the scheduler answers
+    it acted on (``answers``: the time, kind, parents and stripe of each;
+    ``stripes``: each stripe plan applied)."""
+
+    def __init__(self, root: str, name: str, scheduler: str, device, **kw):
+        self.name = name
+        self.daemon = Daemon(DaemonConfig.from_dict(swarm_daemon_config(
+            root, name, scheduler, **kw)), device=device)
+        tm = self.daemon.task_manager
+        tm.flight = flight.FlightRecorder()
+        self.clock = SinkClock(tm.device_sinks)
+        self.answers: list[dict] = []
+        self.stripes: list = []
+        self.conductors: list = []
+        make = tm.conductor_factory
+
+        def factory(**kw):
+            c = make(**kw)
+            self.conductors.append(c)
+            dispatch, apply_stripe = c._dispatch_schedule, c._apply_stripe
+
+            async def recorded_dispatch(msg):
+                self.answers.append({
+                    "t": time.perf_counter(), "type": msg.get("type"),
+                    "parents": [p["id"] for p in msg.get("parents") or []],
+                    "stripe": msg.get("stripe")})
+                return await dispatch(msg)
+
+            def recorded_stripe(stripe):
+                self.stripes.append(None if not stripe else {
+                    k: stripe[k] for k in ("slice_size", "slice_rank",
+                                           "members")})
+                return apply_stripe(stripe)
+
+            c._dispatch_schedule, c._apply_stripe = (recorded_dispatch,
+                                                     recorded_stripe)
+            return c
+
+        tm.conductor_factory = factory
+
+    async def start(self) -> None:
+        await self.daemon.start()
+        self.cli = Client(NetAddr.unix(self.daemon.config.unix_sock))
+
+    @property
+    def host_id(self) -> str:
+        return self.daemon.announcer.host_id
+
+    async def download(self, body: dict) -> dict:
+        """``Daemon.Download`` over the child's socket; the last frame,
+        with the perf_counter time it arrived."""
+        stream = await self.cli.open_stream("Daemon.Download", body)
+        frames = []
+        while (msg := await stream.recv(timeout=600.0)) is not None:
+            frames.append(msg)
+        return {**frames[-1], "t_done": time.perf_counter()}
+
+    def registration(self, task_id: str) -> dict:
+        """Register to the first ``normal_task`` in the child's flight,
+        and the flight's ``sched_wait`` fold."""
+        tf = self.daemon.task_manager.flight.get(task_id)
+        events = tf.events()
+        reg = next(t for t, code, *_ in events if code == flight.EV_REGISTER)
+        first = next(t for t, code, _p, _a, note in events
+                     if code in (flight.EV_SCHEDULED, flight.EV_SCHED_PUSH)
+                     and note == "normal_task")
+        return {"register_to_normal_task_s": first - reg,
+                "sched_wait_s": flight.analyze(tf)["phases"]["sched_wait"]}
+
+    def take_and_gate(self, task_id: str, host: torch.Tensor) -> dict:
+        """The child's verified buffer taken from its sink manager, gated
+        by K1 and held to every byte of ``host``; the sink is released."""
+        sink = self.daemon.task_manager.device_sinks.take(task_id)
+        u8 = sink.as_bytes_array()
+        verify_u8_against_host(u8, sink.sink.piece_size,
+                               sink.sink.host_checksums)
+        equal = bool(torch.equal(u8, host))
+        sinks = self.daemon.task_manager.device_sinks
+        return {"bytes": int(u8.numel()), "equal": equal,
+                "land_s": self.clock.finalized - self.clock.first,
+                "sink_busy_s": sinks.busy_s - self.clock.busy_from,
+                "pieces_landed": self.clock.pieces}
+
+    async def stop(self) -> None:
+        await self.cli.close()
+        await self.daemon.stop()
+
+
+def seed_origin_reads(size: int) -> dict:
+    """The origin's reads for one back-to-source fetch of ``size`` bytes
+    by a daemon of the default config: a 1-byte probe, then one ranged
+    GET a piece group, or one whole GET under the concurrent minimum."""
+    opt = DaemonConfig().download
+    if size < opt.concurrent_min_length:
+        return {"get_range": [1, 1], "get": [1, size]}
+    groups = min(opt.piece_concurrency,
+                 compute_piece_count(size, compute_piece_size(size)))
+    return {"get_range": [1 + groups, 1 + size]}
+
+
+def _scheduler_client(addr: str) -> Client:
+    ip, port = addr.rsplit(":", 1)
+    return Client(NetAddr.tcp(ip, int(port)))
+
+
+async def _swarm_scheduler_view(addr: str, task_id: str) -> dict:
+    """``Scheduler.StatTask`` and ``Scheduler.ListHosts`` over the port's
+    drpc."""
+    cli = _scheduler_client(addr)
+    try:
+        return {"stat_task": await cli.call("Scheduler.StatTask",
+                                            {"task_id": task_id},
+                                            timeout=10.0),
+                "hosts": (await cli.call("Scheduler.ListHosts", {},
+                                         timeout=10.0))["hosts"]}
+    finally:
+        await cli.close()
+
+
+def _check_download(what: str, last: dict) -> None:
+    if (last["state"] != "done" or not last["from_p2p"]
+            or not last["device_verified"]):
+        raise AssertionError(f"swarm {what}: the download ended {last}")
+
+
+async def _swarm_fanout(root: str, sched: SwarmProcess, addr: str, url: str,
+                        sha: str, host: torch.Tensor, gw: StandInProcess,
+                        seed: SwarmProcess, device) -> dict:
+    """Fan-out: child 1 pulls the shard (with its sha256) onto the card;
+    the scheduler triggers the seed and hands it out. Child 2 registers
+    once child 1 has landed a quarter of its pieces, so a running parent
+    can be handed to it. Both buffers are taken, gated by K1, held to
+    every byte and released."""
+    n_pieces = compute_piece_count(host.numel(),
+                                   compute_piece_size(host.numel()))
+    kids = [SwarmChild(root, name, addr, device) for name in ("c1", "c2")]
+    for c in kids:
+        await c.start()
+    c1, c2 = kids
+    body = {"url": url, "device": "tpu", "meta": {"digest": sha}}
+    task_id = FileTaskRequest(url=url, output="",
+                              meta=UrlMeta(digest=sha)).task_id()
+    try:
+        origin0, seed0 = gw.requests(), seed.stats()
+        uploads0, hosts0 = UPLOAD_BYTES.value(), sched.hosts()
+        rehash0 = {r: COMPLETION_REHASH.value(r)
+                   for r in ("skipped", "hashed")}
+        t0 = time.perf_counter()
+        first = asyncio.ensure_future(c1.download(dict(body)))
+        while c1.clock.pieces < n_pieces // 4:
+            if first.done():
+                raise AssertionError(f"swarm: child 1 ended before a "
+                                     f"quarter of its pieces landed: "
+                                     f"{first.result()}")
+            await asyncio.sleep(0.002)
+        t_c2 = time.perf_counter()
+        at_c2 = c1.clock.pieces
+        second = asyncio.ensure_future(c2.download(dict(body)))
+        last1, last2 = await asyncio.gather(first, second)
+        wall = time.perf_counter() - t0
+        _check_download("fan-out child 1", last1)
+        _check_download("fan-out child 2", last2)
+        out = {"task_id": task_id, "wall_s": wall,
+               "c2_registered_after_s": t_c2 - t0,
+               "c1_pieces_at_c2": at_c2, "children": {}}
+        for c in kids:
+            out["children"][c.name] = {
+                **c.take_and_gate(task_id, host), **c.registration(task_id),
+                "host_id": c.host_id,
+                "upload_addr": f"{P2P_HOST}:{c.daemon.upload.port}",
+                "answers": [{k: a[k] for k in ("type", "parents")}
+                            for a in c.answers]}
+        out["rehash"] = {r: COMPLETION_REHASH.value(r) - v
+                         for r, v in rehash0.items()}
+        out["c2_last_piece_to_finalize_s"] = (c2.clock.finalized
+                                              - c2.clock.last_piece)
+        # Child 2's first handout, and whether child 1 was in it while
+        # child 1 was still downloading.
+        a2 = next(a for a in c2.answers if a["type"] == "normal_task")
+        c1_peer = c1.conductors[0].peer_id
+        out["c2_handout"] = a2["parents"]
+        out["c2_handed_running_c1"] = (c1_peer in a2["parents"]
+                                       and a2["t"] < last1["t_done"])
+        out["origin"] = _origin_delta(origin0, gw.requests())
+        out["seed_upload_bytes"] = (seed.stats()["upload_bytes"]
+                                    - seed0["upload_bytes"])
+        # Both children serve from this process: the counter is theirs
+        # together (child 2 has no later registrant to serve).
+        out["children_upload_bytes"] = UPLOAD_BYTES.value() - uploads0
+        hosts1 = sched.hosts()
+        out["pieces_served_by_host"] = {
+            h: v["upload_count"] - hosts0.get(h, {}).get("upload_count", 0)
+            for h, v in hosts1.items()}
+        out.update(await _swarm_scheduler_view(addr, task_id))
+        out["n_pieces"] = n_pieces
+        return out
+    finally:
+        for c in kids:
+            await c.stop()
+
+
+async def _swarm_stripe(root: str, sched: SwarmProcess, addr: str, url: str,
+                        host: torch.Tensor, gw: StandInProcess,
+                        seed: SwarmProcess, device) -> dict:
+    """The striped slice broadcast: two fresh children on one
+    ``tpu_slice`` pull the quarter object with ``pod_broadcast`` at once;
+    each is handed the seed and a stripe plan, pulls its stripe from the
+    seed and the rest from its mate. Both buffers taken, gated and held
+    to every byte."""
+    kids = [SwarmChild(root, f"s{i}", addr, device, tpu_slice=SWARM_SLICE,
+                       worker=i) for i in range(2)]
+    for c in kids:
+        await c.start()
+    body = {"url": url, "device": "tpu", "pod_broadcast": True}
+    task_id = FileTaskRequest(url=url, output="").task_id()
+    try:
+        origin0, seed0 = gw.requests(), seed.stats()
+        t0 = time.perf_counter()
+        lasts = await asyncio.gather(*[c.download(dict(body)) for c in kids])
+        wall = time.perf_counter() - t0
+        for c, last in zip(kids, lasts):
+            _check_download(f"stripe {c.name}", last)
+        out = {"task_id": task_id, "wall_s": wall, "children": {}}
+        for c in kids:
+            out["children"][c.name] = {
+                **c.take_and_gate(task_id, host), **c.registration(task_id),
+                "host_id": c.host_id,
+                "upload_addr": f"{P2P_HOST}:{c.daemon.upload.port}",
+                "stripes": c.stripes}
+        out["origin"] = _origin_delta(origin0, gw.requests())
+        out["seed_upload_bytes"] = (seed.stats()["upload_bytes"]
+                                    - seed0["upload_bytes"])
+        out.update(await _swarm_scheduler_view(addr, task_id))
+        return out
+    finally:
+        for c in kids:
+            await c.stop()
+
+
+def phase_swarm(content: np.ndarray, device: torch.device) -> dict:
+    """The port's scheduler picks the card's parents. In processes of
+    their own: the scheduler (``SchedulerServer``), the origin (the
+    shard's file and its first quarter) and a seed daemon
+    (``seed_peer``, no device sink); in this one, children landing on the
+    card. Fan-out (``_swarm_fanout``), then, the fan-out's children
+    stopped and their stores removed, the stripe (``_swarm_stripe``).
+    Checks: the seed triggered and handed out, the origin served each
+    object once, every buffer verified and held to every byte, the task
+    succeeded with 3 peers at the scheduler and ListHosts shows the seed,
+    child 2 handed the running child 1, each stripe child received a plan
+    of 2 and the seed served near one copy of the quarter, and the
+    launches."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="df-chip-swarm-")
+    procs = []
+    try:
+        # The origin's file, the seed's stores (the shard and its
+        # quarter) and two children's stores at a time, with a GiB to
+        # spare.
+        need = 4 * content.size + content.size // 4 + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(f"the swarm phase needs {need} B free under "
+                               f"{tmp}; {free} B are")
+        path = os.path.join(tmp, GATEWAY_KEY)
+        content.tofile(path)
+        t0 = time.perf_counter()
+        sha = "sha256:" + hashlib.sha256(memoryview(content)).hexdigest()
+        gw = StandInProcess(swarm_origin_objects, path)
+        sched = SwarmProcess("scheduler")
+        for p in (gw, sched):
+            p.start()
+            procs.append(p)
+        endpoint = gw.endpoint()
+        addr = sched.endpoint()["addr"]
+        seed = SwarmProcess("seed", os.path.join(tmp, "seed-home"), addr,
+                            str(device))
+        seed.start()
+        procs.append(seed)
+        seed_info = seed.endpoint()
+        start_s = time.perf_counter() - t0
+        url = f"{endpoint}/buckets/{ORIGIN_BUCKET}/objects/{GATEWAY_KEY}"
+        quarter_url = (f"{endpoint}/buckets/{ORIGIN_BUCKET}/objects/"
+                       f"{SWARM_QUARTER_KEY}")
+        quarter = content.size // 4
+        host = torch.from_numpy(content).to(device)
+        zero_launches()
+        fan = asyncio.run(_swarm_fanout(os.path.join(tmp, "fanout"), sched,
+                                        addr, url, sha, host, gw, seed,
+                                        device))
+        shutil.rmtree(os.path.join(tmp, "fanout"), ignore_errors=True)
+        host = host[:quarter]
+        stripe = asyncio.run(_swarm_stripe(os.path.join(tmp, "stripe"),
+                                           sched, addr, quarter_url, host,
+                                           gw, seed, device))
+        _sync(device)
+        launches = checksum.launch_counts()
+        del host
+    finally:
+        for p in reversed(procs):
+            p.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_full = fan["n_pieces"]
+    n_quarter = compute_piece_count(quarter, compute_piece_size(quarter))
+    for what, r, size in (("fan-out", fan, content.size),
+                          ("stripe", stripe, quarter)):
+        if r["origin"] != seed_origin_reads(size):
+            raise AssertionError(f"swarm {what}: origin saw {r['origin']}, "
+                                 f"want {seed_origin_reads(size)}")
+    seed_id = seed_info["host_id"]
+    for what, r, n in (("fan-out", fan, n_full), ("stripe", stripe,
+                                                  n_quarter)):
+        for name, c in r["children"].items():
+            if not c["equal"] or c["pieces_landed"] != n:
+                raise AssertionError(f"swarm {what} {name}: {c}")
+        st = r["stat_task"]
+        if (st["state"], st["peer_count"]) != ("succeeded", 3):
+            raise AssertionError(f"swarm {what}: StatTask {st}")
+        hosts = {h["id"]: h["type"] for h in r["hosts"]}
+        want_hosts = {seed_id, *(c["host_id"]
+                                 for c in r["children"].values())}
+        if set(hosts) != want_hosts or hosts[seed_id] != 1:
+            raise AssertionError(f"swarm {what}: ListHosts {hosts}")
+    # The seed was triggered by the scheduler and handed out: child 1's
+    # first answer names the seed's peer.
+    c1 = fan["children"]["c1"]
+    if c1["answers"][0]["type"] != "normal_task" or not any(
+            pid.endswith("_Seed") for pid in c1["answers"][0]["parents"]):
+        raise AssertionError(f"swarm: child 1 was answered "
+                             f"{c1['answers']}")
+    # Every byte each child landed came from a peer: the seed and the
+    # children served at least two copies together.
+    if fan["seed_upload_bytes"] + fan["children_upload_bytes"] < \
+            2 * content.size:
+        raise AssertionError(
+            f"swarm fan-out: the seed served {fan['seed_upload_bytes']} B "
+            f"and the children {fan['children_upload_bytes']} B, less than "
+            f"{2 * content.size} B together")
+    # One completion decision a child (skipped when a done parent's
+    # digests certified it, else hashed).
+    if sum(fan["rehash"].values()) != 2:
+        raise AssertionError(f"swarm fan-out: completion re-hashes "
+                             f"{fan['rehash']}")
+    for name, c in stripe["children"].items():
+        plans = [p for p in c["stripes"] if p]
+        if not plans or plans[-1]["slice_size"] != 2:
+            raise AssertionError(f"swarm stripe {name}: plans {c['stripes']}")
+    ranks = sorted(c["stripes"][-1]["slice_rank"]
+                   for c in stripe["children"].values())
+    if ranks != [0, 1]:
+        raise AssertionError(f"swarm stripe: ranks {ranks}")
+    stripe["seed_bytes_over_content"] = stripe["seed_upload_bytes"] / quarter
+    if stripe["seed_bytes_over_content"] >= 1.5:
+        raise AssertionError(
+            f"swarm stripe: the seed served {stripe['seed_upload_bytes']} B "
+            f"for a {quarter} B object (two unstriped children draw 2x)")
+    k2 = 2 * -(-n_full // BATCH_PIECES) + 2 * -(-n_quarter // BATCH_PIECES)
+    if _on_card(device) and launches != {"chunk_checksums": 8,
+                                         "land_and_checksum": k2,
+                                         "gear_candidates": 0}:
+        raise AssertionError(f"swarm: launches {launches}, want K1 8, "
+                             f"K2 {k2}")
+    return {"fanout": fan, "stripe": stripe, "launches": launches,
+            "want_k2": k2, "start_s": start_s,
+            "phase_s": time.perf_counter() - t_phase,
+            "quarter_bytes": quarter,
+            "seed_host": seed_id, "quarter_pieces": n_quarter}
+
+
+def swarm_lines(swm: dict, content_bytes: int) -> list[str]:
+    """The swarm phase's printed lines."""
+    fan, stripe = swm["fanout"], swm["stripe"]
+    c1, c2 = fan["children"]["c1"], fan["children"]["c2"]
+    origin = fan["origin"].get("get_range", [0, 0])
+    out = [
+        f"swarm fan-out: the port's scheduler triggered the seed and "
+        f"handed it to child 1 ({len(c1['answers'][0]['parents'])} parent); "
+        f"the origin served {origin[0]} GETs, {origin[1]} B for a "
+        f"{content_bytes} B shard; child 2 registered "
+        f"{fan['c2_registered_after_s']:.3f} s in, at child 1's "
+        f"{fan['c1_pieces_at_c2']} of {fan['n_pieces']} pieces, and was "
+        f"handed {len(fan['c2_handout'])} parents, the running child 1 "
+        f"{'among them' if fan['c2_handed_running_c1'] else 'NOT among them'}"
+        f"; registration (register -> first normal_task): child 1 "
+        f"{c1['register_to_normal_task_s'] * 1e3:.3f} ms (sched_wait "
+        f"{c1['sched_wait_s'] * 1e3:.3f} ms), child 2 "
+        f"{c2['register_to_normal_task_s'] * 1e3:.3f} ms (sched_wait "
+        f"{c2['sched_wait_s'] * 1e3:.3f} ms); "
+        f"land_s child 1 {c1['land_s']:.4f} s (its sink worker busy "
+        f"{c1['sink_busy_s']:.4f} s), child 2 {c2['land_s']:.4f} s (busy "
+        f"{c2['sink_busy_s']:.4f} s), both in this process; both buffers "
+        f"verified by K1 and equal to the shard; wall {fan['wall_s']:.3f} s; "
+        f"the phase {swm['phase_s']:.1f} s, of it {swm['start_s']:.1f} s "
+        f"writing the origin's file, its sha256 and the three processes' "
+        f"start",
+        f"swarm fan-out uploads: the seed {fan['seed_upload_bytes']:.0f} B "
+        f"(its process's upload_bytes_total), the children "
+        f"{fan['children_upload_bytes']:.0f} B (this process's); pieces "
+        f"served by host at the scheduler "
+        f"{json.dumps(fan['pieces_served_by_host'])}; child 2's last piece "
+        f"to finalize (the certification wait) "
+        f"{fan['c2_last_piece_to_finalize_s']:.4f} s, "
+        f"peer_completion_rehash_total over both children "
+        f"{json.dumps(fan['rehash'])}; StatTask {fan['stat_task']['state']} "
+        f"with {fan['stat_task']['peer_count']} peers; ListHosts "
+        f"{len(fan['hosts'])} hosts, types "
+        f"{sorted(h['type'] for h in fan['hosts'])}",
+        f"swarm stripe: two children on one slice pulled the "
+        f"{swm['quarter_bytes']} B quarter with pod_broadcast; plans "
+        + "; ".join(f"{name} {c['stripes'][-1]['slice_rank']} of "
+                    f"{c['stripes'][-1]['slice_size']} ({len(c['stripes'])} "
+                    f"applied), land_s {c['land_s']:.4f} s, register -> "
+                    f"normal_task {c['register_to_normal_task_s'] * 1e3:.3f} "
+                    f"ms" for name, c in stripe["children"].items())
+        + f"; the seed served {stripe['seed_upload_bytes']:.0f} B = "
+        f"{stripe['seed_bytes_over_content']:.3f}x the object; StatTask "
+        f"{stripe['stat_task']['state']} with "
+        f"{stripe['stat_task']['peer_count']} peers; K2 "
+        f"{swm['launches']['land_and_checksum']}, K1 "
+        f"{swm['launches']['chunk_checksums']} over both sub-cases"]
+    return out
+
+
+# --------------------------------------------------------------------- #
 # The daemon's other task kinds: a delta task through the port's own
 # daemon (generation 1 -> 2: the base manifest built by K3 inside the
 # task, the swap gated by K1), and a scheduler's seed trigger onto the
@@ -3635,8 +4210,8 @@ DFD_NOTE_KEY = "chip_smoke.json"
 
 class SinkClock:
     """The first call into a sink manager (a piece, or a finalize that
-    backfills), the return of its last finalize and the pieces handed to
-    it, taken by wrapping the methods of the daemon's own
+    backfills), the return of its last piece's landing, the return of its
+    last finalize and the pieces handed to it, taken by wrapping the methods of the daemon's own
     ``DeviceSinkManager`` instance; with the manager's ``busy_s`` at
     ``reset``."""
 
@@ -3650,6 +4225,7 @@ class SinkClock:
                 self.first = time.perf_counter()
             self.pieces += 1
             await on_piece(*args)
+            self.last_piece = time.perf_counter()
 
         async def timed_finalize(*args):
             if self.first is None:
@@ -3662,7 +4238,7 @@ class SinkClock:
         sinks.on_piece, sinks.finalize = timed_on_piece, timed_finalize
 
     def reset(self) -> None:
-        self.first = self.finalized = None
+        self.first = self.finalized = self.last_piece = None
         self.pieces = 0
         self.busy_from = self.sinks.busy_s
 
@@ -4610,7 +5186,7 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k2_daemon: int, want_k2_p2p: int,
                    want_k2_pex: int, want_k2_seed: int,
                    want_k2_dfdaemon: int, want_k2_dfdaemon_epoch: int,
-                   want_k2_proxy: int) -> None:
+                   want_k2_proxy: int, want_k2_swarm: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -4640,7 +5216,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     path: K2 once a batch of the cut epoch. The p2p_qos path (the gated
     pull) and the proxy path (its pulls launch nothing; the landing off
     the proxy-filled store): K2 once per batch of the landing, K1 twice in
-    the gate after it."""
+    the gate after it. The swarm path: K2 once per batch of each of its
+    four children's landings (two of the shard, two of its quarter), K1
+    twice in the gate after each."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -4660,7 +5238,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "seed": k(2, want_k2_seed), "seed_again": k(0, want_k2_seed),
             "dfdaemon": k(2, want_k2_dfdaemon),
             "dfdaemon_epoch": k(0, want_k2_dfdaemon_epoch),
-            "p2p_qos": k(2, want_k2_proxy), "proxy": k(2, want_k2_proxy)}
+            "p2p_qos": k(2, want_k2_proxy), "proxy": k(2, want_k2_proxy),
+            "swarm": k(8, want_k2_swarm)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -5022,6 +5601,11 @@ def main(argv=None) -> int:
           f"{pex['holder_cpu_s']:.3f} CPU s serving; peak device memory "
           f"{pex['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
     print(flight_line("pex", pex["flight"]) + f" on {smi}")
+    swm = phase_swarm(content, device)
+    torch.cuda.empty_cache()
+    print("swarm:", json.dumps(swm))
+    for line in swarm_lines(swm, content.size):
+        print(f"{line} on {smi}")
 
     swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
                                    piece_size, gen, device)
@@ -5308,13 +5892,13 @@ def main(argv=None) -> int:
              "seed_again": s2["launches"], "dfdaemon": dfd["launches"],
              "dfdaemon_epoch": dfd["epoch"]["launches"],
              "p2p_qos": p2p["gated"]["launches"],
-             "proxy": prx["launches"]}
+             "proxy": prx["launches"], "swarm": swm["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
                    sum(dmn["want_k2"].values()), p2p["want_k2"],
                    pex["want_k2"], seed["want_k2"], dfd["want_k2"],
-                   DFD_EPOCH_BATCHES, prx["want_k2"])
+                   DFD_EPOCH_BATCHES, prx["want_k2"], swm["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

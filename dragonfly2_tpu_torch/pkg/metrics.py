@@ -98,6 +98,9 @@ class Histogram(_Metric):
             bounds.append(math.inf)
         self.buckets = tuple(bounds)
 
+    def observe(self, amount: float) -> None:
+        self._observe(self._unlabeled(), amount)
+
     def _observe(self, key: tuple[str, ...], amount: float) -> None:
         with self._lock:
             row = self._values.get(key)

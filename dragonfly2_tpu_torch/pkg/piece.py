@@ -1,8 +1,9 @@
 """Piece-size math, piece records and byte ranges: the port's own copy of
 ``compute_piece_size``, ``compute_piece_count``, ``piece_length``,
-``PieceInfo`` and ``Range`` (``dragonfly2_tpu/pkg/piece.py``). The piece math sizes the device sink's
+``PieceInfo``, ``Range`` and ``SizeScope`` (``dragonfly2_tpu/pkg/piece.py``). The piece math sizes the device sink's
 slots exactly as the daemon sizes its pieces; the reference daemon reads
-a port request's ``Range`` directly (``start``, ``length``)."""
+a port request's ``Range`` directly (``start``, ``length``); the
+scheduler's registration shortcuts read ``SizeScope``."""
 
 from __future__ import annotations
 
@@ -127,3 +128,32 @@ class Range:
         if self.length < 0:
             return f"bytes={self.start}-"
         return f"bytes={self.start}-{self.start + self.length - 1}"
+
+
+class SizeScope:
+    """Task size classes that drive the scheduler's registration
+    shortcuts."""
+
+    NORMAL = "normal"   # more than one piece: the full piece machinery
+    SMALL = "small"     # one piece: the single-piece shortcut
+    TINY = "tiny"       # <= 128 bytes: inlined in the scheduler's answer
+    EMPTY = "empty"     # zero bytes
+    UNKNOW = "unknow"   # content length not known yet
+
+    TINY_FILE_SIZE = 128
+
+    @classmethod
+    def of(cls, content_length: int, piece_size: int,
+           total_piece_count: int | None = None) -> str:
+        if content_length < 0:
+            return cls.UNKNOW
+        if content_length == 0:
+            return cls.EMPTY
+        if content_length <= cls.TINY_FILE_SIZE:
+            return cls.TINY
+        if total_piece_count is None:
+            total_piece_count = compute_piece_count(content_length,
+                                                    piece_size)
+        if total_piece_count == 1:
+            return cls.SMALL
+        return cls.NORMAL

@@ -1,11 +1,14 @@
 """Common small types: the port's copy of the parts of
 ``dragonfly2_tpu/pkg/types.py`` it needs: ``NetAddr``, ``HostType``,
-``Priority`` and ``parse_size``."""
+``Priority``, ``parse_size`` and ``AFFINITY_SEPARATOR``."""
 
 from __future__ import annotations
 
 import enum
 from dataclasses import dataclass
+
+# Separator of the elements of a host's location path ("zone|pod|slice").
+AFFINITY_SEPARATOR = "|"
 
 
 class HostType(enum.IntEnum):

@@ -1,16 +1,16 @@
 """The drpc wire contract of the methods the port serves: the port's copy
-of ``dragonfly2_tpu/proto/wire.py``, cut to the methods its
-``DaemonRpcServer`` registers: the download service (``Daemon.Download``,
+of ``dragonfly2_tpu/proto/wire.py``, cut to the methods its servers
+register: the daemon's download service (``Daemon.Download``,
 ``StatTask``, ``ImportTask``, ``ExportTask``, ``DeleteTask``, ``Health``,
-``FlightReport``, ``PodTimeline``) and the peer service
+``FlightReport``, ``PodTimeline``) and peer service
 (``Peer.SyncPieceTasks``, ``GetPieceTasks``, ``TriggerDownloadTask``,
-``StatTask``, ``DeleteTask``, ``Daemon.FlightReport``), plus
-``Scheduler.PodTimeline``, which ``Daemon.PodTimeline`` proxies,
-``Scheduler.AnnounceHost`` and ``Scheduler.LeaveHost``, which the
-daemon's announcer sends, and the messages a conductor sends on ``Scheduler.AnnouncePeer``
-(``STREAM_MSGS``: the piece reports with their ``timings``, the packed
-batch envelope, the resume with its ``piece_bitmap``, and the terminal
-messages with the flight digest), which ``validate_stream_msg`` checks.
+``StatTask``, ``DeleteTask``, ``Daemon.FlightReport``), and every
+``Scheduler.*`` method of the scheduler (``scheduler/server.py``): the
+``AnnouncePeer`` open message, the unary calls, and the messages a
+conductor sends on the stream (``STREAM_MSGS``: the piece reports with
+their ``timings``, the packed batch envelope, the resume with its
+``piece_bitmap``, and the terminal messages with the flight digest),
+which ``validate_stream_msg`` checks.
 
 Bodies are validated at the server boundary (``rpc/server.py``), so a
 malformed body fails fast with ``Code.BadRequest``. As in protobuf,
@@ -92,6 +92,13 @@ class Msg:
                 self._check(f"{fname}[{i}]", f.item, item, where)
 
 
+HOST = Msg(
+    "Host",
+    id=F(str), hostname=F(str), ip=F(str), port=F(int), upload_port=F(int),
+    type=F(int), idc=F(str), location=F(str), tpu_slice=F(str),
+    tpu_worker_index=F(int), telemetry=F(dict),
+)
+
 URL_META = Msg(
     "UrlMeta",
     digest=F(str), tag=F(str), range=F(str), filter=F(str),
@@ -147,20 +154,52 @@ CLOCK_SAMPLE = Msg(
     echo=F(float, required=True),
 )
 
+_PERSISTENT_COMMON = dict(
+    task_id=F(str, required=True), peer_id=F(str), host=F(dict, spec=HOST),
+)
+
 UNARY: dict[str, Msg] = {
-    # The scheduler's host registry: the announcer's periodic announce and
-    # its leave at the daemon's stop.
+    # The scheduler: its host registry (the announcer's periodic announce
+    # and its leave at the daemon's stop), peers and tasks, and the
+    # persistent-cache family.
     "Scheduler.AnnounceHost": Msg(
         "AnnounceHost",
         id=F(str, required=True), hostname=F(str), ip=F(str), port=F(int),
         upload_port=F(int), type=F(int), idc=F(str), location=F(str),
         tpu_slice=F(str), tpu_worker_index=F(int), telemetry=F(dict),
         clock=F(dict, spec=CLOCK_SAMPLE)),
-    "Scheduler.LeaveHost": Msg("LeaveHost", id=F(str, required=True)),
-    # The scheduler's merged cross-host timeline, which Daemon.PodTimeline
-    # proxies.
+    # The merged cross-host timeline, which Daemon.PodTimeline proxies.
     "Scheduler.PodTimeline": Msg(
         "PodTimeline", task_id=F(str, required=True)),
+    "Scheduler.LeaveHost": Msg("LeaveHost", id=F(str, required=True)),
+    "Scheduler.LeavePeer": Msg("LeavePeer", id=F(str, required=True)),
+    "Scheduler.AnnounceTask": Msg(
+        "AnnounceTask",
+        task_id=F(str, required=True), peer_id=F(str, required=True),
+        url=F(str), tag=F(str), application=F(str),
+        host=F(dict, required=True, spec=HOST),
+        content_length=F(int), piece_size=F(int), total_piece_count=F(int),
+        piece_nums=F(list, item=F(int))),
+    "Scheduler.StatTask": Msg("StatTask", task_id=F(str, required=True)),
+    "Scheduler.StatPeer": Msg("StatPeer", peer_id=F(str, required=True)),
+    "Scheduler.ListHosts": Msg("ListHosts"),
+    "Scheduler.UploadPersistentCacheTaskStarted": Msg(
+        "UploadPersistentCacheTaskStarted",
+        **_PERSISTENT_COMMON,
+        url=F(str), tag=F(str), application=F(str), piece_size=F(int),
+        content_length=F(int), total_piece_count=F(int),
+        replica_count=F(int), ttl=F(float), digest=F(str)),
+    "Scheduler.UploadPersistentCacheTaskFinished": Msg(
+        "UploadPersistentCacheTaskFinished",
+        **_PERSISTENT_COMMON,
+        content_length=F(int), piece_size=F(int), total_piece_count=F(int)),
+    "Scheduler.UploadPersistentCacheTaskFailed": Msg(
+        "UploadPersistentCacheTaskFailed", **_PERSISTENT_COMMON),
+    "Scheduler.StatPersistentCacheTask": Msg(
+        "StatPersistentCacheTask", task_id=F(str, required=True)),
+    "Scheduler.ListPersistentCacheTasks": Msg("ListPersistentCacheTasks"),
+    "Scheduler.DeletePersistentCacheTask": Msg(
+        "DeletePersistentCacheTask", task_id=F(str, required=True)),
 
     # The download service (dfget and dfcache attach to it).
     "Daemon.StatTask": Msg("DaemonStatTask", task_id=F(str, required=True)),
@@ -200,6 +239,18 @@ UNARY: dict[str, Msg] = {
 }
 
 STREAM_OPEN: dict[str, Msg] = {
+    "Scheduler.AnnouncePeer": Msg(
+        "AnnouncePeerOpen",
+        host=F(dict, required=True, spec=HOST),
+        peer_id=F(str, required=True), task_id=F(str, required=True),
+        url=F(str), tag=F(str), application=F(str), digest=F(str),
+        filters=F(list, item=F(str)), header=F(dict), priority=F(int),
+        # The QoS attribution tag, carried into the scheduler's Task.
+        tenant=F(str),
+        range=F(str), is_seed=F(bool), disable_back_source=F(bool),
+        # A striped slice broadcast: the scheduler answers with a stripe
+        # plan (piece % S ownership).
+        pod_broadcast=F(bool)),
     "Daemon.Download": Msg(
         "DownloadOpen",
         url=F(str, required=True), output=F(str),

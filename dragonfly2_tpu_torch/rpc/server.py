@@ -5,8 +5,9 @@ a unix socket or vsock. Request bodies of the methods in
 ``proto/wire.py`` are checked at this boundary. ``serve(addr,
 ssl_context=)`` (``pkg/security.server_ssl_context``) puts TLS under a TCP
 listener, mTLS when it requires client certificates; a unix socket and
-vsock stay plaintext. Not ported: the trace spans around handlers, and
-the stream-message schemas (the port serves no method that has one).
+vsock stay plaintext. A stream message that breaks its method's schema
+fails the stream both ways (an ERR frame to the client, a BadRequest
+close to the handler). Not ported: the trace spans around handlers.
 """
 
 from __future__ import annotations
@@ -204,6 +205,18 @@ class Server:
                 elif frame.type == MSG:
                     s = streams.get(frame.call_id)
                     if s is not None:
+                        try:
+                            wire.validate_stream_msg(s.method, frame.body)
+                        except wire.SchemaError as e:
+                            # A contract breach mid-stream: fail the
+                            # stream both ways and route no more frames
+                            # to it.
+                            err = DfError(Code.BadRequest, str(e))
+                            streams.pop(frame.call_id, None)
+                            s._on_close(err)
+                            await fw.write(Frame(ERR, frame.call_id,
+                                                 error=err.to_wire()))
+                            continue
                         s._on_msg(frame.body)
                 elif frame.type in (CLOSE, ERR):
                     s = streams.get(frame.call_id)

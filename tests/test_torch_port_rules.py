@@ -9,7 +9,9 @@
   ``aiohttp`` (the card machine has none); no port source imports
   ``cryptography`` (nor has the card machine it), and the daemon with its
   proxy, CA and QoS plane runs with none of ``aiohttp``, ``msgpack`` or
-  ``cryptography`` importable.
+  ``cryptography`` importable; the scheduler serves with none of
+  ``aiohttp``, ``msgpack`` or ``yaml`` importable. What the daemon's
+  and the scheduler's slices leave out, or refuse, is pinned.
 - Every thread the port or ``chip_smoke.py`` starts carries a ``df-``
   name (the profiler attributes by thread name).
 - Its entry points run on the card unless told ``device="cpu"``: without
@@ -262,6 +264,60 @@ def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
             "dragonfly2_tpu_torch.pkg.httpserver"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
         "aiohttp", "msgpack", "cryptography", "yaml", "psutil")] == []
+
+
+def test_the_scheduler_imports_none_of_jax_aiohttp_msgpack_yaml():
+    """The scheduler and its support copies (``pkg/{fsm,dag,slo}.py``,
+    ``qos/admission.py``, the ``Scheduler.*`` schemas) import none of the
+    JAX side, ``aiohttp``, ``msgpack`` or ``yaml`` (the JAX scheduler's
+    drpc needs ``msgpack``, its config imports ``yaml`` at module top and
+    its tiny-task fetch uses ``aiohttp``); with none of the three
+    importable it loads a JSON config, serves, answers a unary call over
+    drpc and stops."""
+    code = ("import asyncio, json, os, sys, tempfile\n"
+            "for m in ('aiohttp', 'msgpack', 'yaml'):\n"
+            "    sys.modules[m] = None\n"
+            "import dragonfly2_tpu_torch.scheduler.server\n"
+            "import dragonfly2_tpu_torch.scheduler.service\n"
+            "import dragonfly2_tpu_torch.scheduler.resource.snapshot\n"
+            "import dragonfly2_tpu_torch.scheduler.resource.persistentcache\n"
+            "import dragonfly2_tpu_torch.pkg.dag\n"
+            "import dragonfly2_tpu_torch.qos.admission\n"
+            "from dragonfly2_tpu_torch.rpc import Client\n"
+            "from dragonfly2_tpu_torch.pkg.types import NetAddr\n"
+            "from dragonfly2_tpu_torch.scheduler.config import "
+            "SchedulerConfig\n"
+            "from dragonfly2_tpu_torch.scheduler.server import "
+            "SchedulerServer\n"
+            "path = os.path.join(tempfile.mkdtemp(), 'scheduler.json')\n"
+            "with open(path, 'w') as f:\n"
+            "    json.dump({'server': {'port': 0}, 'metrics_port': -1,\n"
+            "               'fleet': {'enabled': False}}, f)\n"
+            "async def main():\n"
+            "    s = SchedulerServer(SchedulerConfig.load(path))\n"
+            "    await s.start()\n"
+            "    cli = Client(NetAddr.tcp('127.0.0.1', s.port()))\n"
+            "    assert (await cli.call('Scheduler.ListHosts', {})) == "
+            "{'hosts': []}\n"
+            "    await cli.close()\n"
+            "    await s.stop()\n"
+            "asyncio.run(main())\n"
+            "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+            "                        if v is not None)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.scheduler.config",
+            "dragonfly2_tpu_torch.scheduler.scheduling.scheduling",
+            "dragonfly2_tpu_torch.scheduler.scheduling.evaluator",
+            "dragonfly2_tpu_torch.scheduler.scheduling.stripe",
+            "dragonfly2_tpu_torch.scheduler.seed_client",
+            "dragonfly2_tpu_torch.pkg.fsm",
+            "dragonfly2_tpu_torch.pkg.slo"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
+        "aiohttp", "msgpack", "yaml")] == []
 
 
 def _top_level_imports(tree: ast.Module) -> list[str]:
@@ -586,19 +642,123 @@ def test_the_intended_divergences_of_the_p2p_half():
         port, jax = getattr(served, service), getattr(jserved, service)
         assert set(port._stream) == set(jax._stream)
         assert set(port._unary) == set(jax._unary)
-    # The port's wire schemas are the JAX ones of the methods it serves,
-    # of the scheduler method Daemon.PodTimeline proxies and of the host
-    # announcements its announcer sends.
+    # The port's wire schemas are the JAX ones of the methods it serves:
+    # the daemon's two services and every method of the scheduler (which
+    # takes in the one Daemon.PodTimeline proxies and the host
+    # announcements the daemon's announcer sends).
+    from dragonfly2_tpu_torch.scheduler.server import SchedulerServer
+
+    sched = SchedulerServer.__new__(SchedulerServer)
+    sched.service = type("S", (), {"__getattr__": lambda self, n: n})()
+    sched.rpc = Server("scheduler")
+    sched._register()
     methods = set(served.peer_server._unary) | set(
-        served.download_server._unary)
-    assert set(pwire.UNARY) == (methods & set(jwire.UNARY)) | {
-        "Scheduler.PodTimeline", "Scheduler.AnnounceHost",
-        "Scheduler.LeaveHost"}
+        served.download_server._unary) | set(sched.rpc._unary)
+    assert set(pwire.UNARY) == methods & set(jwire.UNARY)
     assert set(pwire.STREAM_OPEN) == (set(served.peer_server._stream) | set(
-        served.download_server._stream)) & set(jwire.STREAM_OPEN)
+        served.download_server._stream) | set(sched.rpc._stream)) & set(
+        jwire.STREAM_OPEN)
+    for table in ("UNARY", "STREAM_OPEN"):
+        ported, jax = getattr(pwire, table), getattr(jwire, table)
+        for method in ported:
+            assert {f: (v.type, v.required) for f, v in
+                    ported[method].fields.items()} == {
+                f: (v.type, v.required)
+                for f, v in jax[method].fields.items()}, method
     assert set(pwire.STREAM_MSGS) == {"Scheduler.AnnouncePeer"}
     assert set(pwire.STREAM_MSGS["Scheduler.AnnouncePeer"]) == set(
         jwire.STREAM_MSGS["Scheduler.AnnouncePeer"])
+
+
+def test_the_intended_divergences_of_the_scheduler(run_async):
+    """What the port's scheduler refuses and what it only observes,
+    pinned. Refused at construction, by name and ``ROADMAP.md`` item: an
+    enabled fleet observatory (its straggler filter drops candidates; the
+    JAX defaults turn it on), ``manager_addr`` and an evaluator plugin.
+    Accepted and installing nothing: ``podlens.enabled``,
+    ``podlens.slo_enabled`` and ``prof.enabled`` (the JAX service builds
+    a pod lens for the first). ``Scheduler.PodTimeline`` answers as the
+    JAX scheduler does with ``podlens.enabled=False``; ``/metrics`` has
+    no ``/debug/*`` route; the tiny task's fetch is ``http.client``."""
+    import inspect
+    import urllib.error
+    import urllib.request
+
+    from dragonfly2_tpu.pkg.errors import DfError as JDfError
+    from dragonfly2_tpu.scheduler.config import SchedulerConfig as JConfig
+    from dragonfly2_tpu.scheduler.scheduling import Scheduling as JScheduling
+    from dragonfly2_tpu.scheduler.service import SchedulerService as JService
+    from dragonfly2_tpu_torch.pkg.errors import DfError
+    from dragonfly2_tpu_torch.scheduler import service as psvc
+    from dragonfly2_tpu_torch.scheduler.config import (
+        SchedulerConfig,
+        SchedulingConfig,
+    )
+    from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
+    from dragonfly2_tpu_torch.scheduler.server import SchedulerServer
+
+    off = {"fleet": {"enabled": False}}
+    for over, name, item in (
+            ({}, "fleet.enabled", "A7.4"),
+            ({**off, "manager_addr": "127.0.0.1:65003"}, "manager_addr",
+             "A7.2"),
+            ({**off, "scheduling": {"algorithm": "plugin"}},
+             "scheduling.algorithm", "A7.4")):
+        with pytest.raises(ValueError) as e:
+            psvc.SchedulerService(SchedulerConfig.from_dict(over))
+        assert name in str(e.value) and f"ROADMAP {item}" in str(e.value)
+    with pytest.raises(ValueError, match="plugins are not ported"):
+        Scheduling(SchedulingConfig(algorithm="plugin"))
+    assert hasattr(JScheduling, "wire_fleet")
+    assert not hasattr(Scheduling, "wire_fleet")
+
+    on = {**off, "podlens": {"enabled": True, "slo_enabled": True},
+          "prof": {"enabled": True}}
+    svc = psvc.SchedulerService(SchedulerConfig.from_dict(on))
+    for name in ("fleet", "pod_lens", "slo", "frame_builder"):
+        assert not hasattr(svc, name)
+    jcfg = JConfig()
+    jcfg.fleet.enabled = False
+    assert JService(jcfg).pod_lens is not None
+    jcfg.podlens.enabled = False
+    jsvc = JService(jcfg)
+
+    async def timelines():
+        out = []
+        for s, err in ((jsvc, JDfError), (svc, DfError)):
+            with pytest.raises(err) as e:
+                await s.pod_timeline({"task_id": "t"}, None)
+            out.append((int(e.value.code), e.value.message))
+        return out
+
+    j, p = run_async(timelines())
+    assert j == p
+
+    async def metrics():
+        server = SchedulerServer(SchedulerConfig.from_dict(
+            {**off, "server": {"port": 0}, "metrics_port": 0}))
+        await server.start()
+        base = f"http://127.0.0.1:{server.metrics.port}"
+        try:
+            got = {}
+            for path in ("/metrics", "/healthy", "/debug/fleet",
+                         "/debug/pod/t/timeline", "/debug/slo"):
+                try:
+                    with urllib.request.urlopen(base + path,
+                                                timeout=10) as r:
+                        got[path] = r.status
+                except urllib.error.HTTPError as e:
+                    got[path] = e.code
+            return got
+        finally:
+            await server.stop()
+
+    assert run_async(metrics()) == {
+        "/metrics": 200, "/healthy": 200, "/debug/fleet": 404,
+        "/debug/pod/t/timeline": 404, "/debug/slo": 404}
+    fetch = inspect.getsource(psvc.SchedulerService._fetch_direct_piece)
+    assert "_http_get" in fetch and "aiohttp" not in fetch
+    assert "http.client.HTTPConnection" in inspect.getsource(psvc._http_get)
 
 
 @pytest.mark.parametrize("path", _port_sources(),

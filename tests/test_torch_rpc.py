@@ -381,7 +381,10 @@ def test_scheduler_client_fails_over_clockwise(run_async):
                   for r in ("owner", "failover", "exhausted")}
         out = []
         for member in (live_addr, dead_addr):
-            s = await sc.open_announce_stream({"task_id": owned[member]})
+            # The open body the AnnouncePeer schema asks for.
+            s = await sc.open_announce_stream({
+                "task_id": owned[member], "peer_id": "p",
+                "host": {"id": "h"}})
             out.append((await s.recv(), sc.stream_addr(owned[member])))
         await sc.close()
         only_dead = SchedulerClient([dead_addr])
