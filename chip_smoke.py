@@ -98,7 +98,18 @@
    (register to its first ``normal_task``, from its own flight), its
    ``land_s``, the bytes the seed and the children uploaded, child 2's
    certification wait and completion re-hashes, the stripe plans and the
-   seed's bytes for the striped object;
+   seed's bytes for the striped object; then a preheat job through the
+   port's manager (``manager_preheat``: the port's ``ManagerServer`` and
+   its ``SchedulerServer`` with ``manager_addr`` each in a process of its
+   own, the origin in a third; a seed ``Daemon`` with the device sink in
+   this one): root signs in over REST and posts a ``preheat`` of the
+   shard (``all_seed_peers``, ``device: "tpu"``), the manager's job queue
+   hands it to the scheduler's job worker, which triggers the seed; the
+   job is polled to ``SUCCESS`` and the seed's verified buffer taken,
+   gated by K1 and held to every byte; checks the launches, no
+   device-copy failure, one origin read of the shard and the job's
+   result, and prints POST to ``SUCCESS`` and POST to the verified buffer
+   beside the ``daemon`` phase's cold landing;
 5. hot-swaps the landed shard to a second generation (the last two
    layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
    through ``swap_generation``, the device half of ``download_delta``:
@@ -212,7 +223,7 @@
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
     gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again,
-    dfdaemon, dfdaemon_epoch, p2p_qos, proxy, swarm),
+    dfdaemon, dfdaemon_epoch, p2p_qos, proxy, swarm, manager_preheat),
     prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
@@ -243,6 +254,7 @@ import tarfile
 import tempfile
 import threading
 import time
+import traceback
 from concurrent.futures import ThreadPoolExecutor
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, unquote, urlsplit
@@ -3365,11 +3377,11 @@ def swarm_scheduler_config() -> dict:
 
 def swarm_daemon_config(root: str, name: str, scheduler: str, *,
                         seed: bool = False, tpu_slice: str = "",
-                        worker: int = -1) -> dict:
+                        worker: int = -1, sink: bool = False) -> dict:
     """A swarm daemon's config: its own work home, socket and ports on
     loopback, the scheduler's address; a seed announces as a super seed
-    and lands nothing on the card, a child lands on it at the main path's
-    batch."""
+    and lands nothing on the card unless ``sink`` (the manager's preheat
+    target), a child lands on it at the main path's batch."""
     home = os.path.join(root, name)
     d = {"work_home": home,
          "host": {"hostname": f"chip-swarm-{name}", "ip": P2P_HOST,
@@ -3379,16 +3391,19 @@ def swarm_daemon_config(root: str, name: str, scheduler: str, *,
          "metrics_port": -1, "gc_interval": 3600.0}
     if seed:
         d["seed_peer"] = True
-    else:
+    if sink or not seed:
         d["tpu_sink"] = {"enabled": True, "batch_pieces": BATCH_PIECES}
     return d
 
 
 def _swarm_child(conn, role: str, args: tuple) -> None:
     """The body of a ``SwarmProcess``: the port's ``SchedulerServer``
-    (``role`` "scheduler") or a seed ``Daemon`` ("seed") on an event loop
-    of its own thread, then answers to the measured process until told to
-    stop."""
+    (``role`` "scheduler"; with a manager's drpc address in ``args``,
+    registered with it), its ``ManagerServer`` ("manager") or a seed
+    ``Daemon`` ("seed") on an event loop of its own thread, then answers
+    to the measured process until told to stop. A start that raises
+    sends its traceback instead of the endpoint."""
+    from dragonfly2_tpu_torch.manager import ManagerConfig, ManagerServer
     from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig
     from dragonfly2_tpu_torch.scheduler.server import SchedulerServer
 
@@ -3400,20 +3415,33 @@ def _swarm_child(conn, role: str, args: tuple) -> None:
     def run(coro):
         return asyncio.run_coroutine_threadsafe(coro, loop).result()
 
-    server = daemon = None
+    server = daemon = manager = None
     try:
-        if role == "scheduler":
-            server = SchedulerServer(SchedulerConfig.from_dict(
-                swarm_scheduler_config()))
-            run(server.start())
-            conn.send({"addr": f"{P2P_HOST}:{server.port()}"})
-        else:
-            root, scheduler, device = args
-            daemon = Daemon(DaemonConfig.from_dict(swarm_daemon_config(
-                root, "seed", scheduler, seed=True)), device=device)
-            run(daemon.start())
-            conn.send({"host_id": daemon.announcer.host_id,
-                       "upload_port": daemon.upload.port})
+        try:
+            if role == "scheduler":
+                cfg = swarm_scheduler_config()
+                if args:
+                    cfg.update(manager_addr=args[0],
+                               manager_keepalive_interval=1.0)
+                server = SchedulerServer(SchedulerConfig.from_dict(cfg))
+                run(server.start())
+                conn.send({"addr": f"{P2P_HOST}:{server.port()}"})
+            elif role == "manager":
+                manager = ManagerServer(ManagerConfig.from_dict(
+                    manager_config()))
+                run(manager.start())
+                conn.send({"rest": manager.rest_port,
+                           "grpc": f"{P2P_HOST}:{manager.grpc_port()}"})
+            else:
+                root, scheduler, device = args
+                daemon = Daemon(DaemonConfig.from_dict(swarm_daemon_config(
+                    root, "seed", scheduler, seed=True)), device=device)
+                run(daemon.start())
+                conn.send({"host_id": daemon.announcer.host_id,
+                           "upload_port": daemon.upload.port})
+        except Exception:
+            conn.send({"error": traceback.format_exc()})
+            raise
         while True:
             msg = conn.recv()
             if msg[0] == "stop":
@@ -3434,20 +3462,38 @@ def _swarm_child(conn, role: str, args: tuple) -> None:
             run(server.stop())
         if daemon is not None:
             run(daemon.stop())
+        if manager is not None:
+            run(manager.stop())
         loop.call_soon_threadsafe(loop.stop)
         thread.join(timeout=10)
 
 
 class SwarmProcess(StandInProcess):
-    """The swarm's scheduler or seed in a process of its own (spawned), as
-    each is another host; ``endpoint()`` waits for it to serve and gives
-    what it serves (the scheduler's address; the seed's host id and upload
-    port), ``stats()`` the seed's upload counters, ``hosts()`` the
-    scheduler's pieces served by host."""
+    """The swarm's scheduler, manager or seed in a process of its own
+    (spawned), as each is another host; ``endpoint()`` waits for it to
+    serve and gives what it serves (the scheduler's address; the
+    manager's REST port and drpc address; the seed's host id and upload
+    port), or raises with the child's traceback, ``stats()`` the seed's
+    upload counters, ``hosts()`` the scheduler's pieces served by host."""
 
     def __init__(self, role: str, *args):
         super().__init__(None, *args)
         self._role = role
+
+    def endpoint(self):
+        if not self._conn.poll(600):
+            raise RuntimeError(f"the swarm's {self._role} process did not "
+                               f"start")
+        try:
+            got = self._conn.recv()
+        except EOFError:
+            raise RuntimeError(f"the swarm's {self._role} process ended "
+                               f"before it served (exit code "
+                               f"{self._proc.exitcode})") from None
+        if isinstance(got, dict) and "error" in got:
+            raise RuntimeError(f"the swarm's {self._role} process failed "
+                               f"to start:\n{got['error']}")
+        return got
 
     def start(self) -> None:
         ctx = multiprocessing.get_context("spawn")
@@ -3550,6 +3596,8 @@ class SwarmChild:
         return {"bytes": int(u8.numel()), "equal": equal,
                 "land_s": self.clock.finalized - self.clock.first,
                 "sink_busy_s": sinks.busy_s - self.clock.busy_from,
+                "host_checksum_s": sink.sink.host_checksum_s,
+                "stage_s": sink.sink.stage_s,
                 "pieces_landed": self.clock.pieces}
 
     async def stop(self) -> None:
@@ -3893,6 +3941,225 @@ def swarm_lines(swm: dict, content_bytes: int) -> list[str]:
 
 
 # --------------------------------------------------------------------- #
+# The manager's preheat: a job posted to the port's manager over REST
+# reaches the port's scheduler through the manager's job queue, and the
+# scheduler's job worker triggers a seed daemon that lands the shard on
+# the card (REST job -> job queue -> PollJob -> Peer.TriggerDownloadTask
+# -> K2 landings -> K1 gate -> verified buffer)
+# --------------------------------------------------------------------- #
+
+MANAGER_USER = ("root", "dragonfly")
+POLL_S = 0.02      # the job poll's interval
+
+
+def manager_config() -> dict:
+    """The port's manager on loopback, its defaults otherwise (an
+    in-memory database, the default clusters and root user), no metrics
+    server."""
+    return {"server": {"host": P2P_HOST, "port": 0},
+            "grpc": {"host": P2P_HOST, "port": 0}, "metrics_port": -1}
+
+
+def rest_call(port: int, method: str, path: str, body=None,
+              token: str = "") -> tuple[int, dict]:
+    """One REST call to the manager on loopback: (status, JSON body)."""
+    c = http.client.HTTPConnection(P2P_HOST, port, timeout=60)
+    headers = {"Content-Type": "application/json"}
+    if token:
+        headers["Authorization"] = f"Bearer {token}"
+    try:
+        c.request(method, path, headers=headers,
+                  body=None if body is None else json.dumps(body))
+        r = c.getresponse()
+        return r.status, json.loads(r.read() or b"null")
+    finally:
+        c.close()
+
+
+async def _rest(port: int, method: str, path: str, body=None,
+                token: str = "") -> dict:
+    status, got = await asyncio.to_thread(rest_call, port, method, path,
+                                          body, token)
+    if status != 200:
+        raise AssertionError(f"manager preheat: {method} {path} answered "
+                             f"{status} {got}")
+    return got
+
+
+async def _manager_preheat(root: str, rest_port: int, sched: SwarmProcess,
+                           addr: str, url: str, host: torch.Tensor,
+                           gw: StandInProcess, device) -> dict:
+    """The seed daemon (``seed_peer`` with the device sink) announced to
+    the scheduler; once the manager lists the scheduler as active and the
+    scheduler holds the seed, root signs in and posts the preheat (scope
+    ``all_seed_peers``, ``device: "tpu"``); the job is polled to
+    ``SUCCESS``, the seed's verified buffer taken from its sink manager,
+    gated by K1 and held to every byte. Launches are counted from 0 at
+    the POST."""
+    seed = SwarmChild(root, "seed", addr, device, seed=True, sink=True)
+    await seed.start()
+    tm = seed.daemon.task_manager
+    task_id = FileTaskRequest(url=url, output="").task_id()
+    try:
+        t_wait = time.perf_counter()
+        token = (await _rest(rest_port, "POST", "/api/v1/users/signin",
+                             {"name": MANAGER_USER[0],
+                              "password": MANAGER_USER[1]}))["token"]
+        while True:
+            schedulers = await _rest(rest_port, "GET", "/api/v1/schedulers",
+                                     token=token)
+            hosts = await asyncio.to_thread(sched.hosts)
+            if (any(r["state"] == "active" for r in schedulers)
+                    and hosts.get(seed.host_id, {}).get("type") == 1):
+                break
+            if time.perf_counter() - t_wait > 120:
+                raise AssertionError(f"manager preheat: schedulers "
+                                     f"{schedulers}, hosts {hosts}")
+            await asyncio.sleep(0.05)
+        registered_s = time.perf_counter() - t_wait
+        seed.clock.reset()
+        origin0 = gw.requests()
+        failures0 = [SEED_DEVICE_FAILURES.value(r)
+                     for r in ("device", "kernel")]
+        _sync(device)
+        zero_launches()
+        t0 = time.perf_counter()
+        job = await _rest(rest_port, "POST", "/api/v1/jobs", {
+            "type": "preheat",
+            "args": {"type": "file", "url": url, "scope": "all_seed_peers",
+                     "device": "tpu", "timeout": 600.0}}, token=token)
+        polls = 0
+        while True:
+            row = await _rest(rest_port, "GET", f"/api/v1/jobs/{job['id']}",
+                              token=token)
+            polls += 1
+            if row["state"] == "SUCCESS":
+                t_success = time.perf_counter()
+                break
+            if row["state"] == "FAILURE" or time.perf_counter() - t0 > 600:
+                raise AssertionError(f"manager preheat: the job ended {row}")
+            # Each poll is Python work on this process's interpreter
+            # beside the seed's sink worker: 50 a second, not more.
+            await asyncio.sleep(POLL_S)
+        await _until_seeded(tm, seed.clock, task_id)
+        gate = seed.take_and_gate(task_id, host)
+        _sync(device)
+        t_verified = time.perf_counter()
+        launches = checksum.launch_counts()
+        return {"task_id": task_id, "job": row, "gate": gate,
+                "registered_s": registered_s,
+                "post_to_success_s": t_success - t0,
+                "post_to_verified_s": t_verified - t0, "polls": polls,
+                "launches": launches,
+                "device_failures": [
+                    SEED_DEVICE_FAILURES.value(r) - f
+                    for r, f in zip(("device", "kernel"), failures0)],
+                "origin": _origin_delta(origin0, gw.requests()),
+                "seed_host": seed.host_id}
+    finally:
+        await seed.stop()
+
+
+def phase_manager_preheat(content: np.ndarray, device: torch.device) -> dict:
+    """A preheat job through the port's manager onto the card. In
+    processes of their own: the origin (the shard's file), the port's
+    ``ManagerServer`` and its ``SchedulerServer`` with ``manager_addr`` at
+    that manager; in this one, the seed daemon with the device sink
+    (``_manager_preheat``). Checks: every byte of the verified buffer,
+    K2 once a batch and K1 twice in the gate, no device-copy failure, the
+    origin served the shard once, and the job's result names one target,
+    triggered and succeeded."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="df-chip-manager-")
+    procs = []
+    try:
+        # The origin's file and the seed's store, with a GiB to spare.
+        need = 2 * content.size + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(f"the manager preheat phase needs {need} B "
+                               f"free under {tmp}; {free} B are")
+        path = os.path.join(tmp, GATEWAY_KEY)
+        t0 = time.perf_counter()
+        content.tofile(path)
+        gw = StandInProcess(origin_objects, path)
+        mgr = SwarmProcess("manager")
+        for p in (gw, mgr):
+            p.start()
+            procs.append(p)
+        endpoint = gw.endpoint()
+        minfo = mgr.endpoint()
+        sched = SwarmProcess("scheduler", minfo["grpc"])
+        sched.start()
+        procs.append(sched)
+        addr = sched.endpoint()["addr"]
+        start_s = time.perf_counter() - t0
+        url = f"{endpoint}/buckets/{ORIGIN_BUCKET}/objects/{GATEWAY_KEY}"
+        host = torch.from_numpy(content).to(device)
+        out = asyncio.run(_manager_preheat(
+            os.path.join(tmp, "daemons"), minfo["rest"], sched, addr, url,
+            host, gw, device))
+        del host
+    finally:
+        for p in reversed(procs):
+            p.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    n_pieces = compute_piece_count(content.size,
+                                   compute_piece_size(content.size))
+    k2 = -(-n_pieces // BATCH_PIECES)
+    gate = out["gate"]
+    if not gate["equal"] or gate["pieces_landed"] != n_pieces:
+        raise AssertionError(f"manager preheat: the buffer {gate}")
+    if out["device_failures"] != [0, 0]:
+        raise AssertionError(f"manager preheat: device-copy failures "
+                             f"{out['device_failures']}")
+    if out["origin"] != seed_origin_reads(content.size):
+        raise AssertionError(f"manager preheat: origin saw {out['origin']}, "
+                             f"want {seed_origin_reads(content.size)}")
+    results = out["job"]["result"]["group_results"]
+    per_url = [u for r in results for u in r["preheat"]]
+    if (len(results) != 1 or len(per_url) != 1
+            or (per_url[0]["targets"], per_url[0]["triggered"],
+                per_url[0]["succeeded"], per_url[0]["task_id"])
+            != (1, 1, True, out["task_id"])):
+        raise AssertionError(f"manager preheat: the job's result {results}")
+    if _on_card(device) and out["launches"] != {
+            "chunk_checksums": 2, "land_and_checksum": k2,
+            "gear_candidates": 0}:
+        raise AssertionError(f"manager preheat: launches {out['launches']}, "
+                             f"want K1 2, K2 {k2}")
+    return {**out, "want_k2": k2, "pieces": n_pieces, "start_s": start_s,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def manager_preheat_line(mp: dict, cold_s: float) -> str:
+    """The manager preheat's printed line, beside the same call's cold
+    back-to-source landing (``daemon``)."""
+    gate, origin = mp["gate"], mp["origin"].get("get_range", [0, 0])
+    ratio = mp["post_to_verified_s"] / cold_s
+    return (
+        f"manager preheat: POST /api/v1/jobs (preheat, all_seed_peers, "
+        f"device tpu) -> job SUCCESS {mp['post_to_success_s']:.3f} s, -> "
+        f"the seed's buffer verified {mp['post_to_verified_s']:.3f} s, "
+        f"beside the daemon phase's cold back-to-source landing "
+        f"{cold_s:.3f} s in this call ({ratio:.3f}x; PERF.md's preheat "
+        f"limit 1.1x {'held' if ratio <= 1.1 else 'MISSED'}; the job "
+        f"polled {mp['polls']} times, every {POLL_S * 1e3:.0f} ms); land_s "
+        f"{gate['land_s']:.4f} s, the sink's worker busy "
+        f"{gate['sink_busy_s']:.4f} s (host checksum "
+        f"{gate['host_checksum_s']:.4f} s, staging {gate['stage_s']:.4f} s)"
+        f"; the origin served {origin[0]} GETs, "
+        f"{origin[1]} B; K2 {mp['launches']['land_and_checksum']}, K1 "
+        f"{mp['launches']['chunk_checksums']}; device-copy failures "
+        f"{sum(mp['device_failures'])}; the job's result "
+        f"{json.dumps(mp['job']['result']['group_results'][0]['preheat'][0])}"
+        f"; the scheduler listed active and the seed held "
+        f"{mp['registered_s']:.3f} s after the seed started; the phase "
+        f"{mp['phase_s']:.1f} s, of it {mp['start_s']:.1f} s writing the "
+        f"origin's file and the three processes' start")
+
+
+# --------------------------------------------------------------------- #
 # The daemon's other task kinds: a delta task through the port's own
 # daemon (generation 1 -> 2: the base manifest built by K3 inside the
 # task, the swap gated by K1), and a scheduler's seed trigger onto the
@@ -3929,8 +4196,16 @@ async def _daemon_delta(d: StandInDaemon, urls: list[str], new_m, base_ref,
     """Generation 1 landed with ``download_to_device`` and live in a
     ``DoubleBuffer``; generation 2's manifest imported as a publishing
     peer's; generation 1's left unpublished. Then ``download_delta`` under
-    a snapshot reader, its launches counted from 0 just before it."""
+    a snapshot reader, its launches counted from 0 just before it. Its
+    peak device memory is read above what other phases hold: above the
+    memory allocated when the swap starts (``peak_device_bytes``) and
+    above the memory allocated before generation 1 landed
+    (``resident_peak_bytes``: both generations); each is held to
+    ``PERF.md`` section 2's hot-swap limit, 2 x content (padded to whole
+    pieces, as a sink holds it) + one piece."""
     tm = d.task_manager
+    _sync(device)
+    held = _memory_mark(device)
     t0 = time.perf_counter()
     first = await download_to_device(d, urls[0])
     gen1_s = time.perf_counter() - t0
@@ -3953,10 +4228,22 @@ async def _daemon_delta(d: StandInDaemon, urls: list[str], new_m, base_ref,
         return asyncio.run_coroutine_threadsafe(download_delta(
             d, urls[1], base=first, hot=hot, device=device), loop).result()
 
+    _sync(device)
+    at_swap = _memory_mark(device)
     result, launches, swap_s, peak, seen, mixed = await asyncio.to_thread(
         swap_under_reader, hot, swap, device)
     origin = _origin_delta(origin_before, gw.requests())
     check_generation2(result, hot, gen2, layout, spans, seen, mixed)
+    # A sink holds the content padded to whole pieces.
+    piece = compute_piece_size(gen2.size)
+    limit = 2 * piece * compute_piece_count(gen2.size, piece) + piece
+    swap_peak = peak - at_swap if _on_card(device) else 0
+    resident_peak = peak - held if _on_card(device) else 0
+    if max(swap_peak, resident_peak) > limit:
+        raise AssertionError(
+            f"daemon delta: peak device memory {swap_peak} B above the "
+            f"swap's start, {resident_peak} B above generation 1's; the "
+            f"limit is {limit} B (2 x content + one piece)")
     published = await fetch_manifest(tm, first.task_id)
     store = tm.storage.find_completed_task(result.task_id)
     return {"task_id": result.task_id, "generation1_s": gen1_s,
@@ -3964,7 +4251,9 @@ async def _daemon_delta(d: StandInDaemon, urls: list[str], new_m, base_ref,
             "reused_device_bytes": result.reused_device_bytes,
             "copies": result.copies, "swap_timings": result.timings,
             "delta_timings": tm.delta_timings.get(result.task_id, {}),
-            "swap_s": swap_s, "peak_device_bytes": peak,
+            "swap_s": swap_s, "peak_device_bytes": swap_peak,
+            "resident_peak_bytes": resident_peak,
+            "peak_limit_bytes": limit,
             "launches": launches, "origin": origin, "snapshots": seen,
             "published_base": (None if published is None
                                else chunk_triples(published.chunks)
@@ -5186,7 +5475,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k2_daemon: int, want_k2_p2p: int,
                    want_k2_pex: int, want_k2_seed: int,
                    want_k2_dfdaemon: int, want_k2_dfdaemon_epoch: int,
-                   want_k2_proxy: int, want_k2_swarm: int) -> None:
+                   want_k2_proxy: int, want_k2_swarm: int,
+                   want_k2_manager_preheat: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -5218,7 +5508,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     the proxy-filled store): K2 once per batch of the landing, K1 twice in
     the gate after it. The swarm path: K2 once per batch of each of its
     four children's landings (two of the shard, two of its quarter), K1
-    twice in the gate after each."""
+    twice in the gate after each. The manager_preheat path: K2 once per
+    batch as the job's seed lands the shard, K1 twice in the gate after
+    the take."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -5239,7 +5531,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "dfdaemon": k(2, want_k2_dfdaemon),
             "dfdaemon_epoch": k(0, want_k2_dfdaemon_epoch),
             "p2p_qos": k(2, want_k2_proxy), "proxy": k(2, want_k2_proxy),
-            "swarm": k(8, want_k2_swarm)}
+            "swarm": k(8, want_k2_swarm),
+            "manager_preheat": k(2, want_k2_manager_preheat)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -5606,6 +5899,10 @@ def main(argv=None) -> int:
     print("swarm:", json.dumps(swm))
     for line in swarm_lines(swm, content.size):
         print(f"{line} on {smi}")
+    mpre = phase_manager_preheat(content, device)
+    torch.cuda.empty_cache()
+    print("manager preheat:", json.dumps(mpre))
+    print(f"{manager_preheat_line(mpre, cold['wall_s'])} on {smi}")
 
     swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
                                    piece_size, gen, device)
@@ -5679,7 +5976,11 @@ def main(argv=None) -> int:
               f"{dd['launches']['gear_candidates']}, K1 "
               f"{dd['launches']['chunk_checksums']}, K2 "
               f"{dd['launches']['land_and_checksum']}; peak device memory "
-              f"{dd['peak_device_bytes'] / 1e9:.3f} GB on {smi}")
+              f"above the swap's start {dd['peak_device_bytes'] / 1e9:.3f} "
+              f"GB, with generation 1 (both generations) "
+              f"{dd['resident_peak_bytes'] / 1e9:.3f} GB, each within "
+              f"{dd['peak_limit_bytes'] / 1e9:.3f} GB (2 x the padded "
+              f"content + one piece) on {smi}")
         s1, s2 = seed["seed"], seed["again"]
         print("seed:", json.dumps(seed))
         print(f"seed: Peer.TriggerDownloadTask ACK in "
@@ -5892,13 +6193,15 @@ def main(argv=None) -> int:
              "seed_again": s2["launches"], "dfdaemon": dfd["launches"],
              "dfdaemon_epoch": dfd["epoch"]["launches"],
              "p2p_qos": p2p["gated"]["launches"],
-             "proxy": prx["launches"], "swarm": swm["launches"]}
+             "proxy": prx["launches"], "swarm": swm["launches"],
+             "manager_preheat": mpre["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
                    sum(dmn["want_k2"].values()), p2p["want_k2"],
                    pex["want_k2"], seed["want_k2"], dfd["want_k2"],
-                   DFD_EPOCH_BATCHES, prx["want_k2"], swm["want_k2"])
+                   DFD_EPOCH_BATCHES, prx["want_k2"], swm["want_k2"],
+                   mpre["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

@@ -52,7 +52,8 @@ path always records each piece's CRC-32C, fused into the store write.
 
 Refused at construction with ``ValueError`` naming the ``ROADMAP.md``
 item, since the port does not have them yet: ``manager_addr`` (the
-manager-sourced dynconfig) and an object-storage backend other than
+daemon's manager-sourced dynconfig, ROADMAP A7.2 item 2's daemon half)
+and an object-storage backend other than
 ``fs``. ``prof.enabled`` (true by default) is accepted and no runtime
 observatory is installed: ``pkg/prof`` is not ported.
 """
@@ -90,8 +91,9 @@ def refuse_unported(config: DaemonConfig) -> None:
     does not have yet; nothing goes on without it."""
     unported = []
     if config.manager_addr:
-        unported.append("manager_addr: the manager-sourced dynconfig "
-                        "(ROADMAP A7.1 item 7, after A7.2's manager client)")
+        unported.append("manager_addr: the daemon's manager-sourced "
+                        "dynconfig and its seed peers (ROADMAP A7.2 item 2, "
+                        "the daemon half; the manager client is ported)")
     backend = config.object_storage.backend
     if config.object_storage.enabled and backend != "fs":
         which = ("is not ported yet" if backend in NOT_PORTED

@@ -10,7 +10,10 @@ register: the daemon's download service (``Daemon.Download``,
 conductor sends on the stream (``STREAM_MSGS``: the piece reports with
 their ``timings``, the packed batch envelope, the resume with its
 ``piece_bitmap``, and the terminal messages with the flight digest),
-which ``validate_stream_msg`` checks.
+which ``validate_stream_msg`` checks, and the manager's ``Manager.*``
+methods (``manager/rpcserver.py``: the registry, dynconfig's reads, the
+job queue's ``PollJob``, ``CompleteJob`` and ``TakeJobTokens``, and the
+``KeepAlive`` open message).
 
 Bodies are validated at the server boundary (``rpc/server.py``), so a
 malformed body fails fast with ``Code.BadRequest``. As in protobuf,
@@ -236,6 +239,47 @@ UNARY: dict[str, Msg] = {
         tenant=F(str), priority=F(int)),
     "Peer.StatTask": Msg("PeerStatTask", task_id=F(str, required=True)),
     "Peer.DeleteTask": Msg("PeerDeleteTask", task_id=F(str, required=True)),
+
+    # The manager: the registry, dynconfig's reads and the job queue.
+    "Manager.GetScheduler": Msg(
+        "GetScheduler", hostname=F(str), ip=F(str),
+        scheduler_cluster_id=F(int)),
+    "Manager.ListSchedulers": Msg(
+        "ListSchedulers", hostname=F(str), ip=F(str), idc=F(str),
+        location=F(str)),
+    "Manager.UpdateScheduler": Msg(
+        "UpdateScheduler",
+        hostname=F(str, required=True), ip=F(str, required=True),
+        scheduler_cluster_id=F(int),   # omitted: the default cluster
+        port=F(int), idc=F(str), location=F(str), state=F(str),
+        features=F(list)),
+    "Manager.GetSchedulerClusterConfig": Msg(
+        "GetSchedulerClusterConfig",
+        scheduler_cluster_id=F(int, required=True)),
+    "Manager.ListSeedPeers": Msg(
+        "ListSeedPeers", scheduler_cluster_id=F(int, required=True)),
+    "Manager.UpdateSeedPeer": Msg(
+        "UpdateSeedPeer",
+        hostname=F(str, required=True), ip=F(str, required=True),
+        seed_peer_cluster_id=F(int),   # omitted: the default cluster
+        port=F(int), download_port=F(int), object_storage_port=F(int),
+        type=F(str), idc=F(str), location=F(str), state=F(str)),
+    "Manager.DeleteSeedPeer": Msg(
+        "DeleteSeedPeer", hostname=F(str), ip=F(str),
+        seed_peer_cluster_id=F(int)),
+    "Manager.ListApplications": Msg("ListApplications"),
+    "Manager.ListBuckets": Msg("ListBuckets"),
+    "Manager.UpsertPeer": Msg(
+        "UpsertPeer", hostname=F(str), ip=F(str), port=F(int),
+        idc=F(str), location=F(str), state=F(str)),
+    "Manager.PollJob": Msg(
+        "PollJob", queue=F(str, required=True), timeout=F(float)),
+    "Manager.CompleteJob": Msg(
+        "CompleteJob",
+        group_id=F(str, required=True), task_uuid=F(str, required=True),
+        state=F(str), result=F(dict)),
+    "Manager.TakeJobTokens": Msg(
+        "TakeJobTokens", cluster_ids=F(list, required=True), tokens=F(int)),
 }
 
 STREAM_OPEN: dict[str, Msg] = {
@@ -258,6 +302,9 @@ STREAM_OPEN: dict[str, Msg] = {
         device=F(str), pod_broadcast=F(bool),
         # The task id of a local base version: a delta download.
         delta_base=F(str)),
+    "Manager.KeepAlive": Msg(
+        "KeepAliveOpen",
+        source_type=F(str), hostname=F(str), ip=F(str), cluster_id=F(int)),
     "Daemon.ExportTask": Msg(
         "ExportTaskOpen",
         cache_id=F(str, required=True), output=F(str, required=True),

@@ -1,5 +1,6 @@
-"""The daemon's half of the tenant QoS plane: the port's copy of
-``dragonfly2_tpu/qos/__init__.py`` less the manager's admission side.
+"""The tenant QoS plane: the port's copy of
+``dragonfly2_tpu/qos/__init__.py``, less its re-export of the admission
+classes (import them from ``qos/admission.py``).
 
 - Class semantics: the ``Priority`` ladder (``pkg/types``) folds into
   three dispatch classes with DWRR weights (``class_of``, ``weight_of``),
@@ -11,9 +12,9 @@
 
 A tenant rides the wire as the ``tenant`` tag of a request's meta and as
 the ``tenant=`` query of every piece request, so each served byte is
-attributed (``peer_upload_bytes_total{tenant}``). The JAX package's
-``AdmissionController`` and ``TenantBurnBook`` (``qos/admission.py``, the
-manager's side, over ``pkg/slo``) are not here.
+attributed (``peer_upload_bytes_total{tenant}``). The burn-rate
+admission, the scheduler's ``TenantBurnBook`` and the manager's
+``AdmissionController``, is ``qos/admission.py``.
 """
 
 from __future__ import annotations

@@ -1,13 +1,19 @@
-"""The scheduler's half of burn-rate admission: the port's copy of
-``TenantBurnBook`` from ``dragonfly2_tpu/qos/admission.py``.
+"""Burn-rate admission, both halves: the port's copy of
+``TenantBurnBook`` and ``AdmissionController`` from
+``dragonfly2_tpu/qos/admission.py``.
 
-One completion ring per tenant, fed from the flight digests that daemons
-ship on their terminal announce message, evaluated against
-``pkg/slo.TENANT_SLOS`` with the burn formula ``error_rate /
-error_budget``. The scheduler narrows a breaching tenant's parent
-handouts (``scheduling.Scheduling.wire_qos``), and its ``snapshot()`` is
-what a manager keepalive would carry. The manager's
-``AdmissionController`` is not here (``ROADMAP.md`` A7.2).
+``TenantBurnBook`` (the scheduler's half): one completion ring per
+tenant, fed from the flight digests that daemons ship on their terminal
+announce message, evaluated against ``pkg/slo.TENANT_SLOS`` with the
+burn formula ``error_rate / error_budget``. The scheduler narrows a
+breaching tenant's parent handouts (``scheduling.Scheduling.wire_qos``),
+and its ``snapshot()`` rides the scheduler's manager keepalive.
+
+``AdmissionController`` (the manager's half): ingests those snapshots
+and answers whether a tenant may submit a job now. ``ok`` and ``warn``
+admit; ``breach`` throttles with a ``Retry-After`` that scales with the
+burn, up to ``max_retry_after_s``. A view older than ``stale_after_s``
+admits: a dead scheduler link must not stop job submission.
 """
 
 from __future__ import annotations
@@ -23,6 +29,12 @@ TENANT_BURN = metrics.gauge(
     "Per-tenant error-budget burn rate (worst window across the "
     "TENANT_SLOS specs; 1.0 = burning exactly the budget)",
     ("tenant",))
+
+ADMISSION_DECISIONS = metrics.counter(
+    "qos_admission_decisions_total",
+    "Manager admission verdicts per tenant (admit, or throttle with "
+    "Retry-After, when the tenant's burn state is breached)",
+    ("tenant", "decision"))
 
 
 class TenantBurnBook:
@@ -124,3 +136,84 @@ class TenantBurnBook:
 
 
 _STATE_RANK = {"no_data": 0, "ok": 1, "warn": 2, "breach": 3}
+
+
+class AdmissionController:
+    """The manager's admission ladder over ingested burn snapshots."""
+
+    def __init__(self, *, stale_after_s: float = 60.0,
+                 base_retry_after_s: float = 2.0,
+                 max_retry_after_s: float = 30.0,
+                 max_tenants: int = 256, clock=time.monotonic):
+        self.stale_after_s = stale_after_s
+        self.base_retry_after_s = base_retry_after_s
+        self.max_retry_after_s = max_retry_after_s
+        self.max_tenants = max_tenants
+        self._clock = clock
+        self._state: dict[str, dict] = {}
+        self._decisions = {}
+
+    def ingest(self, snapshot: dict, now: "float | None" = None) -> int:
+        """Merge a scheduler's burn snapshot; returns tenants updated."""
+        if not isinstance(snapshot, dict):
+            return 0
+        if now is None:
+            now = self._clock()
+        updated = 0
+        for tenant, entry in snapshot.items():
+            if not isinstance(entry, dict):
+                continue
+            t = qos.normalize_tenant(str(tenant))
+            if t not in self._state and len(self._state) >= self.max_tenants:
+                continue
+            try:
+                burn = float(entry.get("burn", 0.0))
+            except (TypeError, ValueError):
+                burn = 0.0
+            state = str(entry.get("state", "no_data"))
+            if state not in _STATE_RANK:
+                state = "no_data"
+            prev = self._state.get(t)
+            if prev is not None and prev["ts"] == now:
+                # Two schedulers reporting one tenant at one instant: the
+                # hotter view stands.
+                if burn < prev["burn"]:
+                    continue
+            self._state[t] = {"burn": burn, "state": state, "ts": now}
+            updated += 1
+        return updated
+
+    def check(self, tenant: str,
+              now: "float | None" = None) -> "tuple[bool, float, dict]":
+        """``(admitted, retry_after_s, detail)`` for a job submission."""
+        if now is None:
+            now = self._clock()
+        t = qos.normalize_tenant(tenant)
+        entry = self._state.get(t)
+        if entry is None or now - entry["ts"] > self.stale_after_s:
+            return True, 0.0, {"tenant": t, "state": "no_data", "burn": 0.0}
+        detail = {"tenant": t, "state": entry["state"],
+                  "burn": entry["burn"]}
+        if entry["state"] != "breach":
+            self._count(t, "admit")
+            return True, 0.0, detail
+        # A marginal breach retries soon, a runaway one backs off hard.
+        retry = min(self.max_retry_after_s,
+                    self.base_retry_after_s * max(1.0, entry["burn"]))
+        self._count(t, "throttle")
+        return False, round(retry, 2), detail
+
+    def _count(self, tenant: str, decision: str) -> None:
+        key = (tenant, decision)
+        child = self._decisions.get(key)
+        if child is None:
+            child = self._decisions[key] = ADMISSION_DECISIONS.labels(
+                tenant, decision)
+        child.inc()
+
+    def report(self, now: "float | None" = None) -> dict:
+        if now is None:
+            now = self._clock()
+        return {t: {**e, "age_s": round(now - e["ts"], 1),
+                    "stale": now - e["ts"] > self.stale_after_s}
+                for t, e in self._state.items()}

@@ -6,8 +6,13 @@ server on the port's drpc, runs the resource GC and the HA snapshot
 flush on their intervals (``pkg/cache.GC``), flushes the snapshot once
 more at stop, and serves ``/metrics`` and ``/healthy`` on the port's
 ``pkg/metrics_server.py`` when ``metrics_port >= 0`` (no ``/debug/*``
-routes). The manager's announcer, dynconfig and job worker are not here
-(``manager_addr`` is refused), and ``prof`` installs nothing.
+routes); ``prof`` installs nothing. With ``manager_addr`` it registers
+with the manager (``scheduler/announcer.py``, the keepalive carrying
+``service.manager_payload``), keeps the cluster's config and seed peers
+fresh (``scheduler/dynconfig.py``; each seed peer registered as a host)
+and consumes the cluster's job queue (``scheduler/job.py``). A manager
+that cannot be reached at start is retried every 10 s in the background
+while the scheduler serves.
 
 From Python::
 
@@ -26,9 +31,16 @@ import asyncio
 from dragonfly2_tpu_torch.pkg import dflog
 from dragonfly2_tpu_torch.pkg.cache import GC, GCTask
 from dragonfly2_tpu_torch.pkg.metrics_server import MetricsServer
-from dragonfly2_tpu_torch.pkg.types import NetAddr
+from dragonfly2_tpu_torch.pkg.types import HostType, NetAddr
 from dragonfly2_tpu_torch.rpc import Server
+from dragonfly2_tpu_torch.scheduler.announcer import SchedulerAnnouncer
 from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig
+from dragonfly2_tpu_torch.scheduler.dynconfig import (
+    SchedulerDynconfig,
+    seed_peer_host_wire,
+)
+from dragonfly2_tpu_torch.scheduler.job import JobWorker
+from dragonfly2_tpu_torch.scheduler.resource import Host
 from dragonfly2_tpu_torch.scheduler.service import SchedulerService
 
 log = dflog.get("scheduler.server")
@@ -48,6 +60,10 @@ class SchedulerServer:
             self.gc.add(GCTask("snapshot", self.config.ha.snapshot_interval,
                                15.0, self._snapshot_flush))
         self.metrics: MetricsServer | None = None
+        self.announcer: SchedulerAnnouncer | None = None
+        self.dynconfig: SchedulerDynconfig | None = None
+        self.job_worker: JobWorker | None = None
+        self._manager_retry: asyncio.Task | None = None
         self._stopped = asyncio.Event()
 
     def _register(self) -> None:
@@ -95,6 +111,63 @@ class SchedulerServer:
             self.metrics = MetricsServer()
             await self.metrics.serve("127.0.0.1", self.config.metrics_port)
         self.gc.serve()
+        if self.config.manager_addr:
+            try:
+                await self._connect_manager()
+            except Exception as e:
+                # A manager briefly down must not stop a serving
+                # scheduler: it serves with its local config meanwhile.
+                log.warning("manager unreachable, retrying in background",
+                            error=str(e))
+                await self._drop_announcer()
+                self._manager_retry = asyncio.create_task(
+                    self._retry_manager())
+
+    async def _drop_announcer(self) -> None:
+        """Close a half-open manager client."""
+        if self.announcer is not None:
+            await self.announcer.stop()
+            self.announcer = None
+
+    async def _retry_manager(self) -> None:
+        while True:
+            await asyncio.sleep(10.0)
+            try:
+                await self._connect_manager()
+                return
+            except Exception as e:
+                log.warning("manager still unreachable", error=str(e))
+                await self._drop_announcer()
+
+    async def _connect_manager(self) -> None:
+        """Register with the manager, keep the cluster's config and seed
+        peers fresh, and start the job worker."""
+        self.announcer = SchedulerAnnouncer(
+            self.config.manager_addr, cluster_id=self.config.cluster_id,
+            port=self.port(), ip=self.config.server.advertise_ip or "127.0.0.1",
+            hostname=self.config.hostname,
+            keepalive_interval=self.config.manager_keepalive_interval,
+            qos_payload=self.service.manager_payload)
+        await self.announcer.start()
+        cluster_id = self.announcer.registered["scheduler_cluster_id"]
+        self.dynconfig = SchedulerDynconfig(self.announcer.client, cluster_id)
+
+        def sync_seed_peers(data: dict) -> None:
+            for sp in data.get("seed_peers", []):
+                w = seed_peer_host_wire(sp)
+                host = self.service.hosts.load_or_store(Host(
+                    w["id"], hostname=w["hostname"], ip=w["ip"],
+                    port=w["port"], upload_port=w["upload_port"],
+                    host_type=HostType(w["type"]), idc=w["idc"],
+                    location=w["location"]))
+                host.touch()
+
+        self.dynconfig.register(sync_seed_peers)
+        await self.dynconfig.dc.refresh()
+        self.dynconfig.serve()
+        self.job_worker = JobWorker(self.service, self.announcer.client,
+                                    cluster_id)
+        self.job_worker.serve()
 
     def port(self) -> int:
         return self.rpc.port()
@@ -108,6 +181,13 @@ class SchedulerServer:
                 self.service.snapshot_flush()
             except Exception:
                 log.warning("snapshot flush at stop failed", exc_info=True)
+        if self.job_worker is not None:
+            self.job_worker.stop()
+        if self._manager_retry is not None:
+            self._manager_retry.cancel()
+        if self.dynconfig is not None:
+            self.dynconfig.stop()
+        await self._drop_announcer()
         await self.service.seed_clients.close()
         if self.metrics is not None:
             await self.metrics.close()

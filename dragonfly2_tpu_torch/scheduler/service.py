@@ -14,9 +14,11 @@ Stream protocol (drpc ``Scheduler.AnnouncePeer``):
 
 ``refuse_unported`` raises ``ValueError`` at construction for an enabled
 option that would change a handout or needs a service the port lacks:
-``fleet.enabled`` (its straggler filter drops candidates),
-``manager_addr`` and a ``scheduling.algorithm`` other than
-``"default"``. Observe-only options are accepted and install nothing:
+``fleet.enabled`` (its straggler filter drops candidates) and a
+``scheduling.algorithm`` other than ``"default"``. ``manager_addr`` is
+served (``scheduler/server.py``: the announcer, dynconfig and job
+worker); ``manager_payload`` is what its keepalive carries.
+Observe-only options are accepted and install nothing:
 ``podlens.enabled`` and ``podlens.slo_enabled`` (no pod lens, no SLO
 engine; ``Scheduler.PodTimeline`` answers as the JAX scheduler does with
 the pod lens off) and ``prof.enabled``. The tiny task's direct piece is
@@ -118,9 +120,6 @@ def refuse_unported(config: SchedulerConfig) -> None:
         unported.append("fleet.enabled: the fleet observatory, whose "
                         "straggler filter drops candidates (ROADMAP A7.4; "
                         "set fleet.enabled=False)")
-    if config.manager_addr:
-        unported.append("manager_addr: the manager, its announcer, "
-                        "dynconfig and job worker (ROADMAP A7.2)")
     if config.scheduling.algorithm not in ("", "default"):
         unported.append(f"scheduling.algorithm "
                         f"{config.scheduling.algorithm!r}: the evaluator "
@@ -180,6 +179,12 @@ class SchedulerService:
             restored = self.restore_from_snapshot()
             if restored:
                 log.info("state restored from snapshot", **restored)
+
+    def manager_payload(self) -> dict:
+        """What the scheduler's manager keepalive carries: the tenant burn
+        snapshot, for the manager's job admission. (The JAX scheduler adds
+        its fleet frame; the port has no fleet observatory.)"""
+        return {"tenant_burn": self.tenant_burn.snapshot()}
 
     # ------------------------------------------------------------------ #
     # HA: durable snapshot save/restore (scheduler/resource/snapshot.py)

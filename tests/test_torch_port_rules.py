@@ -643,21 +643,25 @@ def test_the_intended_divergences_of_the_p2p_half():
         assert set(port._stream) == set(jax._stream)
         assert set(port._unary) == set(jax._unary)
     # The port's wire schemas are the JAX ones of the methods it serves:
-    # the daemon's two services and every method of the scheduler (which
+    # the daemon's two services, every method of the scheduler (which
     # takes in the one Daemon.PodTimeline proxies and the host
-    # announcements the daemon's announcer sends).
+    # announcements the daemon's announcer sends) and of the manager.
+    from dragonfly2_tpu_torch.manager.rpcserver import ManagerRpcServer
     from dragonfly2_tpu_torch.scheduler.server import SchedulerServer
 
     sched = SchedulerServer.__new__(SchedulerServer)
     sched.service = type("S", (), {"__getattr__": lambda self, n: n})()
     sched.rpc = Server("scheduler")
     sched._register()
+    mgr = Server("manager")
+    ManagerRpcServer(None).register(mgr)
     methods = set(served.peer_server._unary) | set(
-        served.download_server._unary) | set(sched.rpc._unary)
+        served.download_server._unary) | set(sched.rpc._unary) | set(
+        mgr._unary)
     assert set(pwire.UNARY) == methods & set(jwire.UNARY)
     assert set(pwire.STREAM_OPEN) == (set(served.peer_server._stream) | set(
-        served.download_server._stream) | set(sched.rpc._stream)) & set(
-        jwire.STREAM_OPEN)
+        served.download_server._stream) | set(sched.rpc._stream) | set(
+        mgr._stream)) & set(jwire.STREAM_OPEN)
     for table in ("UNARY", "STREAM_OPEN"):
         ported, jax = getattr(pwire, table), getattr(jwire, table)
         for method in ported:
@@ -674,12 +678,15 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
     """What the port's scheduler refuses and what it only observes,
     pinned. Refused at construction, by name and ``ROADMAP.md`` item: an
     enabled fleet observatory (its straggler filter drops candidates; the
-    JAX defaults turn it on), ``manager_addr`` and an evaluator plugin.
-    Accepted and installing nothing: ``podlens.enabled``,
+    JAX defaults turn it on) and an evaluator plugin. ``manager_addr`` is
+    served: the scheduler constructs, registers with the port's manager
+    and keeps alive there, its keepalive carrying the tenant burn
+    snapshot and no fleet frame. Accepted and installing nothing: ``podlens.enabled``,
     ``podlens.slo_enabled`` and ``prof.enabled`` (the JAX service builds
     a pod lens for the first). ``Scheduler.PodTimeline`` answers as the
     JAX scheduler does with ``podlens.enabled=False``; ``/metrics`` has
     no ``/debug/*`` route; the tiny task's fetch is ``http.client``."""
+    import asyncio
     import inspect
     import urllib.error
     import urllib.request
@@ -700,13 +707,40 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
     off = {"fleet": {"enabled": False}}
     for over, name, item in (
             ({}, "fleet.enabled", "A7.4"),
-            ({**off, "manager_addr": "127.0.0.1:65003"}, "manager_addr",
-             "A7.2"),
             ({**off, "scheduling": {"algorithm": "plugin"}},
              "scheduling.algorithm", "A7.4")):
         with pytest.raises(ValueError) as e:
             psvc.SchedulerService(SchedulerConfig.from_dict(over))
         assert name in str(e.value) and f"ROADMAP {item}" in str(e.value)
+
+    async def registers():
+        from dragonfly2_tpu_torch.manager import ManagerConfig, ManagerServer
+
+        manager = ManagerServer(ManagerConfig.from_dict({"metrics_port": -1}))
+        await manager.start()
+        server = SchedulerServer(SchedulerConfig.from_dict({
+            **off, "server": {"port": 0}, "metrics_port": -1,
+            "manager_addr": f"127.0.0.1:{manager.grpc_port()}",
+            "manager_keepalive_interval": 0.02}))
+        seen = []
+        keepalive = manager.service.keepalive
+        manager.service.keepalive = lambda *a: (seen.append(a),
+                                                keepalive(*a))
+        try:
+            await server.start()
+            while len(seen) < 2:
+                await asyncio.sleep(0.01)
+            row = manager.db.get("schedulers",
+                                 server.announcer.registered["id"])
+            return (row["state"], row["port"] == server.port(),
+                    server.service.manager_payload(),
+                    server.job_worker is not None)
+        finally:
+            await server.stop()
+            await manager.stop()
+
+    assert run_async(registers(), timeout=30) == (
+        "active", True, {"tenant_burn": {}}, True)
     with pytest.raises(ValueError, match="plugins are not ported"):
         Scheduling(SchedulingConfig(algorithm="plugin"))
     assert hasattr(JScheduling, "wire_fleet")
@@ -759,6 +793,170 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
     fetch = inspect.getsource(psvc.SchedulerService._fetch_direct_piece)
     assert "_http_get" in fetch and "aiohttp" not in fetch
     assert "http.client.HTTPConnection" in inspect.getsource(psvc._http_get)
+
+
+def test_the_manager_imports_none_of_jax_aiohttp_msgpack_yaml():
+    """The manager (``manager/``), ``pkg/dynconfig.py`` and the
+    scheduler's manager-fed modules (``scheduler/{announcer,dynconfig,
+    job}.py``) import none of the JAX side, ``aiohttp``, ``msgpack``,
+    ``yaml`` or ``cryptography`` (the JAX manager's REST, preheat and
+    oauth need ``aiohttp``, its drpc ``msgpack``); with none of them
+    importable the manager serves REST and drpc, a scheduler registers
+    with it and both stop."""
+    code = ("import asyncio, http.client, json, sys\n"
+            "for m in ('aiohttp', 'msgpack', 'yaml', 'cryptography'):\n"
+            "    sys.modules[m] = None\n"
+            "import dragonfly2_tpu_torch.manager.__main__\n"
+            "import dragonfly2_tpu_torch.manager.console\n"
+            "import dragonfly2_tpu_torch.pkg.dynconfig\n"
+            "import dragonfly2_tpu_torch.scheduler.job\n"
+            "from dragonfly2_tpu_torch.manager import ManagerConfig, "
+            "ManagerServer\n"
+            "from dragonfly2_tpu_torch.manager.client import ManagerClient\n"
+            "from dragonfly2_tpu_torch.pkg.types import NetAddr\n"
+            "from dragonfly2_tpu_torch.scheduler.config import "
+            "SchedulerConfig\n"
+            "from dragonfly2_tpu_torch.scheduler.server import "
+            "SchedulerServer\n"
+            "def signin(port):\n"
+            "    c = http.client.HTTPConnection('127.0.0.1', port)\n"
+            "    c.request('POST', '/api/v1/users/signin', body=json.dumps("
+            "{'name': 'root', 'password': 'dragonfly'}))\n"
+            "    return c.getresponse().status\n"
+            "async def main():\n"
+            "    m = ManagerServer(ManagerConfig.from_dict("
+            "{'metrics_port': -1}))\n"
+            "    await m.start()\n"
+            "    assert await asyncio.to_thread(signin, m.rest_port) == 200\n"
+            "    s = SchedulerServer(SchedulerConfig.from_dict({\n"
+            "        'server': {'port': 0}, 'metrics_port': -1,\n"
+            "        'fleet': {'enabled': False},\n"
+            "        'manager_addr': f'127.0.0.1:{m.grpc_port()}'}))\n"
+            "    await s.start()\n"
+            "    cli = ManagerClient(NetAddr.tcp('127.0.0.1', m.grpc_port()))\n"
+            "    assert len(await cli.list_schedulers()) == 1\n"
+            "    await cli.close()\n"
+            "    await s.stop()\n"
+            "    await m.stop()\n"
+            "asyncio.run(main())\n"
+            "print(json.dumps(sorted(k for k, v in sys.modules.items()\n"
+            "                        if v is not None)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.manager.rest",
+            "dragonfly2_tpu_torch.manager.rpcserver",
+            "dragonfly2_tpu_torch.manager.oauth",
+            "dragonfly2_tpu_torch.manager.preheat",
+            "dragonfly2_tpu_torch.manager.database",
+            "dragonfly2_tpu_torch.scheduler.announcer",
+            "dragonfly2_tpu_torch.scheduler.dynconfig",
+            "dragonfly2_tpu_torch.scheduler.job",
+            "dragonfly2_tpu_torch.pkg.dynconfig"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
+        "aiohttp", "msgpack", "yaml", "cryptography")] == []
+
+
+def test_the_intended_divergences_of_the_manager(run_async):
+    """What the manager slice leaves out, pinned: no cluster control
+    tower (no ``service.cluster``, no ``Manager.ClusterView``, a
+    keepalive's fleet frame dropped, ``note_admission_429`` recording
+    nothing) and no ``/debug/*`` route on the REST API or the metrics
+    server; ``prof.enabled`` installs nothing; a ``searcher_plugin`` is
+    refused with its ``ROADMAP.md`` item; the image preheat's manifest
+    fetch and the OAuth exchange run on ``http.client`` off the loop."""
+    import asyncio
+    import http.client
+    import inspect
+
+    from dragonfly2_tpu.manager import rpcserver as jrpc
+    from dragonfly2_tpu.manager.client import ManagerClient as JClient
+    from dragonfly2_tpu.manager.server import ManagerServer as JServer
+    from dragonfly2_tpu.manager.service import ManagerService as JService
+    from dragonfly2_tpu_torch.manager import (
+        ManagerConfig,
+        ManagerServer,
+        oauth,
+        preheat,
+    )
+    from dragonfly2_tpu_torch.manager import rpcserver as prpc
+    from dragonfly2_tpu_torch.manager.client import ManagerClient
+    from dragonfly2_tpu_torch.manager.service import ManagerService
+    from dragonfly2_tpu_torch.pkg.types import NetAddr
+    from dragonfly2_tpu_torch.rpc import Server
+
+    jsvc, psvc = JService(), ManagerService()
+    assert hasattr(jsvc, "cluster") and not hasattr(psvc, "cluster")
+    assert psvc.note_admission_429("t") is None
+    for name in ("ingest_fleet_frame", "note_frameless_keepalive"):
+        assert hasattr(jsvc, name) and not hasattr(psvc, name)
+    assert hasattr(JClient, "cluster_view")
+    assert not hasattr(ManagerClient, "cluster_view")
+    jm, pm = Server("j"), Server("p")
+    jrpc.ManagerRpcServer(jsvc).register(jm)
+    prpc.ManagerRpcServer(psvc).register(pm)
+    assert set(jm._unary) - set(pm._unary) == {"Manager.ClusterView"}
+    assert set(jm._stream) == set(pm._stream) == {"Manager.KeepAlive"}
+    with pytest.raises(ValueError, match="ROADMAP A7.4"):
+        ManagerService(searcher_plugin="my-searcher")
+    assert "aiohttp." not in inspect.getsource(preheat)
+    assert "http.client.HTTPConnection" in inspect.getsource(
+        preheat._http_get_json)
+    assert "to_thread" in inspect.getsource(preheat.get_image_layers)
+    assert "to_thread" in inspect.getsource(oauth.OAuthFlow.exchange)
+    assert "aiohttp." not in inspect.getsource(oauth)
+
+    def get(port: int, path: str, token: str = "") -> int:
+        c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
+        try:
+            c.request("GET", path, headers={
+                "Authorization": f"Bearer {token}"} if token else {})
+            r = c.getresponse()
+            r.read()
+            return r.status
+        finally:
+            c.close()
+
+    async def run():
+        server = ManagerServer(ManagerConfig.from_dict(
+            {"prof": {"enabled": True}, "metrics_port": 0}))
+        await server.start()
+        try:
+            assert not hasattr(server, "prof_obs")
+            token = psvc.signer.sign(1, "root", ["root"])
+            server.service.signer = psvc.signer
+            got = {}
+            for path in ("/debug/cluster", "/debug/prof", "/metrics"):
+                got["rest " + path] = await asyncio.to_thread(
+                    get, server.rest_port, path, token)
+                got["metrics " + path] = await asyncio.to_thread(
+                    get, server.metrics_port(), path)
+            # A keepalive carrying a fleet frame keeps the row alive and
+            # nothing else.
+            cli = ManagerClient(NetAddr.tcp("127.0.0.1", server.grpc_port()))
+            reg = await cli.update_scheduler(hostname="s", ip="1.1.1.1")
+            cli.start_keepalive(source_type="scheduler", hostname="s",
+                                ip="1.1.1.1", cluster_id=1, interval=0.02,
+                                payload=lambda: {"fleet_frame": {"x": 1}})
+            row0 = server.db.get("schedulers", reg["id"])
+            while server.db.get("schedulers", reg["id"])[
+                    "last_keepalive_at"] == row0["last_keepalive_at"]:
+                await asyncio.sleep(0.01)
+            got["state"] = server.db.get("schedulers", reg["id"])["state"]
+            await cli.close()
+            return got
+        finally:
+            await server.stop()
+
+    assert run_async(run(), timeout=30) == {
+        "rest /debug/cluster": 404, "metrics /debug/cluster": 404,
+        "rest /debug/prof": 404, "metrics /debug/prof": 404,
+        "rest /metrics": 200, "metrics /metrics": 200, "state": "active"}
+    jserver = JServer()
+    assert hasattr(jserver, "prof_obs")
+    jserver.db.close()
 
 
 @pytest.mark.parametrize("path", _port_sources(),
