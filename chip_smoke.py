@@ -109,7 +109,24 @@
    gated by K1 and held to every byte; checks the launches, no
    device-copy failure, one origin read of the shard and the job's
    result, and prints POST to ``SUCCESS`` and POST to the verified buffer
-   beside the ``daemon`` phase's cold landing;
+   beside the ``daemon`` phase's cold landing; then the cold-host
+   sequence through the port's own CLI (``cli``: ``manager``,
+   ``scheduler`` with no ``--config``, the fleet on, and a ``daemon
+   --seed-peer --manager`` each ``python -m
+   dragonfly2_tpu_torch.cli.main`` in a process of its own, the seed
+   found through the manager and registered there with
+   ``UpdateSeedPeer``; a child built from the CLI's argv mapping in this
+   one, on which ``dfget --device tpu --no-daemon`` lands the shard from
+   the triggered seed: device-verified, from P2P, every byte, K2 once a
+   batch and K1 twice; a cold host's ``dfget -O --device tpu
+   --manager`` spawning the port's daemon, which lands in its own
+   process: device-verified, the output's sha256, its ``/metrics``
+   landed bytes, a clean stop on SIGTERM; ``dfstore cp`` to the child's
+   gateway replicated to the seed the manager lists; ``dfcache`` import,
+   stat, export and delete; the scheduler's ``/debug/fleet/decisions``
+   and ``/debug/fleet/hosts``), and prints each ``dfget``'s wall time,
+   ``land_s``, the cold spawn's time to a live daemon and the child's
+   registration;
 5. hot-swaps the landed shard to a second generation (the last two
    layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
    through ``swap_generation``, the device half of ``download_delta``:
@@ -223,8 +240,8 @@
 11. checks each kernel's launches on each path (main, hot_swap, mesh,
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
     gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again,
-    dfdaemon, dfdaemon_epoch, p2p_qos, proxy, swarm, manager_preheat),
-    prints one
+    dfdaemon, dfdaemon_epoch, p2p_qos, proxy, swarm, manager_preheat,
+    cli), prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
 
@@ -248,7 +265,10 @@ import multiprocessing
 import os
 import re
 import shutil
+import signal
+import socket
 import ssl
+import subprocess
 import sys
 import tarfile
 import tempfile
@@ -3367,11 +3387,12 @@ def swarm_origin_objects(path: str) -> dict:
 
 
 def swarm_scheduler_config() -> dict:
-    """The port's scheduler on loopback, its defaults otherwise: the
-    fleet observatory and the pod lens off (the port refuses the first and
-    installs neither), no metrics server, no GC pass during the run."""
+    """The port's scheduler on loopback, its defaults otherwise (the
+    fleet observatory fed from every report, as the JAX defaults have
+    it): the pod lens off (the port installs none), no metrics server, no
+    GC pass during the run."""
     return {"server": {"host": P2P_HOST, "port": 0},
-            "fleet": {"enabled": False}, "podlens": {"enabled": False},
+            "podlens": {"enabled": False},
             "metrics_port": -1, "gc": {"interval": 3600.0}}
 
 
@@ -3519,10 +3540,13 @@ class SwarmChild:
     it acted on (``answers``: the time, kind, parents and stripe of each;
     ``stripes``: each stripe plan applied)."""
 
-    def __init__(self, root: str, name: str, scheduler: str, device, **kw):
+    def __init__(self, root: str, name: str, scheduler: str, device, *,
+                 config: DaemonConfig | None = None, **kw):
         self.name = name
-        self.daemon = Daemon(DaemonConfig.from_dict(swarm_daemon_config(
-            root, name, scheduler, **kw)), device=device)
+        if config is None:
+            config = DaemonConfig.from_dict(swarm_daemon_config(
+                root, name, scheduler, **kw))
+        self.daemon = Daemon(config, device=device)
         tm = self.daemon.task_manager
         tm.flight = flight.FlightRecorder()
         self.clock = SinkClock(tm.device_sinks)
@@ -3553,7 +3577,10 @@ class SwarmChild:
                                                      recorded_stripe)
             return c
 
-        tm.conductor_factory = factory
+        # A daemon that finds its scheduler through a manager builds its
+        # conductors only at start: nothing to record then.
+        if make is not None:
+            tm.conductor_factory = factory
 
     async def start(self) -> None:
         await self.daemon.start()
@@ -4157,6 +4184,483 @@ def manager_preheat_line(mp: dict, cold_s: float) -> str:
         f"{mp['registered_s']:.3f} s after the seed started; the phase "
         f"{mp['phase_s']:.1f} s, of it {mp['start_s']:.1f} s writing the "
         f"origin's file and the three processes' start")
+
+
+# --------------------------------------------------------------------- #
+# The port's own CLI: every role a ``python -m
+# dragonfly2_tpu_torch.cli.main <cmd>`` process of its own (manager,
+# scheduler with the fleet on, a seed that finds its scheduler through
+# the manager), a child built from the CLI's own argv mapping in this
+# process that ``dfget --device tpu --no-daemon`` lands on, then a cold
+# host whose ``dfget`` spawns the port's daemon, the gateway PUT
+# replicated to the seed the manager lists, the cache, and the fleet
+# --------------------------------------------------------------------- #
+
+CLI = (sys.executable, "-m", "dragonfly2_tpu_torch.cli.main")
+CLI_ROOT = os.path.dirname(os.path.abspath(__file__))
+CLI_SEED = "chip-cli-seed"
+CLI_CHILD = "chip-cli-child"
+CLI_BUCKET = "cli"
+CLI_PUT_BYTES = 64 << 20
+CLI_CACHE_BYTES = 1 << 20
+CLI_STOP_S = 60.0        # SIGTERM to exit, for every role
+
+
+def free_ports(n: int) -> list[int]:
+    """``n`` distinct loopback ports free now (bound together, then
+    released)."""
+    socks = []
+    try:
+        for _ in range(n):
+            s = socket.socket()
+            s.bind((P2P_HOST, 0))
+            socks.append(s)
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def cli_role(log_dir: str, name: str, args: list) -> subprocess.Popen:
+    """One role through the CLI, in a session of its own, its output in
+    ``<log_dir>/<name>.log``."""
+    with open(os.path.join(log_dir, f"{name}.log"), "ab") as logf:
+        return subprocess.Popen([*CLI, *args], cwd=CLI_ROOT, stdout=logf,
+                                stderr=logf, start_new_session=True)
+
+
+def stop_role(proc: subprocess.Popen) -> int:
+    """SIGTERM, then the exit code (killed past ``CLI_STOP_S``: -9)."""
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+        try:
+            proc.wait(CLI_STOP_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            return -9
+    return proc.returncode
+
+
+async def cli_run(*args: str, timeout: float = 900.0) -> dict:
+    """One CLI command to its end, off this process's loop: its exit
+    code, output, errors and wall time."""
+    t0 = time.perf_counter()
+    proc = await asyncio.create_subprocess_exec(
+        *CLI, *args, cwd=CLI_ROOT, stdout=asyncio.subprocess.PIPE,
+        stderr=asyncio.subprocess.PIPE)
+    try:
+        out, err = await asyncio.wait_for(proc.communicate(), timeout)
+    except asyncio.TimeoutError:
+        proc.kill()
+        await proc.wait()
+        raise AssertionError(f"cli: {' '.join(args)} ran past {timeout} s")
+    return {"rc": proc.returncode, "out": out.decode(), "err": err.decode(),
+            "wall_s": time.perf_counter() - t0}
+
+
+def _ran(what: str, r: dict) -> dict:
+    if r["rc"] != 0:
+        raise AssertionError(f"cli {what}: exit {r['rc']}\n{r['err'][-3000:]}")
+    return r
+
+
+def dfget_summary(err: str) -> dict:
+    """The fields of dfget's last line (``downloaded ... reuse= p2p=
+    device_verified=``)."""
+    line = err.strip().splitlines()[-1].split("\r")[-1]
+    return dict(re.findall(r"(\w+)=(\S+)", line))
+
+
+async def _until(what: str, probe, timeout: float = 120.0):
+    """``await probe()`` until it returns something true."""
+    deadline = time.monotonic() + timeout
+    while True:
+        try:
+            got = await probe()
+        except (DfError, OSError):
+            got = None
+        if got:
+            return got
+        if time.monotonic() > deadline:
+            raise AssertionError(f"cli: {what} within {timeout} s")
+        await asyncio.sleep(0.1)
+
+
+def _metric(text: str, name: str) -> dict:
+    """``{labels: value}`` of one family in a Prometheus text body."""
+    out = {}
+    for m in re.finditer(rf"^{name}(\{{[^}}]*\}})? (\S+)$", text, re.M):
+        out[m.group(1) or ""] = float(m.group(2))
+    return out
+
+
+def _http_json(port: int, path: str):
+    c = http.client.HTTPConnection(P2P_HOST, port, timeout=60)
+    try:
+        c.request("GET", path)
+        r = c.getresponse()
+        body = r.read()
+        if r.status != 200:
+            raise AssertionError(f"cli: GET {path} answered {r.status}")
+        return json.loads(body) if path != "/metrics" else body.decode()
+    finally:
+        c.close()
+
+
+async def _cli(root: str, content: np.ndarray, url: str, gw: StandInProcess,
+               device) -> dict:
+    from dragonfly2_tpu_torch.cli import main as cli_main
+    from dragonfly2_tpu_torch.manager.client import ManagerClient
+    from dragonfly2_tpu_torch.pkg.objectstorage import new_client
+
+    torch_device = "cuda" if _on_card(device) else "cpu"
+    logs = os.path.join(root, "logs")
+    os.makedirs(logs)
+    rest, grpc, sched_port, sched_metrics = free_ports(4)
+    maddr = f"{P2P_HOST}:{grpc}"
+    saddr = f"{P2P_HOST}:{sched_port}"
+    roles = {}
+    out: dict = {}
+    split = out["split"] = {}
+    mc = ManagerClient(NetAddr.tcp(P2P_HOST, grpc))
+    child = None
+    try:
+        # A CLI process's own start (the interpreter, the package, torch).
+        out["cli_start_s"] = _ran("--help", await cli_run("--help"))["wall_s"]
+        # 1. The control plane: the manager, its scheduler (no --config:
+        #    the fleet on), a seed that resolves the scheduler through it.
+        t0 = time.perf_counter()
+        roles["manager"] = cli_role(logs, "manager", [
+            "manager", "--host", P2P_HOST, "--port", str(rest),
+            "--grpc-port", str(grpc), "--metrics-port", "-1"])
+        async def manager_up():
+            await mc.list_applications()
+            return True
+
+        await _until("the manager serving", manager_up)
+        roles["scheduler"] = cli_role(logs, "scheduler", [
+            "scheduler", "--host", P2P_HOST, "--port", str(sched_port),
+            "--manager", maddr, "--metrics-port", str(sched_metrics)])
+
+        async def scheduler_active():
+            return any(s["port"] == sched_port and s["state"] == "active"
+                       for s in await mc.list_schedulers(
+                           hostname=CLI_CHILD, ip=P2P_HOST))
+
+        await _until("the manager listing the scheduler", scheduler_active)
+        seed_home = os.path.join(root, "seed")
+        roles["seed"] = cli_role(logs, "seed", [
+            "daemon", "--seed-peer", "--manager", maddr, "--work-home",
+            seed_home, "--hostname", CLI_SEED, "--metrics-port", "-1",
+            "--torch-device", torch_device])
+
+        async def seed_host():
+            hosts = await _list_hosts(saddr)
+            return next((h for h in hosts if h["hostname"] == CLI_SEED
+                         and h["type"] == 1), None)
+
+        seed = await _until("the seed announced", seed_host, timeout=300)
+        out["control_plane_s"] = split["control_plane"] = \
+            time.perf_counter() - t0
+        # The seed registered at the manager, as an operator registers one.
+        await mc.update_seed_peer(hostname=CLI_SEED, ip=seed["ip"],
+                                  port=seed["port"],
+                                  download_port=seed["upload_port"],
+                                  type="super")
+        listed = await mc.list_seed_peers(1)
+        if [s["hostname"] for s in listed] != [CLI_SEED]:
+            raise AssertionError(f"cli: ListSeedPeers {listed}")
+
+        # 2. A child in this process, built from the CLI's argv mapping.
+        t0 = time.perf_counter()
+        child_home = os.path.join(root, "child")
+        cfg = cli_main.daemon_config(cli_main.build_parser().parse_args([
+            "daemon", "--manager", maddr, "--device-sink",
+            "--object-storage-port", "0", "--work-home", child_home,
+            "--hostname", CLI_CHILD, "--metrics-port", "-1"]))
+        child = SwarmChild(root, "child", "", device, config=cfg)
+        await child.start()
+        d = child.daemon
+        members = sorted(d.scheduler_client._ring.members())
+        known = [s["hostname"] for s in d._known_seed_peers()]
+        if members != [saddr] or known != [CLI_SEED]:
+            raise AssertionError(f"cli: the child resolved {members}, "
+                                 f"seeds {known}")
+        task_id = FileTaskRequest(url=url, output="").task_id()
+        host = torch.from_numpy(content).to(device)
+        origin0 = gw.requests()
+        child.clock.reset()
+        _sync(device)
+        zero_launches()
+        got = _ran("dfget child", await cli_run(
+            "dfget", url, "--device", "tpu", "--no-daemon", "--work-home",
+            child_home))
+        summary = dfget_summary(got["err"])
+        if (summary.get("p2p"), summary.get("device_verified")) != (
+                "True", "True"):
+            raise AssertionError(f"cli: the child's dfget ended {summary}")
+        gate = child.take_and_gate(task_id, host)
+        del host
+        _sync(device)
+        out["child"] = {"dfget_wall_s": got["wall_s"], "summary": summary,
+                        "gate": gate, **child.registration(task_id),
+                        "host_id": child.host_id}
+        out["origin"] = _origin_delta(origin0, gw.requests())
+        if _on_card(device):
+            torch.cuda.empty_cache()
+        split["child"] = time.perf_counter() - t0
+
+        # 6 (read here, before more handouts). The fleet's decisions and
+        #    host reports at the scheduler's /debug/fleet*.
+        decisions = await asyncio.to_thread(
+            _http_json, sched_metrics,
+            f"/debug/fleet/decisions?task={task_id}&kind=handout")
+        hosts_report = await asyncio.to_thread(
+            _http_json, sched_metrics, "/debug/fleet/hosts")
+        out["fleet"] = {"decisions": decisions["decisions"],
+                        "hosts": [h["host"] for h in hosts_report["hosts"]],
+                        "seed_host": seed["id"]}
+
+        # 3. A cold host: dfget spawns the port's daemon, which resolves
+        #    the scheduler through the manager and lands in its own process.
+        t0 = time.perf_counter()
+        cold_home = os.path.join(root, "cold")
+        cold_out = os.path.join(root, "cold.bin")
+        origin1 = gw.requests()
+        got = _ran("dfget cold", await cli_run(
+            "dfget", url, "-O", cold_out, "--device", "tpu", "--manager",
+            maddr, "--work-home", cold_home, "--torch-device",
+            torch_device))
+        pid = int(re.search(r"spawned daemon .*pid=(\d+)",
+                            got["err"]).group(1))
+        alive_s = float(re.search(r"spawned daemon alive wait_s=(\S+)",
+                                  got["err"]).group(1))
+        summary = dfget_summary(got["err"])
+        spawn_log = os.path.join(cold_home, "logs", "daemon-spawn.log")
+        try:
+            with open(spawn_log) as f:
+                port = int(re.search(r"metrics server up port=(\d+)",
+                                     f.read()).group(1))
+            text = await asyncio.to_thread(_http_json, port, "/metrics")
+            t_sig = time.perf_counter()
+        finally:
+            os.kill(pid, signal.SIGTERM)
+        while True:
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                break
+            if time.perf_counter() - t_sig > CLI_STOP_S:
+                raise AssertionError(f"cli: the spawned daemon {pid} did not "
+                                     f"exit {CLI_STOP_S} s after SIGTERM")
+            await asyncio.sleep(0.05)
+        stop_s = time.perf_counter() - t_sig
+        with open(spawn_log) as f:
+            spawn_text = f.read()
+        t_sha = time.perf_counter()
+        sha = await asyncio.to_thread(
+            lambda: hashlib.sha256(open(cold_out, "rb").read()).hexdigest())
+        split["cold_output_sha256"] = time.perf_counter() - t_sha
+        os.unlink(cold_out)
+        out["cold"] = {
+            "dfget_wall_s": got["wall_s"], "summary": summary,
+            "alive_s": alive_s, "stop_s": stop_s, "sha256": sha,
+            "landed_bytes": _metric(text, "device_sink_landed_bytes_total"),
+            "verify": _metric(text, "device_sink_verify_total"),
+            "device_failures": _metric(text,
+                                       "peer_seed_device_failures_total"),
+            "stopped": "stopped role=Daemon" in spawn_text,
+            "traceback": "Traceback" in spawn_text,
+            "origin": _origin_delta(origin1, gw.requests())}
+        split["cold"] = time.perf_counter() - t0
+
+        # 4. The gateway PUT, replicated to the seed the manager lists.
+        # The gateway serves on the host's address (no --config: the
+        # address the daemon found for itself).
+        endpoint = f"http://{d.config.host.ip}:{d.object_storage.port}"
+        t0 = time.perf_counter()
+        put_file = os.path.join(root, "put.bin")
+        content[:CLI_PUT_BYTES].tofile(put_file)
+        _ran("dfstore mb", await cli_run(
+            "dfstore", "mb", f"df://{CLI_BUCKET}", "--endpoint", endpoint))
+        put = _ran("dfstore cp", await cli_run(
+            "dfstore", "cp", put_file, f"df://{CLI_BUCKET}/put.bin",
+            "--endpoint", endpoint))
+        fs = new_client("fs", **cfg.object_storage.backend_options)
+        put_task = idgen.task_id_v1(fs.object_url(CLI_BUCKET, "put.bin"),
+                                    tag=CLI_BUCKET)
+        seed_cli = Client(NetAddr.unix(os.path.join(seed_home, "run",
+                                                    "dfdaemon.sock")))
+        try:
+            async def seeded():
+                st = await seed_cli.call("Daemon.StatTask",
+                                         {"task_id": put_task}, timeout=10.0)
+                return st if st.get("done") else None
+
+            t_put = time.perf_counter()
+            replica = await _until("the seed holding the PUT", seeded)
+            out["put"] = {"stdout": put["out"].strip(), "replica": replica,
+                          "replicated_s": time.perf_counter() - t_put,
+                          "cp_wall_s": put["wall_s"]}
+        finally:
+            await seed_cli.close()
+        split["put"] = time.perf_counter() - t0
+
+        # 5. The cache on the child: import, stat, export, delete.
+        cache_file = os.path.join(root, "cache.bin")
+        cache_bytes = content[-CLI_CACHE_BYTES:]
+        cache_bytes.tofile(cache_file)
+        export = os.path.join(root, "export.bin")
+        home = ["--work-home", child_home]
+        t0 = time.perf_counter()
+        cache = {}
+        for op, extra in (("import", ["--path", cache_file]), ("stat", []),
+                          ("export", ["--output", export]), ("delete", [])):
+            r = _ran(f"dfcache {op}", await cli_run(
+                "dfcache", op, "chip-cli-cache", *extra, *home))
+            cache[op] = json.loads(r["out"].strip().splitlines()[-1])
+        gone = await cli_run("dfcache", "stat", "chip-cli-cache", *home)
+        with open(export, "rb") as f:
+            cache["exported_equal"] = f.read() == cache_bytes.tobytes()
+        cache["stat_after_delete_rc"] = gone["rc"]
+        out["cache"] = cache
+        split["cache"] = time.perf_counter() - t0
+        out["launches"] = checksum.launch_counts()
+        return out
+    finally:
+        t0 = time.perf_counter()
+        if child is not None:
+            await child.stop()
+        await mc.close()
+        out["role_exit"] = {name: stop_role(p) for name, p in
+                            reversed(list(roles.items()))}
+        split["stop"] = time.perf_counter() - t0
+
+
+async def _list_hosts(addr: str) -> list:
+    cli = _scheduler_client(addr)
+    try:
+        return (await cli.call("Scheduler.ListHosts", {},
+                               timeout=10.0))["hosts"]
+    finally:
+        await cli.close()
+
+
+def phase_cli(content: np.ndarray, device: torch.device) -> dict:
+    """The cold-host sequence through the port's CLI (``_cli``), over the
+    origin (the shard's file) in a process of its own. Checks: the child's
+    landing device-verified, from P2P, every byte of its buffer, K2 once a
+    batch and K1 twice in the gate, the origin read once (by the seed);
+    the cold host's landing device-verified, its output's sha256, its
+    daemon's ``device_sink_landed_bytes_total`` the content length with
+    one verification and no device-copy failure, no origin read, its
+    clean stop; the PUT in the seed's store, complete; the cache's
+    answers and bytes; the fleet's handouts to the child and the seed and
+    child scored; every role's exit code 0."""
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="df-chip-cli-")
+    procs = []
+    try:
+        # The origin's file, the seed's, child's and cold host's stores,
+        # the cold host's output, with a GiB to spare.
+        need = 5 * content.size + (1 << 30)
+        free = shutil.disk_usage(tmp).free
+        if free < need:
+            raise RuntimeError(f"the cli phase needs {need} B free under "
+                               f"{tmp}; {free} B are")
+        path = os.path.join(tmp, GATEWAY_KEY)
+        t0 = time.perf_counter()
+        content.tofile(path)
+        gw = StandInProcess(origin_objects, path)
+        gw.start()
+        procs.append(gw)
+        url = (f"{gw.endpoint()}/buckets/{ORIGIN_BUCKET}/objects/"
+               f"{GATEWAY_KEY}")
+        sha = hashlib.sha256(memoryview(content)).hexdigest()
+        origin_s = time.perf_counter() - t0
+        out = asyncio.run(_cli(os.path.join(tmp, "hosts"), content, url, gw,
+                               device))
+    finally:
+        t0 = time.perf_counter()
+        for p in reversed(procs):
+            p.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        cleanup_s = time.perf_counter() - t0
+    out["split"].update(origin_file_and_sha256=origin_s, cleanup=cleanup_s)
+    n_pieces = compute_piece_count(content.size,
+                                   compute_piece_size(content.size))
+    k2 = -(-n_pieces // BATCH_PIECES)
+    gate = out["child"]["gate"]
+    if not gate["equal"] or gate["pieces_landed"] != n_pieces:
+        raise AssertionError(f"cli: the child's buffer {gate}")
+    if out["origin"] != seed_origin_reads(content.size):
+        raise AssertionError(f"cli: origin saw {out['origin']}, want "
+                             f"{seed_origin_reads(content.size)}")
+    cold = out["cold"]
+    if (cold["summary"].get("device_verified") != "True"
+            or cold["sha256"] != sha
+            or cold["landed_bytes"] != {"": float(content.size)}
+            or cold["verify"] != {'{result="ok"}': 1.0}
+            or any(cold["device_failures"].values())
+            or cold["origin"] or not cold["stopped"] or cold["traceback"]):
+        raise AssertionError(f"cli: the cold host {cold}")
+    replica = out["put"]["replica"]
+    if (replica["content_length"] != min(CLI_PUT_BYTES, content.size)
+            or not replica["done"]):
+        raise AssertionError(f"cli: the seed's replica {replica}")
+    cache = out["cache"]
+    if (cache["import"]["content_length"] != CLI_CACHE_BYTES
+            or not cache["stat"]["done"]
+            or cache["export"]["state"] != "done"
+            or not cache["exported_equal"]
+            or cache["stat_after_delete_rc"] == 0):
+        raise AssertionError(f"cli: the cache {cache}")
+    fleet = out["fleet"]
+    child_host = out["child"]["host_id"]
+    handouts = [x for x in fleet["decisions"] if x["host"] == child_host]
+    if (not handouts or fleet["seed_host"] not in handouts[0]["chosen"]
+            or not {child_host, fleet["seed_host"]} <= set(fleet["hosts"])):
+        raise AssertionError(f"cli: the fleet {fleet}")
+    if any(out["role_exit"].values()):
+        raise AssertionError(f"cli: the roles exited {out['role_exit']}")
+    if _on_card(device) and out["launches"] != {
+            "chunk_checksums": 2, "land_and_checksum": k2,
+            "gear_candidates": 0}:
+        raise AssertionError(f"cli: launches {out['launches']}, want K1 2, "
+                             f"K2 {k2}")
+    return {**out, "want_k2": k2, "pieces": n_pieces,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def cli_line(c: dict) -> str:
+    """The cli path's printed line."""
+    child, cold, gate = c["child"], c["cold"], c["child"]["gate"]
+    return (
+        f"cli: every role through python -m dragonfly2_tpu_torch.cli.main "
+        f"(manager, scheduler with the fleet on, a seed resolving it "
+        f"through the manager: up in {c['control_plane_s']:.3f} s); the "
+        f"child's dfget --device tpu --no-daemon {child['dfget_wall_s']:.3f}"
+        f" s wall (p2p={child['summary'].get('p2p')}, device_verified="
+        f"{child['summary'].get('device_verified')}), land_s "
+        f"{gate['land_s']:.4f} s, the sink's worker busy "
+        f"{gate['sink_busy_s']:.4f} s, register to normal_task "
+        f"{child['register_to_normal_task_s'] * 1e3:.2f} ms (sched_wait "
+        f"{child['sched_wait_s'] * 1e3:.2f} ms); K2 "
+        f"{c['launches']['land_and_checksum']}, K1 "
+        f"{c['launches']['chunk_checksums']}; the origin served "
+        f"{c['origin'].get('get_range', [0, 0])[1]} B, to the seed; the "
+        f"cold host's dfget -O --device tpu --manager "
+        f"{cold['dfget_wall_s']:.3f} s wall, its spawned daemon alive after "
+        f"{cold['alive_s']:.3f} s, device_verified="
+        f"{cold['summary'].get('device_verified')}, "
+        f"{cold['landed_bytes']['']:.0f} B landed, stopped "
+        f"{cold['stop_s']:.3f} s after SIGTERM; the PUT's replica on the "
+        f"seed {c['put']['replicated_s']:.3f} s after it; the fleet "
+        f"recorded {len(c['fleet']['decisions'])} handouts of the task; "
+        f"the phase {c['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in c["split"].items())
+        + f"; a CLI process's start alone {c['cli_start_s']:.2f} s)")
 
 
 # --------------------------------------------------------------------- #
@@ -5476,7 +5980,7 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k2_pex: int, want_k2_seed: int,
                    want_k2_dfdaemon: int, want_k2_dfdaemon_epoch: int,
                    want_k2_proxy: int, want_k2_swarm: int,
-                   want_k2_manager_preheat: int) -> None:
+                   want_k2_manager_preheat: int, want_k2_cli: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -5510,7 +6014,9 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     four children's landings (two of the shard, two of its quarter), K1
     twice in the gate after each. The manager_preheat path: K2 once per
     batch as the job's seed lands the shard, K1 twice in the gate after
-    the take."""
+    the take. The cli path: K2 once per batch as the child (in this
+    process) lands the shard for ``dfget --device tpu``, K1 twice in the
+    gate after the take (the cold host lands in a process of its own)."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -5532,7 +6038,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "dfdaemon_epoch": k(0, want_k2_dfdaemon_epoch),
             "p2p_qos": k(2, want_k2_proxy), "proxy": k(2, want_k2_proxy),
             "swarm": k(8, want_k2_swarm),
-            "manager_preheat": k(2, want_k2_manager_preheat)}
+            "manager_preheat": k(2, want_k2_manager_preheat),
+            "cli": k(2, want_k2_cli)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -5903,6 +6410,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("manager preheat:", json.dumps(mpre))
     print(f"{manager_preheat_line(mpre, cold['wall_s'])} on {smi}")
+    clip = phase_cli(content, device)
+    torch.cuda.empty_cache()
+    print("cli:", json.dumps(clip))
+    print(f"{cli_line(clip)} on {smi}")
 
     swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
                                    piece_size, gen, device)
@@ -6194,14 +6705,14 @@ def main(argv=None) -> int:
              "dfdaemon_epoch": dfd["epoch"]["launches"],
              "p2p_qos": p2p["gated"]["launches"],
              "proxy": prx["launches"], "swarm": swm["launches"],
-             "manager_preheat": mpre["launches"]}
+             "manager_preheat": mpre["launches"], "cli": clip["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
                    sum(dmn["want_k2"].values()), p2p["want_k2"],
                    pex["want_k2"], seed["want_k2"], dfd["want_k2"],
                    DFD_EPOCH_BATCHES, prx["want_k2"], swm["want_k2"],
-                   mpre["want_k2"])
+                   mpre["want_k2"], clip["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

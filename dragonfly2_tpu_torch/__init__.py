@@ -38,22 +38,24 @@ from the JAX package (nor JAX itself):
                CUDA card, and its own history of verified runs.
 
 Entry points run on the card unless the caller asks for the CPU
-(``device="cpu"``), which is what the CPU tests do.
+(``device="cpu"``), which is what the CPU tests do. Importing the package
+does not import ``torch``: the modules that use it do, so the CLI's client
+commands (``dfget``, ``dfcache``, ``dfstore``) start without it.
 """
 
 from __future__ import annotations
 
-import torch
-
 __version__ = "0.1.0"
 
 
-def default_device(device=None) -> torch.device:
+def default_device(device=None) -> "torch.device":  # noqa: F821
     """The device a port entry point runs on. ``None`` means the current
     CUDA device; with no CUDA device this raises instead of quietly
     running on the CPU (a caller who wants the CPU says ``device="cpu"``).
     A CUDA device always carries its index, so devices compare equal to
     a tensor's ``.device``."""
+    import torch
+
     if device is not None:
         dev = torch.device(device)
         if dev.type == "cuda":

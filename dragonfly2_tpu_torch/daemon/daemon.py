@@ -10,7 +10,9 @@ Construction, in the JAX order:
 - the task stores over ``<work_home>/data`` with the config's TTL, quota,
   GC interval and idle-descriptor close, reloaded from disk;
 - the piece manager under the download rate;
-- the scheduler client when ``scheduler.addrs`` names schedulers;
+- the scheduler client when ``scheduler.addrs`` names schedulers (with
+  ``manager_addr``, ``start()`` resolves it from the manager instead, or
+  as well: ``daemon/dynconfig.py``);
 - with ``qos.enabled``, the QoS plane (``qos/``): one ``WFQGate`` of
   ``qos.dispatch_capacity`` slots (2 x ``download.parent_concurrency``
   when 0) that every conductor's piece workers share, and
@@ -31,7 +33,12 @@ Construction, in the JAX order:
   ``gc_interval``.
 
 ``start()``: the host library built off the loop (``pkg/dfhost``, CRC-32C
-of every stored piece), the traffic shaper's loop, the flight recorder's
+of every stored piece), with ``manager_addr`` the manager-fed dynconfig
+(the active schedulers of ``Manager.ListSchedulers`` for this host, the
+static ``scheduler.addrs`` as fallback, refreshed every 10 s: a
+scheduler that registers later is picked up then, and the announcer
+starts late; the seed peers of ``Manager.ListSeedPeers`` are where the
+gateway replicates a PUT), the traffic shaper's loop, the flight recorder's
 ``dump_dir``, ``keep_bundles`` and ``clock_offset_s``, ``/metrics`` on
 loopback at ``metrics_port`` (-1: none), the download service on
 ``unix_sock``, the peer service on ``download.peer_port`` (-1: none), the
@@ -39,8 +46,8 @@ upload server, the proxy on ``proxy.port`` and, with ``sni_enabled``, its
 SNI listener on ``sni_port``, the gateway, PEX when enabled (gossiping
 every completed store), the announcer when there is a scheduler, and the
 GC loop.
-``stop()``: the GC loop, the shaper, PEX, ``/metrics``, the announcer
-(its ``leave_host``), the scheduler client, the proxy, the gateway, the
+``stop()``: the GC loop, the shaper, PEX, ``/metrics``, the dynconfig,
+the announcer (its ``leave_host``), the scheduler client, the proxy, the gateway, the
 upload server, the drpc services, the sink worker (waited for), the origin
 clients' pooled connections, then the stores.
 
@@ -51,11 +58,9 @@ telemetry. ``download.calculate_digest`` sets nothing: the port's piece
 path always records each piece's CRC-32C, fused into the store write.
 
 Refused at construction with ``ValueError`` naming the ``ROADMAP.md``
-item, since the port does not have them yet: ``manager_addr`` (the
-daemon's manager-sourced dynconfig, ROADMAP A7.2 item 2's daemon half)
-and an object-storage backend other than
-``fs``. ``prof.enabled`` (true by default) is accepted and no runtime
-observatory is installed: ``pkg/prof`` is not ported.
+item, since the port does not have it yet: an object-storage backend
+other than ``fs``. ``prof.enabled`` (true by default) is accepted and no
+runtime observatory is installed: ``pkg/prof`` is not ported.
 """
 
 from __future__ import annotations
@@ -76,7 +81,7 @@ from dragonfly2_tpu_torch.daemon.rpcserver import DaemonRpcServer
 from dragonfly2_tpu_torch.daemon.schedulerclient import SchedulerClient
 from dragonfly2_tpu_torch.daemon.upload import UploadManager
 from dragonfly2_tpu_torch.parallel.topology import apply_to_host_config
-from dragonfly2_tpu_torch.pkg import dflog
+from dragonfly2_tpu_torch.pkg import aio, dflog
 from dragonfly2_tpu_torch.pkg.cache import GC, GCTask
 from dragonfly2_tpu_torch.pkg.objectstorage import NOT_PORTED
 from dragonfly2_tpu_torch.pkg.ratelimit import Limiter
@@ -90,10 +95,6 @@ def refuse_unported(config: DaemonConfig) -> None:
     """Raise ValueError for a service the config enables that the port
     does not have yet; nothing goes on without it."""
     unported = []
-    if config.manager_addr:
-        unported.append("manager_addr: the daemon's manager-sourced "
-                        "dynconfig and its seed peers (ROADMAP A7.2 item 2, "
-                        "the daemon half; the manager client is ported)")
     backend = config.object_storage.backend
     if config.object_storage.enabled and backend != "fs":
         which = ("is not ported yet" if backend in NOT_PORTED
@@ -169,14 +170,7 @@ class Daemon:
             device_sinks=device_sinks,
         )
         if self.scheduler_client is not None:
-            self.task_manager.conductor_factory = conductor_factory(
-                scheduler_client=self.scheduler_client,
-                piece_manager=self.piece_manager,
-                host_wire=self._conductor_host,
-                task_manager=self.task_manager,
-                piece_parallelism=config.download.parent_concurrency,
-                report_batch=config.download.report_batch,
-                seed_peer=config.seed_peer, wfq=self.qos_gate)
+            self._use_conductors()
         self.rpc = DaemonRpcServer(self.task_manager, device=self.device)
         self.proxy = None
         if config.proxy.enabled:
@@ -216,14 +210,27 @@ class Daemon:
                 get_seed_peers=self._known_seed_peers,
                 trigger_seed=self._trigger_seed_peer)
         self.announcer: Announcer | None = None
+        self.dynconfig = None  # the manager-fed scheduler resolution
         self.pex = None        # gossip peer exchange (started in start())
         self.metrics = None    # the /metrics server
         self._source_registry = None
+        self._started = False
         self._peer_port = 0
         self.gc = GC(log)
         self.gc.add(GCTask("storage", config.gc_interval, 30.0,
                            self._gc_storage))
         self._stopped = asyncio.Event()
+
+    def _use_conductors(self) -> None:
+        """P2P downloads through ``self.scheduler_client``."""
+        self.task_manager.conductor_factory = conductor_factory(
+            scheduler_client=self.scheduler_client,
+            piece_manager=self.piece_manager,
+            host_wire=self._conductor_host,
+            task_manager=self.task_manager,
+            piece_parallelism=self.config.download.parent_concurrency,
+            report_batch=self.config.download.report_batch,
+            seed_peer=self.config.seed_peer, wfq=self.qos_gate)
 
     def _host_wire(self) -> dict:
         """The host's identity, {} before the announcer exists."""
@@ -240,8 +247,10 @@ class Daemon:
     # -- object-storage replication hooks ----------------------------------
 
     def _known_seed_peers(self) -> list[dict]:
-        """The seed peers a PUT replicates to: the manager's dynconfig
-        names them, which the port does not have, so none."""
+        """The seed peers a PUT replicates to: the manager's, as the
+        dynconfig last pulled them; none without a manager."""
+        if self.dynconfig is not None:
+            return self.dynconfig.cached_seed_peers()
         return []
 
     async def _trigger_seed_peer(self, seed: dict, spec: dict) -> bool:
@@ -257,6 +266,55 @@ class Daemon:
             return False
         finally:
             await cli.close()
+
+    # -- the manager-fed scheduler list ----------------------------------
+
+    async def _resolve_schedulers_from_manager(self) -> None:
+        """Resolve the scheduler set through the manager and keep it fresh;
+        the static ``scheduler.addrs`` stay the fallback. The refresh loop
+        always runs, so a daemon started before any scheduler registered
+        picks one up on the next refresh."""
+        from dragonfly2_tpu_torch.daemon.dynconfig import (
+            DaemonDynconfig,
+            active_scheduler_addrs,
+        )
+
+        h = self.config.host
+        self.dynconfig = DaemonDynconfig(
+            local_addrs=self.config.scheduler.addrs,
+            manager_addr=self.config.manager_addr,
+            host_info={"hostname": h.hostname, "ip": h.ip, "idc": h.idc,
+                       "location": h.location, "pod": h.tpu_slice},
+            cache_dir=self.config.dfpath.cache_dir)
+        addrs = await self.dynconfig.scheduler_addrs()
+        if addrs:
+            self._apply_scheduler_addrs(addrs)
+        else:
+            log.warning("manager returned no schedulers yet; will keep polling")
+
+        def _on_change(data: dict) -> None:
+            fresh = active_scheduler_addrs(data)
+            if fresh:
+                self._apply_scheduler_addrs(fresh)
+
+        self.dynconfig.register(_on_change)
+        self.dynconfig.serve()
+
+    def _apply_scheduler_addrs(self, addrs: list[str]) -> None:
+        if self.scheduler_client is not None:
+            self.scheduler_client.update_addrs(addrs)
+            return
+        self.scheduler_client = SchedulerClient(addrs)
+        self.task_manager.scheduler_client = self.scheduler_client
+        self._use_conductors()
+        # Discovered after start(): the announcer comes up now, so the
+        # scheduler learns this host.
+        if self._started and self.announcer is None:
+            self.announcer = Announcer(
+                self.config, self.scheduler_client,
+                peer_port=self._peer_port, upload_port=self.upload.port,
+                recorder=self.task_manager.flight)
+            aio.spawn(self.announcer.start())
 
     async def _gc_storage(self) -> None:
         self.storage.gc()
@@ -287,6 +345,8 @@ class Daemon:
         # A cold host library is seconds of g++: never on the loop.
         await asyncio.get_running_loop().run_in_executor(
             None, _build.host_library)
+        if self.config.manager_addr:
+            await self._resolve_schedulers_from_manager()
         self.task_manager.shaper.serve()
         recorder = self.task_manager.flight
         if not recorder.dump_dir:
@@ -327,6 +387,7 @@ class Daemon:
                 if store.metadata.done and not store.metadata.invalid:
                     self.pex.add_task(store.metadata.task_id)
         self._peer_port = peer_port
+        self._started = True
         if self.scheduler_client is not None:
             self.announcer = Announcer(
                 self.config, self.scheduler_client, peer_port=peer_port,
@@ -355,6 +416,8 @@ class Daemon:
             await self.pex.stop()
         if self.metrics is not None:
             await self.metrics.close()
+        if self.dynconfig is not None:
+            await self.dynconfig.stop()
         if self.announcer is not None:
             await self.announcer.stop()
         if self.scheduler_client is not None:

@@ -138,3 +138,15 @@ def hash_bytes(algorithm: str, data) -> Digest:
     h = new_hasher(algorithm)
     h.update(data)
     return Digest(algorithm, h.hexdigest())
+
+
+def hash_file(algorithm: str, path: str,
+              chunk_size: int = 4 * 1024 * 1024) -> Digest:
+    h = new_hasher(algorithm)
+    with open(path, "rb") as f:
+        while True:
+            chunk = f.read(chunk_size)
+            if not chunk:
+                break
+            h.update(chunk)
+    return Digest(algorithm, h.hexdigest())

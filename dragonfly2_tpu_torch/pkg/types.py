@@ -107,3 +107,10 @@ def parse_size(s: str | int | float) -> int:
         if upper.endswith(suffix):
             return int(float(upper[: -len(suffix)]) * mult)
     return int(float(s))
+
+
+def format_size(n: int) -> str:
+    for suffix, mult in (("TiB", TB), ("GiB", GB), ("MiB", MB), ("KiB", KB)):
+        if n >= mult:
+            return f"{n / mult:.2f}{suffix}"
+    return f"{n}B"

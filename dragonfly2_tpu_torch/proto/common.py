@@ -28,6 +28,18 @@ class UrlMeta:
     priority: int = DEFAULT_PRIORITY
     tenant: str = ""                   # QoS attribution; not task identity
 
+    def to_wire(self) -> dict[str, Any]:
+        return {
+            "digest": self.digest,
+            "tag": self.tag,
+            "range": self.range,
+            "filter": self.filter,
+            "header": self.header,
+            "application": self.application,
+            "priority": self.priority,
+            "tenant": self.tenant,
+        }
+
     @classmethod
     def from_wire(cls, d: dict[str, Any] | None) -> "UrlMeta":
         """The metadata of a request's wire body (``Daemon.Download``'s

@@ -69,9 +69,11 @@ class SchedulingConfig:
 
 @dataclass
 class FleetConfig:
-    """The JAX fleet observatory's bounds. The port refuses
-    ``enabled=True`` (its straggler filter drops candidates); callers set
-    ``fleet.enabled=False``."""
+    """The fleet observatory's bounds (``pkg/fleet.py``): the bounded
+    scheduler-side time-series, host scorecards and decision log;
+    ``straggler_filter`` wires the scorecards' advisory filter into the
+    scheduling core. ``frame_max_bytes`` caps the JAX cluster fleet frame,
+    which the port does not build (no cluster tower)."""
 
     enabled: bool = True
     bucket_s: float = 5.0

@@ -5,11 +5,12 @@ port's copy of ``dragonfly2_tpu/scheduler/scheduling/scheduling.py``.
 candidates (a random sample of the task DAG merged with the peer's
 same-slice peers, filtered and scored) and hand them out, or fall back
 to the origin after the back-to-source limit. ``wire_qos`` narrows a
-burning tenant's handouts.
+burning tenant's handouts; ``wire_fleet`` (``pkg/fleet.py``) records each
+handout and throttle in the fleet's decision log and drops the hosts its
+scorecards flag as stragglers from the candidates.
 
-Not here: ``wire_fleet``, the fleet observatory's straggler filter and
-decision log (the service refuses ``fleet.enabled``), and evaluator
-plugins (a ``scheduling.algorithm`` other than ``"default"`` raises).
+Not here: evaluator plugins (a ``scheduling.algorithm`` other than
+``"default"`` raises).
 """
 
 from __future__ import annotations
@@ -48,12 +49,28 @@ class Scheduling:
                     f"not ported (ROADMAP A7.4); use \"default\"")
             evaluator = Evaluator(self.config)
         self.evaluator = evaluator
+        # Fleet observatory handle (pkg/fleet), wired by the service when
+        # the advisory straggler filter is enabled: flagged hosts drop out
+        # of candidate sets and every handout/filter lands in the
+        # decision audit log (/debug/fleet/decisions). ``wire_fleet``
+        # also binds the scorecards and the (in-place-updated) straggler
+        # set directly — ``_is_candidate`` runs per candidate per
+        # schedule attempt and must not pay an attribute chain there.
+        self.fleet = None
+        self._scorecards = None
+        self._stragglers: "set[str] | None" = None
+        self._recompute_tick = 63   # first attempt after wiring recomputes
         # QoS admission hook: a callable returning the tenants currently
         # burning past their error budget. A throttled tenant's handouts
         # shrink to half the candidate limit (at least 1): it keeps making
         # progress but stops fanning wide while it burns. The service
         # wires it to its burn book.
         self._throttled_tenants = None
+
+    def wire_fleet(self, fleet) -> None:
+        self.fleet = fleet
+        self._scorecards = fleet.scorecards
+        self._stragglers = fleet.scorecards._stragglers
 
     def wire_qos(self, throttled_fn) -> None:
         self._throttled_tenants = throttled_fn
@@ -122,6 +139,17 @@ class Scheduling:
     def find_candidate_parents(self, peer: Peer, blocklist: set[str] | None = None) -> list[Peer]:
         task = peer.task
         blocklist = blocklist or set()
+        sc = self._scorecards
+        if sc is not None:
+            # Refresh the straggler flag set: this path only exists to
+            # end a flagged host's probation when serve traffic stopped
+            # reaching it (under traffic, note_pieces drives the
+            # recompute cadence), so even the clock read is throttled to
+            # every 64th schedule attempt — recompute_s still bounds the
+            # actual recompute rate.
+            self._recompute_tick = (self._recompute_tick + 1) & 63
+            if self._recompute_tick == 0:
+                sc.maybe_recompute(sc._clock())
         sample = {v.id: v.value
                   for v in task.dag.random_vertices(
                       self.config.filter_parent_limit)}
@@ -177,6 +205,10 @@ class Scheduling:
                 # handouts narrow instead of vanishing — admission at the
                 # manager stops NEW work, this bounds in-flight fan-out.
                 limit = max(1, limit // 2)
+                if self.fleet is not None:
+                    self.fleet.note_throttle(
+                        task.tenant, task_id=task.id, host_id=peer.host.id,
+                        reason="burn_rate_handout", limit=limit)
         out = ranked[:limit]
         # A handout must contain ≥1 parent that serves NOW (succeeded,
         # piece-holding, or back-sourcing). Warming slice-mates may fill
@@ -191,6 +223,21 @@ class Scheduling:
                  or p.finished_piece_count() > 0), None)
             if serving is not None:
                 out[-1] = serving
+        if self.fleet is not None and out:
+            # Audit: the handout plus the top rejected alternatives, so
+            # "why did host X get parent Y (and not Z)" is answerable
+            # after the fact. Once per handout — not a per-piece path.
+            taken = {id(p) for p in out}
+            rejected = []
+            for p in ranked:
+                if id(p) not in taken:
+                    rejected.append(p.host.id)
+                    if len(rejected) == 3:
+                        break
+            self.fleet.note_handout(
+                task.id, peer.id, peer.host.id,
+                chosen=tuple(p.host.id for p in out),
+                rejected=tuple(rejected))
         return out
 
     def _is_candidate(self, parent: Peer, child: Peer, blocklist: set[str]) -> bool:
@@ -238,6 +285,16 @@ class Scheduling:
             # Pod-wide demotion: typed piece_failed reports (corrupt /
             # truncated / stalled serving) quarantined this host; it stays
             # out of EVERY peer's candidate set until the penalty decays.
+            return False
+        if self._stragglers and parent.host.id in self._stragglers:
+            # Advisory fleet-wide demotion: the cross-task scorecard says
+            # this host serves slowly EVERYWHERE (robust z over serve
+            # EWMAs — the per-task PodAggregator cannot see this). Safe by
+            # construction: flagging needs min_population scored hosts,
+            # so small pods never lose their only parent to it. Each drop
+            # is explained in the decision log.
+            self.fleet.note_straggler_filter(child.task.id, child.id,
+                                             parent.host.id)
             return False
         if self.evaluator.is_bad_node(parent):
             return False

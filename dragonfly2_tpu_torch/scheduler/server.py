@@ -4,9 +4,10 @@
 ``SchedulerServer`` registers every ``Scheduler.*`` handler of the JAX
 server on the port's drpc, runs the resource GC and the HA snapshot
 flush on their intervals (``pkg/cache.GC``), flushes the snapshot once
-more at stop, and serves ``/metrics`` and ``/healthy`` on the port's
-``pkg/metrics_server.py`` when ``metrics_port >= 0`` (no ``/debug/*``
-routes); ``prof`` installs nothing. With ``manager_addr`` it registers
+more at stop, and serves ``/metrics``, ``/healthy`` and, with the fleet
+observatory on, ``/debug/fleet*`` on the port's ``pkg/metrics_server.py``
+when ``metrics_port >= 0`` (no other ``/debug/*`` routes); ``prof``
+installs nothing. With ``manager_addr`` it registers
 with the manager (``scheduler/announcer.py``, the keepalive carrying
 ``service.manager_payload``), keeps the cluster's config and seed peers
 fresh (``scheduler/dynconfig.py``; each seed peer registered as a host)
@@ -16,8 +17,7 @@ while the scheduler serves.
 
 From Python::
 
-    cfg = SchedulerConfig.from_dict({"server": {"port": 0},
-                                     "fleet": {"enabled": False}})
+    cfg = SchedulerConfig.from_dict({"server": {"port": 0}})
     server = SchedulerServer(cfg)
     await server.start()      # server.port() is the bound drpc port
     ...
@@ -108,7 +108,7 @@ class SchedulerServer:
                                          self.config.server.port))
         if self.config.metrics_port >= 0:
             # Loopback only, as in the JAX server.
-            self.metrics = MetricsServer()
+            self.metrics = MetricsServer(fleet=self.service.fleet)
             await self.metrics.serve("127.0.0.1", self.config.metrics_port)
         self.gc.serve()
         if self.config.manager_addr:

@@ -12,12 +12,18 @@ Stream protocol (drpc ``Scheduler.AnnouncePeer``):
                     normal_task{task, parents, stripe?} |
                     need_back_source{reason} | schedule_failed{reason}
 
-``refuse_unported`` raises ``ValueError`` at construction for an enabled
-option that would change a handout or needs a service the port lacks:
-``fleet.enabled`` (its straggler filter drops candidates) and a
-``scheduling.algorithm`` other than ``"default"``. ``manager_addr`` is
-served (``scheduler/server.py``: the announcer, dynconfig and job
-worker); ``manager_payload`` is what its keepalive carries.
+With ``fleet.enabled`` (the default) the service feeds the fleet
+observatory (``pkg/fleet.py``) from its report paths, as the JAX service
+does: registrations, announces, piece batches, typed failures,
+quarantines, back-to-source and stripe handouts, failed schedules and
+admission transitions; ``fleet.straggler_filter`` wires it into the
+scheduling core (handout records, the advisory straggler filter).
+``refuse_unported`` raises ``ValueError`` at construction for a
+``scheduling.algorithm`` other than ``"default"`` (the evaluator plugins
+are not ported). ``manager_addr`` is served (``scheduler/server.py``:
+the announcer, dynconfig and job worker); ``manager_payload`` is what
+its keepalive carries: the tenant burn snapshot, and no fleet frame (the
+manager has no cluster tower).
 Observe-only options are accepted and install nothing:
 ``podlens.enabled`` and ``podlens.slo_enabled`` (no pod lens, no SLO
 engine; ``Scheduler.PodTimeline`` answers as the JAX scheduler does with
@@ -36,6 +42,7 @@ import urllib.parse
 
 from dragonfly2_tpu_torch.pkg import aio, dflog
 from dragonfly2_tpu_torch.pkg import digest as dfdigest
+from dragonfly2_tpu_torch.pkg import fleet as fleetlib
 from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.fsm import TransitionError
@@ -116,10 +123,6 @@ def refuse_unported(config: SchedulerConfig) -> None:
     or needs a service the port does not have yet; nothing goes on
     without it."""
     unported = []
-    if config.fleet.enabled:
-        unported.append("fleet.enabled: the fleet observatory, whose "
-                        "straggler filter drops candidates (ROADMAP A7.4; "
-                        "set fleet.enabled=False)")
     if config.scheduling.algorithm not in ("", "default"):
         unported.append(f"scheduling.algorithm "
                         f"{config.scheduling.algorithm!r}: the evaluator "
@@ -163,11 +166,44 @@ class SchedulerService:
         # Pod-level flight aggregation: per-host phase attribution from
         # the piece reports' timings, and quarantine correlation.
         self.pod_flight = flightlib.PodAggregator()
+        # Fleet observatory (pkg/fleet): bounded cluster time-series +
+        # cross-task host scorecards + scheduling decision audit log, fed
+        # from the report paths below and served at /debug/fleet* by the
+        # scheduler's MetricsServer. The scorecard straggler flag feeds
+        # an advisory filter into scheduling._is_candidate.
+        fc = self.config.fleet
+        self.fleet: "fleetlib.FleetObservatory | None" = None
+        if fc.enabled:
+            self.fleet = fleetlib.FleetObservatory(
+                bucket_s=fc.bucket_s, buckets=fc.buckets,
+                decision_cap=fc.decision_cap, max_hosts=fc.scorecard_hosts,
+                straggler_z=fc.straggler_z,
+                min_serve_samples=fc.min_serve_samples,
+                min_population=fc.min_population,
+                sampler=self._fleet_gauges,
+                config_snapshot={
+                    "seed_peer_enabled": self.config.seed_peer_enabled,
+                    "cluster_id": self.config.cluster_id,
+                    "scheduling": {
+                        "algorithm": self.config.scheduling.algorithm,
+                        "candidate_parent_limit":
+                            self.config.scheduling.candidate_parent_limit,
+                        "retry_interval":
+                            self.config.scheduling.retry_interval,
+                        "stripe_min_slice_peers":
+                            self.config.scheduling.stripe_min_slice_peers,
+                    },
+                    "gc": {"peer_ttl": gc.peer_ttl, "task_ttl": gc.task_ttl,
+                           "host_ttl": gc.host_ttl},
+                })
+            if fc.straggler_filter:
+                self.scheduling.wire_fleet(self.fleet)
         # The tenant QoS plane: the per-tenant burn book, fed from
         # shipped flights. Always on, as in the JAX scheduler: a
         # breaching tenant's handouts narrow.
         self.tenant_burn = TenantBurnBook()
         self.scheduling.wire_qos(self.tenant_burn.throttled)
+        self._tenant_admission_state: dict[str, str] = {}
         # Scheduler HA: the durable bounded snapshot of live task, peer
         # and host state, restored at construction
         # (scheduler/resource/snapshot.py).
@@ -183,8 +219,47 @@ class SchedulerService:
     def manager_payload(self) -> dict:
         """What the scheduler's manager keepalive carries: the tenant burn
         snapshot, for the manager's job admission. (The JAX scheduler adds
-        its fleet frame; the port has no fleet observatory.)"""
-        return {"tenant_burn": self.tenant_burn.snapshot()}
+        its cluster fleet frame; the port's manager has no cluster
+        tower.)"""
+        return self.tenant_burn_payload()
+
+    def tenant_burn_payload(self) -> dict:
+        """Keepalive piggyback for the manager's admission controller:
+        {"tenant_burn": {tenant: {burn, state, completions}}}. Breach
+        transitions (either direction) are recorded in the fleet decision
+        log as ``admission`` decisions with the TENANT as subject —
+        transition-only, so the log stays bounded while /debug/fleet/
+        decisions?kind=admission shows when and why each tenant's jobs
+        started (and stopped) being pushed back."""
+        snap = self.tenant_burn.snapshot()
+        for tenant, info in snap.items():
+            prev = self._tenant_admission_state.get(tenant)
+            state = info["state"]
+            if state != prev and "breach" in (state, prev):
+                if self.fleet is not None:
+                    self.fleet.note_admission(
+                        tenant,
+                        decision="deny" if state == "breach" else "restore",
+                        burn=info["burn"], source="burn_book")
+            self._tenant_admission_state[tenant] = state
+        return {"tenant_burn": snap}
+
+    def _fleet_gauges(self) -> dict:
+        """Gauge sample for the fleet time-series. O(hosts+peers+tasks)
+        scans — called at bucket rotation (amortized once per bucket_s)
+        and on /debug/fleet snapshots, never per event."""
+        hc = self.hosts.counts()
+        return {
+            "hosts_total": hc["total"],
+            "hosts_seed": hc["seed"],
+            "hosts_quarantined": hc["quarantined"],
+            "peers_running": sum(1 for p in self.peers.all()
+                                 if not p.is_done()),
+            "tasks_active": sum(1 for t in self.tasks.all()
+                                if t.fsm.current == TaskState.RUNNING),
+            "straggler_hosts": len(
+                self.fleet.scorecards._stragglers) if self.fleet else 0,
+        }
 
     # ------------------------------------------------------------------ #
     # HA: durable snapshot save/restore (scheduler/resource/snapshot.py)
@@ -338,6 +413,8 @@ class SchedulerService:
             # (idempotent application) so it becomes a usable parent again.
             self.peers.delete(stale.id)
             PEER_REREGISTER_COUNT.inc()
+            if self.fleet is not None:
+                self.fleet.note_register(reconnect=True)
             log.info("terminal peer re-registered", peer=stale.id[:24],
                      prior_state=stale.fsm.current)
         peer = self.peers.load_or_store(
@@ -367,6 +444,8 @@ class SchedulerService:
             raise DfError(Code.BadRequest, "task_id and peer_id required")
         host, task, peer = self._resolve(open_body)
         peer.announce_stream = stream
+        if self.fleet is not None:
+            self.fleet.note_register()
         log.info("announce peer", peer=peer.id[:24], task=task.id[:16],
                  host=host.id, seed=peer.is_seed)
         try:
@@ -556,6 +635,8 @@ class SchedulerService:
             # peer's unfinished remainder does not contradict.
             self._mark_task_running(task)
         STATE_REBUILT_COUNT.labels("reregister").inc()
+        if self.fleet is not None:
+            self.fleet.note_register(reconnect=True)
         if added:
             # The re-announced pieces make this peer a usable parent NOW:
             # wake every schedule loop blocked on this task.
@@ -576,6 +657,9 @@ class SchedulerService:
         if stripe is not None:
             out["stripe"] = stripe
             STRIPE_HANDOUT_COUNT.labels("striped").inc()
+            if self.fleet is not None:
+                self.fleet.note_stripe(task.id, peer.id, peer.host.id,
+                                       reshuffle=False)
         await stream.send(self._stamped(out))
         if peer.host.tpu_slice:
             aio.spawn(self._push_stripe_updates(
@@ -654,6 +738,9 @@ class SchedulerService:
             if stripe is not None:
                 msg["stripe"] = stripe
                 STRIPE_HANDOUT_COUNT.labels("striped").inc()
+                if self.fleet is not None:
+                    self.fleet.note_stripe(task.id, peer.id, peer.host.id,
+                                           reshuffle=False)
             await stream.send(self._stamped(msg))
             if peer.host.tpu_slice:
                 # Membership may have just changed (this peer joined or
@@ -669,6 +756,9 @@ class SchedulerService:
                  "task": task.to_wire()}))
         else:
             self._fail_peer(peer)
+            if self.fleet is not None:
+                self.fleet.note_schedule_failed(task.id, peer.id,
+                                                peer.host.id, result.reason)
             await stream.send(self._stamped(
                 {"type": "schedule_failed", "reason": result.reason}))
 
@@ -744,6 +834,9 @@ class SchedulerService:
             try:
                 await q.announce_stream.send(msg)
                 STRIPE_HANDOUT_COUNT.labels("reshuffle").inc()
+                if self.fleet is not None:
+                    self.fleet.note_stripe(task.id, q.id, q.host.id,
+                                           reshuffle=True)
             except Exception:
                 # A dying stream reaps through _on_stream_gone; the push
                 # is best-effort by design.
@@ -757,6 +850,9 @@ class SchedulerService:
         if peer.fsm.can("download_back_to_source"):
             peer.fsm.event("download_back_to_source")
             task.back_to_source_peers.add(peer.id)
+            if self.fleet is not None:
+                self.fleet.note_back_source(task.id, peer.id, peer.host.id,
+                                            reason)
             # A back-sourcing peer is a valid candidate parent from this
             # instant (the sync stream pushes pieces as they land) — wake
             # blocked schedule loops now, not at its first piece report.
@@ -852,6 +948,19 @@ class SchedulerService:
         if parent is not None:
             parent.host.upload_count += 1
             parent.touch()
+        if self.fleet is not None:
+            cost = p.get("download_cost_ms", 0)
+            col = fleetlib.C_BYTES_UNLABELED
+            parent_host = None
+            if parent is not None:
+                parent_host = parent.host.id
+                if peer.host.tpu_slice and parent.host.tpu_slice:
+                    col = (fleetlib.C_BYTES_INTRA
+                           if parent.host.tpu_slice == peer.host.tpu_slice
+                           else fleetlib.C_BYTES_CROSS)
+            self.fleet.note_piece(peer.host.id, col,
+                                  p.get("range_size", 0), cost,
+                                  parent_host, p.get("timings"))
 
     def _handle_pieces_finished(self, msg: dict, task: Task, peer: Peer) -> None:
         """Coalesced batch (clients flush reports on a short window);
@@ -923,14 +1032,33 @@ class SchedulerService:
         task.touch()
         if was_empty and peer.finished_pieces:
             task.notify_parents_changed()
-        for pidx, (k, _cost_sum, _nbytes) in enumerate(batch.parent_aggs):
+        by_parent_host: dict[str, list] = {}
+        my_slice = peer.host.tpu_slice
+        for pidx, (k, cost_sum, nbytes) in enumerate(batch.parent_aggs):
             if not k:
                 continue
             parent_id = batch.peers[pidx]
             parent = self.peers.load(parent_id) if parent_id else None
+            host_key = ""
+            col = fleetlib.C_BYTES_UNLABELED
             if parent is not None:
                 parent.host.upload_count += k
                 parent.touch()
+                host_key = parent.host.id
+                if my_slice and parent.host.tpu_slice:
+                    col = (fleetlib.C_BYTES_INTRA
+                           if parent.host.tpu_slice == my_slice
+                           else fleetlib.C_BYTES_CROSS)
+            entry = by_parent_host.get(host_key)
+            if entry is None:
+                by_parent_host[host_key] = [k, cost_sum, nbytes, col]
+            else:
+                entry[0] += k
+                entry[1] += cost_sum
+                entry[2] += nbytes
+        if self.fleet is not None and batch.n:
+            self.fleet.note_pieces(peer.host.id, batch.n, batch.cost_total,
+                                   by_parent=by_parent_host)
 
     def _apply_piece_dicts(self, pieces: list, task: Task, peer: Peer) -> None:
         """The reference per-piece walk: the per-batch bookkeeping — task
@@ -940,9 +1068,13 @@ class SchedulerService:
         hottest ingest path: a 1024-host fan-out delivers ~hosts x pieces
         of these."""
         was_empty = not peer.finished_pieces
-        # Per-parent aggregation: one registry lookup and one upload-count
-        # update per DISTINCT parent per batch, not per piece.
+        # Per-parent aggregation: one registry lookup, one upload-count
+        # update, and ONE fleet serve-EWMA step per DISTINCT parent per
+        # batch (not per piece) — this is the scheduler's hottest ingest
+        # path and the observatory must ride it at batch granularity.
         parent_aggs: dict[str, list] = {}   # pid -> [count, cost_sum, bytes]
+        landed = 0
+        cost_total = 0
         for p in pieces:
             num = p["piece_num"]
             if num in peer.finished_pieces:
@@ -958,6 +1090,8 @@ class SchedulerService:
                                        p.get("timings"), cost)
             if num not in task.pieces:
                 task.store_piece(PieceInfo.from_wire(p))
+            landed += 1
+            cost_total += cost
             agg = parent_aggs.get(p.get("dst_peer_id", ""))
             if agg is None:
                 agg = parent_aggs[p.get("dst_peer_id", "")] = [0, 0, 0]
@@ -968,11 +1102,30 @@ class SchedulerService:
         task.touch()
         if was_empty and peer.finished_pieces:
             task.notify_parents_changed()
-        for parent_id, (k, _cost_sum, _nbytes) in parent_aggs.items():
+        by_parent_host: dict[str, list] = {}
+        my_slice = peer.host.tpu_slice
+        for parent_id, (k, cost_sum, nbytes) in parent_aggs.items():
             parent = self.peers.load(parent_id) if parent_id else None
+            host_key = ""
+            col = fleetlib.C_BYTES_UNLABELED
             if parent is not None:
                 parent.host.upload_count += k
                 parent.touch()
+                host_key = parent.host.id
+                if my_slice and parent.host.tpu_slice:
+                    col = (fleetlib.C_BYTES_INTRA
+                           if parent.host.tpu_slice == my_slice
+                           else fleetlib.C_BYTES_CROSS)
+            entry = by_parent_host.get(host_key)
+            if entry is None:
+                by_parent_host[host_key] = [k, cost_sum, nbytes, col]
+            else:
+                entry[0] += k
+                entry[1] += cost_sum
+                entry[2] += nbytes
+        if self.fleet is not None and landed:
+            self.fleet.note_pieces(peer.host.id, landed, cost_total,
+                                   by_parent=by_parent_host)
 
     def _handle_piece_failed(self, msg: dict, task: Task, peer: Peer) -> None:
         parent_id = msg.get("parent_id", "")
@@ -995,10 +1148,16 @@ class SchedulerService:
                     # the PARENT host that served (or failed to serve).
                     self.pod_flight.note_failure(task.id, parent.host.id,
                                                  reason)
+                    if self.fleet is not None:
+                        self.fleet.note_piece_failed(parent.host.id, reason)
                 if reason and parent.host.note_served_bad(reason):
                     PARENT_DEMOTION_COUNT.labels(reason).inc()
                     self.pod_flight.note_quarantine(task.id, parent.host.id,
                                                     reason)
+                    if self.fleet is not None:
+                        self.fleet.note_quarantine(task.id, parent.host.id,
+                                                   reason,
+                                                   reporter=peer.id)
                     log.warning("parent host quarantined",
                                 host=parent.host.id, reason=reason,
                                 reporter=peer.id[:24])
@@ -1134,6 +1293,8 @@ class SchedulerService:
         )
         host.port = h.get("port", host.port)
         host.upload_port = h.get("upload_port", host.upload_port)
+        if self.fleet is not None:
+            self.fleet.note_announce()
         # The announce's clock sample feeds the JAX pod lens's offset
         # estimate; the port has no pod lens and reads it nowhere.
         tel = h.get("telemetry") or {}
@@ -1141,8 +1302,25 @@ class SchedulerService:
             if hasattr(host.telemetry, k):
                 setattr(host.telemetry, k, v)
         host.touch()
-        # No scorecard rides back: that is the fleet observatory's.
-        return {"ok": True, "sched_wall": flightlib.anchored_wall()}
+        resp: dict = {"ok": True, "sched_wall": flightlib.anchored_wall()}
+        # The subject host's fleet-wide standing rides back so the daemon
+        # can embed it into post-mortem bundles.
+        if self.fleet is not None:
+            s = self.fleet.scorecards._hosts.get(host.id)
+            if s is not None:
+                resp["scorecard"] = {
+                    "serve_ewma_ms": round(s.serve_ewma_ms, 2),
+                    "serve_samples": s.serve_samples,
+                    "down_ewma_ms": round(s.down_ewma_ms, 2),
+                    "down_samples": s.down_samples,
+                    "uploads": round(s.uploads, 1),
+                    "failures": {r: round(v, 2)
+                                 for r, v in s.failures.items()},
+                    "straggler":
+                        self.fleet.scorecards.is_straggler(host.id),
+                    "zscore": self.fleet.scorecards.zscore(host.id),
+                }
+        return resp
 
     async def leave_host(self, body: dict, ctx: RpcContext) -> dict:
         """Host shutdown (reference LeaveHost :641): fail its peers, drop it."""

@@ -319,7 +319,6 @@ def test_the_gc_loop_reclaims_an_expired_task_and_sweeps_the_sinks(
 
 
 @pytest.mark.parametrize("over,names", [
-    ({"manager_addr": "127.0.0.1:65003"}, "manager_addr"),
     ({"object_storage": {"enabled": True, "backend": "s3"}},
      "backend 's3' is not ported yet"),
     ({"object_storage": {"enabled": True, "backend": "gcs"}},
@@ -339,6 +338,43 @@ def test_a_config_that_needs_an_unported_service_is_refused(
     # Off, or a backend the gateway has: accepted.
     _port_daemon(_config(tmp_path, "ok", object_storage={
         "backend": over.get("object_storage", {}).get("backend", "fs")}))
+
+
+def test_a_daemon_with_only_a_manager_starts(tmp_path, run_async):
+    """``manager_addr`` is served (it was refused until the daemon's
+    dynconfig was ported): a port daemon with no scheduler address
+    resolves the port scheduler the port manager lists, announces to it,
+    and stops with its dynconfig."""
+    from dragonfly2_tpu_torch.manager import ManagerConfig, ManagerServer
+    from dragonfly2_tpu_torch.scheduler.config import SchedulerConfig
+    from dragonfly2_tpu_torch.scheduler.server import SchedulerServer
+
+    async def run():
+        manager = ManagerServer(ManagerConfig.from_dict({"metrics_port": -1}))
+        await manager.start()
+        addr = f"127.0.0.1:{manager.grpc_port()}"
+        sched = SchedulerServer(SchedulerConfig.from_dict({
+            "server": {"port": 0}, "metrics_port": -1,
+            "manager_addr": addr}))
+        await sched.start()
+        d = _port_daemon(_config(tmp_path, "m", manager_addr=addr))
+        try:
+            await d.start()
+            members = d.scheduler_client._ring.members()
+            deadline = time.monotonic() + 10
+            while not any(h.hostname == "m"
+                          for h in sched.service.hosts.all()):
+                assert time.monotonic() < deadline
+                await asyncio.sleep(0.05)
+            return members, d.dynconfig.source, sched.port()
+        finally:
+            await d.stop()
+            await sched.stop()
+            await manager.stop()
+
+    members, source, port = run_async(run(), timeout=60)
+    assert source == "manager"
+    assert list(members) == [f"127.0.0.1:{port}"]
 
 
 def _proxy_get(port: int, path: str, headers: dict | None = None):

@@ -677,15 +677,18 @@ def test_the_intended_divergences_of_the_p2p_half():
 def test_the_intended_divergences_of_the_scheduler(run_async):
     """What the port's scheduler refuses and what it only observes,
     pinned. Refused at construction, by name and ``ROADMAP.md`` item: an
-    enabled fleet observatory (its straggler filter drops candidates; the
-    JAX defaults turn it on) and an evaluator plugin. ``manager_addr`` is
-    served: the scheduler constructs, registers with the port's manager
-    and keeps alive there, its keepalive carrying the tenant burn
-    snapshot and no fleet frame. Accepted and installing nothing: ``podlens.enabled``,
-    ``podlens.slo_enabled`` and ``prof.enabled`` (the JAX service builds
-    a pod lens for the first). ``Scheduler.PodTimeline`` answers as the
-    JAX scheduler does with ``podlens.enabled=False``; ``/metrics`` has
-    no ``/debug/*`` route; the tiny task's fetch is ``http.client``."""
+    an evaluator plugin. Since the fleet observatory is ported, a default
+    ``SchedulerConfig()`` (``fleet.enabled`` on, as in JAX) starts, with
+    ``Scheduling.wire_fleet`` wired and ``/debug/fleet`` served.
+    ``manager_addr`` is served: the scheduler constructs, registers with
+    the port's manager and keeps alive there, its keepalive carrying the
+    tenant burn snapshot and no fleet frame (no cluster tower: no
+    ``frame_builder``). Accepted and installing nothing:
+    ``podlens.enabled``, ``podlens.slo_enabled`` and ``prof.enabled``
+    (the JAX service builds a pod lens for the first).
+    ``Scheduler.PodTimeline`` answers as the JAX scheduler does with
+    ``podlens.enabled=False``; ``/metrics`` has no ``/debug/*`` route but
+    the fleet's; the tiny task's fetch is ``http.client``."""
     import asyncio
     import inspect
     import urllib.error
@@ -706,12 +709,14 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
 
     off = {"fleet": {"enabled": False}}
     for over, name, item in (
-            ({}, "fleet.enabled", "A7.4"),
-            ({**off, "scheduling": {"algorithm": "plugin"}},
-             "scheduling.algorithm", "A7.4")):
+            ({"scheduling": {"algorithm": "plugin"}},
+             "scheduling.algorithm", "A7.4"),):
         with pytest.raises(ValueError) as e:
             psvc.SchedulerService(SchedulerConfig.from_dict(over))
         assert name in str(e.value) and f"ROADMAP {item}" in str(e.value)
+    default = psvc.SchedulerService(SchedulerConfig())
+    assert default.fleet is not None
+    assert default.scheduling.fleet is default.fleet
 
     async def registers():
         from dragonfly2_tpu_torch.manager import ManagerConfig, ManagerServer
@@ -719,7 +724,7 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
         manager = ManagerServer(ManagerConfig.from_dict({"metrics_port": -1}))
         await manager.start()
         server = SchedulerServer(SchedulerConfig.from_dict({
-            **off, "server": {"port": 0}, "metrics_port": -1,
+            "server": {"port": 0}, "metrics_port": -1,
             "manager_addr": f"127.0.0.1:{manager.grpc_port()}",
             "manager_keepalive_interval": 0.02}))
         seen = []
@@ -744,13 +749,14 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
     with pytest.raises(ValueError, match="plugins are not ported"):
         Scheduling(SchedulingConfig(algorithm="plugin"))
     assert hasattr(JScheduling, "wire_fleet")
-    assert not hasattr(Scheduling, "wire_fleet")
+    assert hasattr(Scheduling, "wire_fleet")
 
     on = {**off, "podlens": {"enabled": True, "slo_enabled": True},
           "prof": {"enabled": True}}
     svc = psvc.SchedulerService(SchedulerConfig.from_dict(on))
-    for name in ("fleet", "pod_lens", "slo", "frame_builder"):
+    for name in ("pod_lens", "slo", "frame_builder"):
         assert not hasattr(svc, name)
+    assert svc.fleet is None
     jcfg = JConfig()
     jcfg.fleet.enabled = False
     assert JService(jcfg).pod_lens is not None
@@ -768,27 +774,35 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
     j, p = run_async(timelines())
     assert j == p
 
-    async def metrics():
+    async def metrics(over):
         server = SchedulerServer(SchedulerConfig.from_dict(
-            {**off, "server": {"port": 0}, "metrics_port": 0}))
+            {**over, "server": {"port": 0}, "metrics_port": 0}))
         await server.start()
         base = f"http://127.0.0.1:{server.metrics.port}"
         try:
             got = {}
-            for path in ("/metrics", "/healthy", "/debug/fleet",
-                         "/debug/pod/t/timeline", "/debug/slo"):
+
+            def status(path: str) -> int:
                 try:
                     with urllib.request.urlopen(base + path,
                                                 timeout=10) as r:
-                        got[path] = r.status
+                        return r.status
                 except urllib.error.HTTPError as e:
-                    got[path] = e.code
+                    return e.code
+
+            for path in ("/metrics", "/healthy", "/debug/fleet",
+                         "/debug/pod/t/timeline", "/debug/slo"):
+                # Off the loop: the fleet is read on the scheduler's loop.
+                got[path] = await asyncio.to_thread(status, path)
             return got
         finally:
             await server.stop()
 
-    assert run_async(metrics()) == {
+    assert run_async(metrics(off)) == {
         "/metrics": 200, "/healthy": 200, "/debug/fleet": 404,
+        "/debug/pod/t/timeline": 404, "/debug/slo": 404}
+    assert run_async(metrics({})) == {
+        "/metrics": 200, "/healthy": 200, "/debug/fleet": 200,
         "/debug/pod/t/timeline": 404, "/debug/slo": 404}
     fetch = inspect.getsource(psvc.SchedulerService._fetch_direct_piece)
     assert "_http_get" in fetch and "aiohttp" not in fetch
@@ -857,6 +871,114 @@ def test_the_manager_imports_none_of_jax_aiohttp_msgpack_yaml():
             "dragonfly2_tpu_torch.pkg.dynconfig"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
         "aiohttp", "msgpack", "yaml", "cryptography")] == []
+
+
+def test_the_cli_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
+    """The CLI (``cli/``), its client libraries (``client/dfget.py``,
+    ``client/dfcache.py``), the daemon's dynconfig and the fleet
+    observatory import none of the JAX side, ``aiohttp``, ``msgpack``,
+    ``cryptography``, ``yaml`` or ``psutil``; with none of them importable
+    every subcommand parses and ``dfget`` refuses a missing ``-O``."""
+    code = ("import json, sys\n"
+            "for m in ('aiohttp', 'msgpack', 'cryptography', 'yaml',\n"
+            "          'psutil'):\n"
+            "    sys.modules[m] = None\n"
+            "import dragonfly2_tpu_torch.cli.main as cli\n"
+            "import dragonfly2_tpu_torch.cli.extra\n"
+            "import dragonfly2_tpu_torch.client.dfget\n"
+            "import dragonfly2_tpu_torch.client.dfcache\n"
+            "import dragonfly2_tpu_torch.daemon.dynconfig\n"
+            "import dragonfly2_tpu_torch.pkg.fleet\n"
+            "for argv in (['dfget', 'http://o/x', '-O', 'o'], ['daemon'],\n"
+            "             ['scheduler'], ['manager'], ['dfcache', 'stat',\n"
+            "             'c'], ['dfstore', 'ls']):\n"
+            "    cli.build_parser().parse_args(argv)\n"
+            "assert cli.main(['dfget', 'http://o/x']) == 2\n"
+            "print(json.dumps(sorted(sys.modules)))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    loaded = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert {"dragonfly2_tpu_torch.cli.extra",
+            "dragonfly2_tpu_torch.client.dfget",
+            "dragonfly2_tpu_torch.daemon.dynconfig",
+            "dragonfly2_tpu_torch.pkg.fleet"} <= set(loaded)
+    assert [m for m in loaded if _forbidden(m)] == []
+
+
+def test_the_intended_divergences_of_the_cli(capsys):
+    """The port's CLI keeps every JAX flag, and differs where it must:
+
+    - ``--torch-device {cuda,cpu}`` on ``daemon`` and ``dfget``, ``cuda``
+      by default, handed by ``dfget`` to the daemon it spawns (the port's
+      ``Daemon`` binds a device even without a sink; no environment
+      variable, no fallback);
+    - ``dfget --device cuda``, an alias sent on the wire as ``"tpu"``;
+    - ``dfget --cluster`` refused with exit code 2 naming ROADMAP A7.4
+      item 6 (no ``Manager.ClusterView``), before anything is fetched;
+    - ``client/dfget.download`` opens no tracing span (no
+      ``pkg/tracing``, ROADMAP A7.4 item 5);
+    - ``dfget`` waits 30 s for the daemon it spawns, not 15 s: the port's
+      daemon imports torch and binds the card on its first start."""
+    import argparse
+    import inspect
+
+    from dragonfly2_tpu.cli import extra as jextra
+    from dragonfly2_tpu.cli import main as jmain
+    from dragonfly2_tpu.client import dfget as jdfget
+    from dragonfly2_tpu_torch.cli import extra as pextra
+    from dragonfly2_tpu_torch.cli import main as pmain
+    from dragonfly2_tpu_torch.client import dfget as pdfget
+
+    def flags(main_mod, extra_mod):
+        parser = argparse.ArgumentParser()
+        sub = parser.add_subparsers(dest="command")
+        main_mod._add_dfget(sub)
+        main_mod._add_daemon(sub)
+        extra_mod.register(sub)
+        return {name: {a.dest: (a.default, a.choices)
+                       for a in p._actions if a.dest != "help"}
+                for name, p in sub.choices.items()}
+
+    jflags, pflags = flags(jmain, jextra), flags(pmain, pextra)
+    for cmd, opts in jflags.items():
+        extra = set(pflags[cmd]) - set(opts)
+        assert extra == ({"torch_device"} if cmd in ("dfget", "daemon")
+                         else set()), cmd
+        for dest, (default, choices) in opts.items():
+            pdefault, pchoices = pflags[cmd][dest]
+            assert pdefault == default, (cmd, dest)
+            if (cmd, dest) != ("dfget", "device"):
+                assert pchoices == choices, (cmd, dest)
+    assert pflags["dfget"]["device"][1] == ["", "tpu", "cuda"]
+    assert jflags["dfget"]["device"][1] == ["", "tpu"]
+    for cmd in ("dfget", "daemon"):
+        assert pflags[cmd]["torch_device"] == ("cuda", ("cuda", "cpu"))
+    assert pmain.DEVICE_ALIASES["cuda"] == "tpu"
+
+    called = []
+    pdfget_download = pdfget.download
+    try:
+        pdfget.download = lambda *a, **k: called.append(a)
+        assert pmain.main(["dfget", "http://o/x", "-O", "o",
+                           "--cluster"]) == 2
+    finally:
+        pdfget.download = pdfget_download
+    assert called == []
+    err = capsys.readouterr().err
+    assert "ROADMAP A7.4 item 6" in err and "--cluster" in err
+
+    assert hasattr(jdfget, "tracing") and not hasattr(pdfget, "tracing")
+    with open(pdfget.__file__) as f:
+        assert "tracing." not in f.read()
+    wait = inspect.signature(jmain._wait_daemon).parameters["timeout"]
+    assert wait.default == 15.0
+    assert inspect.signature(pmain._wait_daemon).parameters[
+        "timeout"].default == pmain.SPAWN_WAIT_S == 30.0
+    spawn = inspect.getsource(pmain._spawn_daemon)
+    assert '"--torch-device", torch_device' in spawn
+    assert "dragonfly2_tpu_torch.cli.main" in spawn
 
 
 def test_the_intended_divergences_of_the_manager(run_async):
