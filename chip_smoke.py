@@ -126,7 +126,25 @@
    stat, export and delete; the scheduler's ``/debug/fleet/decisions``
    and ``/debug/fleet/hosts``), and prints each ``dfget``'s wall time,
    ``land_s``, the cold spawn's time to a live daemon and the child's
-   registration;
+   registration; then the observability plane on a landing, over the
+   same origin (``observe``: two CLI schedulers whose
+   ``scheduling.algorithm`` names an evaluator plugin this script writes
+   into a ``DRAGONFLY_PLUGIN_DIR``, one on the defaults (the pod lens,
+   the SLO engine, the runtime observatory) and one with ``podlens`` and
+   ``prof`` off, a CLI seed on each, a stand-in OTLP collector, each in a
+   process of its own, every role tracing to the collector; a child in
+   this one lands the shard for ``dfget --device tpu --pod``: every
+   byte, K2 once a batch and K1 twice, the origin read once by the seed,
+   the plugin's order handed out, the scheduler's
+   ``/debug/pod/<task>/timeline`` with the seed's and the child's rows,
+   clock samples and device landings, ``dfget --pod``'s text that
+   report's ``render_timeline``, ``/debug/slo`` over both completions,
+   the child's ``/debug/prof`` naming its ``df-device-sink`` worker,
+   ``/debug/prof/runtime`` and ``/debug/flight/<task>``, one trace from
+   ``dfget.download`` through ``rpc.*`` on the scheduler and the seed to
+   the seed's ``upload.serve``; then the same landing with everything
+   off (``observe_off``), and prints both ``land_s`` and the sink
+   worker's splits and sampled profile);
 5. hot-swaps the landed shard to a second generation (the last two
    layers redrawn and every RMSNorm weight perturbed, from ``--seed``)
    through ``swap_generation``, the device half of ``download_delta``:
@@ -241,7 +259,7 @@
     feed, entry, train, bench, chunker, manifest, cdc_swap, wds,
     gateway_manifest, daemon, p2p, pex, daemon_delta, seed, seed_again,
     dfdaemon, dfdaemon_epoch, p2p_qos, proxy, swarm, manager_preheat,
-    cli), prints one
+    cli, observe, observe_off), prints one
     ``{"kernels": [...]}`` line with them and, last, one ``{"ok": true,
     "device": {...}}`` line.
 
@@ -258,6 +276,7 @@ import ctypes
 import dataclasses
 import hashlib
 import http.client
+import inspect
 import io
 import json
 import mmap
@@ -3389,8 +3408,9 @@ def swarm_origin_objects(path: str) -> dict:
 def swarm_scheduler_config() -> dict:
     """The port's scheduler on loopback, its defaults otherwise (the
     fleet observatory fed from every report, as the JAX defaults have
-    it): the pod lens off (the port installs none), no metrics server, no
-    GC pass during the run."""
+    it): the pod lens off (as the swarm has run since it was added; the
+    observe path reads it), no metrics server, no GC pass during the
+    run."""
     return {"server": {"host": P2P_HOST, "port": 0},
             "podlens": {"enabled": False},
             "metrics_port": -1, "gc": {"interval": 3600.0}}
@@ -4221,12 +4241,15 @@ def free_ports(n: int) -> list[int]:
             s.close()
 
 
-def cli_role(log_dir: str, name: str, args: list) -> subprocess.Popen:
+def cli_role(log_dir: str, name: str, args: list,
+             env: dict | None = None) -> subprocess.Popen:
     """One role through the CLI, in a session of its own, its output in
-    ``<log_dir>/<name>.log``."""
+    ``<log_dir>/<name>.log``; ``env`` added to this process's
+    environment."""
     with open(os.path.join(log_dir, f"{name}.log"), "ab") as logf:
         return subprocess.Popen([*CLI, *args], cwd=CLI_ROOT, stdout=logf,
-                                stderr=logf, start_new_session=True)
+                                stderr=logf, start_new_session=True,
+                                env={**os.environ, **(env or {})})
 
 
 def stop_role(proc: subprocess.Popen) -> int:
@@ -4242,13 +4265,15 @@ def stop_role(proc: subprocess.Popen) -> int:
     return proc.returncode
 
 
-async def cli_run(*args: str, timeout: float = 900.0) -> dict:
+async def cli_run(*args: str, timeout: float = 900.0,
+                  env: dict | None = None) -> dict:
     """One CLI command to its end, off this process's loop: its exit
-    code, output, errors and wall time."""
+    code, output, errors and wall time; ``env`` added to this process's
+    environment."""
     t0 = time.perf_counter()
     proc = await asyncio.create_subprocess_exec(
         *CLI, *args, cwd=CLI_ROOT, stdout=asyncio.subprocess.PIPE,
-        stderr=asyncio.subprocess.PIPE)
+        stderr=asyncio.subprocess.PIPE, env={**os.environ, **(env or {})})
     try:
         out, err = await asyncio.wait_for(proc.communicate(), timeout)
     except asyncio.TimeoutError:
@@ -4266,10 +4291,18 @@ def _ran(what: str, r: dict) -> dict:
 
 
 def dfget_summary(err: str) -> dict:
-    """The fields of dfget's last line (``downloaded ... reuse= p2p=
-    device_verified=``)."""
-    line = err.strip().splitlines()[-1].split("\r")[-1]
-    return dict(re.findall(r"(\w+)=(\S+)", line))
+    """The fields of dfget's ``downloaded ... reuse= p2p=
+    device_verified=`` line."""
+    return dfget_parts(err)[0]
+
+
+def dfget_parts(err: str) -> tuple[dict, str]:
+    """The fields of dfget's ``downloaded ...`` line and the text after it
+    (``--pod``'s timeline)."""
+    lines = err.strip().splitlines()
+    at = max(i for i, line in enumerate(lines) if "downloaded " in line)
+    fields = dict(re.findall(r"(\w+)=(\S+)", lines[at].split("\r")[-1]))
+    return fields, "\n".join(lines[at + 1:])
 
 
 async def _until(what: str, probe, timeout: float = 120.0):
@@ -4547,20 +4580,17 @@ async def _list_hosts(addr: str) -> list:
         await cli.close()
 
 
-def phase_cli(content: np.ndarray, device: torch.device) -> dict:
-    """The cold-host sequence through the port's CLI (``_cli``), over the
-    origin (the shard's file) in a process of its own. Checks: the child's
-    landing device-verified, from P2P, every byte of its buffer, K2 once a
-    batch and K1 twice in the gate, the origin read once (by the seed);
-    the cold host's landing device-verified, its output's sha256, its
-    daemon's ``device_sink_landed_bytes_total`` the content length with
-    one verification and no device-copy failure, no origin read, its
-    clean stop; the PUT in the seed's store, complete; the cache's
-    answers and bytes; the fleet's handouts to the child and the seed and
-    child scored; every role's exit code 0."""
-    t_phase = time.perf_counter()
+@contextlib.contextmanager
+def cli_origin(content: np.ndarray):
+    """The origin of the ``cli`` and ``observe`` paths: the shard's file in
+    a temporary directory, served by ``StandInProcess`` (written and
+    hashed once for both); yields ``{"tmp", "url", "gw", "sha256",
+    "origin_s"}`` and, at exit, stops the origin, removes the directory
+    and adds ``cleanup_s``."""
+    t0 = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="df-chip-cli-")
-    procs = []
+    gw = None
+    origin: dict = {"tmp": tmp}
     try:
         # The origin's file, the seed's, child's and cold host's stores,
         # the cold host's output, with a GiB to spare.
@@ -4570,24 +4600,48 @@ def phase_cli(content: np.ndarray, device: torch.device) -> dict:
             raise RuntimeError(f"the cli phase needs {need} B free under "
                                f"{tmp}; {free} B are")
         path = os.path.join(tmp, GATEWAY_KEY)
-        t0 = time.perf_counter()
         content.tofile(path)
         gw = StandInProcess(origin_objects, path)
         gw.start()
-        procs.append(gw)
-        url = (f"{gw.endpoint()}/buckets/{ORIGIN_BUCKET}/objects/"
-               f"{GATEWAY_KEY}")
-        sha = hashlib.sha256(memoryview(content)).hexdigest()
-        origin_s = time.perf_counter() - t0
-        out = asyncio.run(_cli(os.path.join(tmp, "hosts"), content, url, gw,
+        origin.update(
+            gw=gw, url=(f"{gw.endpoint()}/buckets/{ORIGIN_BUCKET}/objects/"
+                        f"{GATEWAY_KEY}"),
+            sha256=hashlib.sha256(memoryview(content)).hexdigest(),
+            origin_s=time.perf_counter() - t0)
+        yield origin
+    finally:
+        t0 = time.perf_counter()
+        if gw is not None:
+            gw.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+        origin["cleanup_s"] = time.perf_counter() - t0
+
+
+def phase_cli(content: np.ndarray, device: torch.device,
+              origin: dict) -> dict:
+    """The cold-host sequence through the port's CLI (``_cli``), over the
+    origin (the shard's file) in a process of its own. Checks: the child's
+    landing device-verified, from P2P, every byte of its buffer, K2 once a
+    batch and K1 twice in the gate, the origin read once (by the seed);
+    the cold host's landing device-verified, its output's sha256, its
+    daemon's ``device_sink_landed_bytes_total`` the content length with
+    one verification and no device-copy failure, no origin read, its
+    clean stop; the PUT in the seed's store, complete; the cache's
+    answers and bytes; the fleet's handouts to the child and the seed and
+    child scored; every role's exit code 0. The hosts' stores are removed
+    after (``cleanup`` in the split)."""
+    t_phase = time.perf_counter()
+    hosts = os.path.join(origin["tmp"], "hosts")
+    try:
+        out = asyncio.run(_cli(hosts, content, origin["url"], origin["gw"],
                                device))
     finally:
         t0 = time.perf_counter()
-        for p in reversed(procs):
-            p.close()
-        shutil.rmtree(tmp, ignore_errors=True)
+        shutil.rmtree(hosts, ignore_errors=True)
         cleanup_s = time.perf_counter() - t0
-    out["split"].update(origin_file_and_sha256=origin_s, cleanup=cleanup_s)
+    sha = origin["sha256"]
+    out["split"].update(origin_file_and_sha256=origin["origin_s"],
+                        cleanup=cleanup_s)
     n_pieces = compute_piece_count(content.size,
                                    compute_piece_size(content.size))
     k2 = -(-n_pieces // BATCH_PIECES)
@@ -4629,8 +4683,9 @@ def phase_cli(content: np.ndarray, device: torch.device) -> dict:
             "gear_candidates": 0}:
         raise AssertionError(f"cli: launches {out['launches']}, want K1 2, "
                              f"K2 {k2}")
+    # The phase as PR 17 timed it: the origin's file and sha256 included.
     return {**out, "want_k2": k2, "pieces": n_pieces,
-            "phase_s": time.perf_counter() - t_phase}
+            "phase_s": time.perf_counter() - t_phase + origin["origin_s"]}
 
 
 def cli_line(c: dict) -> str:
@@ -4661,6 +4716,502 @@ def cli_line(c: dict) -> str:
         f"the phase {c['phase_s']:.1f} s ("
         + ", ".join(f"{k} {v:.1f} s" for k, v in c["split"].items())
         + f"; a CLI process's start alone {c['cli_start_s']:.2f} s)")
+
+
+# --------------------------------------------------------------------- #
+# The observability plane on a landing (observe): the evaluator plugin,
+# the pod lens and SLO engine, the runtime observatory, tracing from
+# dfget to a parent's upload server, the /debug/* routes; then the same
+# landing with the observatory and the pod lens off, for the pair
+# --------------------------------------------------------------------- #
+
+OBSERVE_PLUGIN = "chip-counting"
+# The evaluator plugin the observe path's schedulers load from
+# DRAGONFLY_PLUGIN_DIR: the port's default evaluator, each call's order
+# of parents appended to calls.jsonl beside the file.
+OBSERVE_PLUGIN_SOURCE = '''"""An evaluator plugin: the default evaluator, each call recorded."""
+import json
+import os
+
+PLUGIN_TYPE = "evaluator"
+PLUGIN_NAME = "chip-counting"
+LOG = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                   "calls.jsonl")
+
+
+def create(config=None):
+    from dragonfly2_tpu_torch.scheduler.scheduling.evaluator import (
+        Evaluator,
+    )
+
+    class Counting(Evaluator):
+        def evaluate_parents(self, parents, child, total_piece_count):
+            ordered = super().evaluate_parents(parents, child,
+                                               total_piece_count)
+            with open(LOG, "a") as f:
+                f.write(json.dumps({"host": child.host.id,
+                                    "order": [p.id for p in ordered]})
+                        + "\\n")
+            return ordered
+
+    return Counting(config)
+'''
+OBSERVE_SERVICES = {"dfget": "chip-observe-dfget",
+                    "child": "chip-observe-child",
+                    "scheduler": "chip-observe-scheduler",
+                    "seed": "chip-observe-seed"}
+# The spans one landing's trace must hold: (service, span name).
+OBSERVE_TRACE = (("dfget", "dfget.download"),
+                 ("child", "rpc.Daemon.Download"),
+                 ("scheduler", "rpc.Scheduler.AnnouncePeer"),
+                 ("seed", "rpc.Peer.TriggerDownloadTask"),
+                 ("seed", "upload.serve"))
+
+
+def _collector_child(conn, port: int) -> None:
+    """The body of ``StandInCollector``: an OTLP/HTTP JSON collector
+    (``POST /v1/traces``) on ``port``, answering the parent with every
+    span received until told to stop."""
+    payloads: list = []
+    lock = threading.Lock()
+
+    class Handler(BaseHTTPRequestHandler):
+        def log_message(self, *args):
+            pass
+
+        def do_POST(self):
+            body = self.rfile.read(int(self.headers.get("Content-Length",
+                                                        0)))
+            ok = self.path == "/v1/traces"
+            if ok:
+                with lock:
+                    payloads.append(json.loads(body))
+            out = b'{"partialSuccess": {}}' if ok else b"404: Not Found"
+            self.send_response(200 if ok else 404)
+            self.send_header("Content-Length", str(len(out)))
+            self.end_headers()
+            self.wfile.write(out)
+
+    server = ThreadingHTTPServer((P2P_HOST, port), Handler)
+    server.daemon_threads = True
+    thread = threading.Thread(target=server.serve_forever,
+                              name="df-otlp-collector", daemon=True)
+    thread.start()
+    conn.send(f"http://{P2P_HOST}:{port}")
+    try:
+        while True:
+            msg = conn.recv()
+            if msg[0] == "stop":
+                conn.send(None)
+                return
+            spans = []
+            with lock:
+                for p in payloads:
+                    for rs in p["resourceSpans"]:
+                        svc = next((a["value"]["stringValue"] for a in
+                                    rs["resource"]["attributes"]
+                                    if a["key"] == "service.name"), "")
+                        for ss in rs["scopeSpans"]:
+                            spans += [{
+                                "service": svc, "name": sp["name"],
+                                "trace": sp["traceId"], "span": sp["spanId"],
+                                "parent": sp.get("parentSpanId", ""),
+                                "attrs": {a["key"]: next(iter(
+                                    a["value"].values()))
+                                    for a in sp["attributes"]}}
+                                for sp in ss["spans"]]
+            conn.send(spans)
+    finally:
+        server.shutdown()
+        server.server_close()
+
+
+class StandInCollector(StandInProcess):
+    """A stand-in OTLP collector in a process of its own (spawned) on a
+    port the caller chose, so the roles can be told its endpoint before
+    it serves; ``spans()`` every span it received, flattened."""
+
+    def __init__(self, port: int):
+        super().__init__(None, port)
+
+    def start(self) -> None:
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe()
+        self._proc = ctx.Process(target=_collector_child,
+                                 args=(child, *self._args), daemon=True,
+                                 name="df-otlp-collector")
+        self._proc.start()
+        child.close()
+
+    def spans(self) -> list:
+        return self._ask("spans")
+
+
+def _masked(text: str) -> str:
+    """A timeline's text less its alignment bounds, which age with the
+    time between two reads of one report."""
+    return re.sub(r"(align_err<=|±)[0-9.]+ms", r"\1#ms", text)
+
+
+def _sink_profile(report: dict, top: int = 5) -> dict:
+    """The sink workers' sampled threads of a ``/debug/prof`` report:
+    their samples and top self-time frames."""
+    return {name: {"samples": t["samples"], "top_self": t["top_self"][:top]}
+            for name, t in report["threads"].items()
+            if name.startswith("df-device-sink")}
+
+
+async def _observe_landing(root: str, name: str, content: np.ndarray,
+                           url: str, gw: StandInProcess, device,
+                           scheduler: str, env: dict, on: bool) -> dict:
+    """One landing onto the card for ``dfget --device tpu --pod`` on a
+    child in this process, built from the CLI's argv mapping: the runtime
+    observatory on or off (``prof.enabled``), tracing to the collector.
+    Returns its numbers and, with ``on``, what the child serves at
+    ``/debug/prof*`` and ``/debug/flight/<task>``."""
+    from dragonfly2_tpu_torch.cli import main as cli_main
+    from dragonfly2_tpu_torch.pkg import tracing
+
+    home = os.path.join(root, name)
+    cfg = cli_main.daemon_config(cli_main.build_parser().parse_args([
+        "daemon", "--scheduler", scheduler, "--device-sink", "--work-home",
+        home, "--hostname", f"chip-observe-{name}"]))
+    cfg.prof.enabled = on
+    tracing.exporter().set_otlp(
+        env["DF_TRACE_OTLP_ENDPOINT"], flush_interval=0.2,
+        service_name=OBSERVE_SERVICES["child"] + ("" if on else "-off"))
+    child = SwarmChild(root, name, "", device, config=cfg)
+    out: dict = {}
+    try:
+        await child.start()
+        task_id = FileTaskRequest(url=url, output="").task_id()
+        host = torch.from_numpy(content).to(device)
+        origin0 = gw.requests()
+        child.clock.reset()
+        _sync(device)
+        zero_launches()
+        got = _ran(f"observe dfget {name}", await cli_run(
+            "dfget", url, "--device", "tpu", "--pod", "--no-daemon",
+            "--work-home", home, env={
+                **env, "DF_SERVICE_NAME": OBSERVE_SERVICES["dfget"]}))
+        gate = child.take_and_gate(task_id, host)
+        del host
+        _sync(device)
+        out["launches"] = checksum.launch_counts()
+        summary, pod_text = dfget_parts(got["err"])
+        out.update(
+            task_id=task_id, host_id=child.host_id, summary=summary,
+            pod_text=pod_text, dfget_wall_s=got["wall_s"], gate=gate,
+            origin=_origin_delta(origin0, gw.requests()),
+            handouts=[a["parents"] for a in child.answers
+                      if a["type"] == "normal_task"],
+            **child.registration(task_id))
+        if on:
+            port = child.daemon.metrics.port
+            out["prof"] = await asyncio.to_thread(
+                _http_json, port, "/debug/prof?topn=10")
+            out["runtime"] = await asyncio.to_thread(
+                _http_json, port, "/debug/prof/runtime")
+            out["flight"] = await asyncio.to_thread(
+                _http_json, port, f"/debug/flight/{task_id}")
+        out["observatory"] = child.daemon.prof_obs is not None
+        if _on_card(device):
+            torch.cuda.empty_cache()
+        return out
+    finally:
+        await child.stop()
+        otlp = tracing.exporter().otlp
+        if otlp is not None:
+            await asyncio.to_thread(otlp.flush)
+
+
+async def _observe(root: str, content: np.ndarray, url: str,
+                   gw: StandInProcess, device) -> dict:
+    """The observe path's roles and both landings. Two schedulers (the
+    CLI's ``scheduler --config``: the evaluator plugin by name from
+    ``DRAGONFLY_PLUGIN_DIR``; one on the defaults, the pod lens, the SLO
+    engine and the runtime observatory on; one with ``podlens`` and
+    ``prof`` off), a seed on each (``daemon --seed-peer``; the second with
+    ``prof`` off) and the OTLP collector each in a process of its own,
+    started together. Then the landing with everything on, its reads
+    (the scheduler's ``/debug/pod/<task>/timeline`` and ``/debug/slo``,
+    the plugin's calls, the collector's spans), its seed stopped and both
+    stores removed; then the landing with everything off."""
+    logs = os.path.join(root, "logs")
+    plugins = os.path.join(root, "plugins")
+    os.makedirs(logs)
+    os.makedirs(plugins)
+    with open(os.path.join(plugins, "df_plugin_chip_counting.py"),
+              "w") as f:
+        f.write(OBSERVE_PLUGIN_SOURCE)
+    sched_on, sched_off, metrics_on, collector_port = free_ports(4)
+    endpoint = f"http://{P2P_HOST}:{collector_port}"
+    env = {"DRAGONFLY_PLUGIN_DIR": plugins,
+           "DF_TRACE_OTLP_ENDPOINT": endpoint}
+    out: dict = {}
+    split = out["split"] = {}
+    roles: dict = {}
+    collector = StandInCollector(collector_port)
+    try:
+        t0 = time.perf_counter()
+        collector.start()
+        for which, port, over in (
+                ("on", sched_on, {}),
+                ("off", sched_off, {"podlens": {"enabled": False},
+                                    "prof": {"enabled": False}})):
+            cfg = os.path.join(root, f"scheduler-{which}.json")
+            with open(cfg, "w") as f:
+                json.dump({"scheduling": {"algorithm": OBSERVE_PLUGIN},
+                           **over}, f)
+            args = ["scheduler", "--config", cfg, "--host", P2P_HOST,
+                    "--port", str(port)]
+            args += (["--metrics-port", str(metrics_on)] if which == "on"
+                     else [])
+            roles[f"scheduler-{which}"] = cli_role(logs, f"scheduler-{which}",
+                                                   args, env={
+                **env, "DF_SERVICE_NAME": OBSERVE_SERVICES["scheduler"]
+                + ("" if which == "on" else "-off")})
+            seed_args = ["daemon", "--seed-peer", "--scheduler",
+                         f"{P2P_HOST}:{port}", "--work-home",
+                         os.path.join(root, f"seed-{which}"), "--hostname",
+                         f"chip-observe-seed-{which}", "--metrics-port",
+                         "-1", "--torch-device", "cpu"]
+            if which == "off":
+                seed_cfg = os.path.join(root, "seed-off.json")
+                with open(seed_cfg, "w") as f:
+                    json.dump({"prof": {"enabled": False}}, f)
+                seed_args += ["--config", seed_cfg]
+            roles[f"seed-{which}"] = cli_role(logs, f"seed-{which}",
+                                              seed_args, env={
+                **env, "DF_SERVICE_NAME": OBSERVE_SERVICES["seed"]
+                + ("" if which == "on" else "-off")})
+        await asyncio.to_thread(collector.endpoint)
+        seeds = {}
+        for which, port in (("on", sched_on), ("off", sched_off)):
+            addr = f"{P2P_HOST}:{port}"
+
+            async def seed_host(addr=addr, which=which):
+                hosts = await _list_hosts(addr)
+                return next((h for h in hosts if h["hostname"] ==
+                             f"chip-observe-seed-{which}"
+                             and h["type"] == 1), None)
+
+            seeds[which] = await _until(f"observe: the {which} seed "
+                                        f"announced", seed_host,
+                                        timeout=300)
+        split["roles_up"] = time.perf_counter() - t0
+
+        # 1. Everything on.
+        t0 = time.perf_counter()
+        on = await _observe_landing(root, "child-on", content, url, gw,
+                                    device, f"{P2P_HOST}:{sched_on}", env,
+                                    True)
+        split["landing_on"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        task_id = on["task_id"]
+        on["timeline"] = await asyncio.to_thread(
+            _http_json, metrics_on, f"/debug/pod/{task_id}/timeline")
+        on["slo"] = await asyncio.to_thread(_http_json, metrics_on,
+                                            "/debug/slo")
+        with open(os.path.join(plugins, "calls.jsonl")) as f:
+            on["plugin_calls"] = [json.loads(line) for line in f]
+
+        async def traced():
+            spans = await asyncio.to_thread(collector.spans)
+            roots = [s for s in spans if s["name"] == "dfget.download"]
+            if not roots:
+                return None
+            trace = roots[0]["trace"]
+            mine = [s for s in spans if s["trace"] == trace]
+            have = {(s["service"], s["name"]) for s in mine}
+            want = {(OBSERVE_SERVICES[r], n) for r, n in OBSERVE_TRACE}
+            return mine if want <= have else None
+
+        trace = await _until("observe: the landing's trace at the "
+                             "collector", traced, timeout=30)
+        counts: dict = {}
+        for s in trace:
+            key = f"{s['service']} {s['name']}"
+            counts[key] = counts.get(key, 0) + 1
+        on["trace"] = {"trace_id": trace[0]["trace"], "spans": counts,
+                       "parents": {s["span"]: s["parent"] for s in trace},
+                       "by_id": {s["span"]: f"{s['service']} {s['name']}"
+                                 for s in trace}}
+        on["seed_host"] = seeds["on"]["id"]
+        split["reads"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["seed_on_exit"] = stop_role(roles.pop("seed-on"))
+        for name in ("seed-on", "child-on"):
+            shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+        split["stop_and_remove_on"] = time.perf_counter() - t0
+
+        # 2. The pair: the observatory and the pod lens off.
+        t0 = time.perf_counter()
+        off = await _observe_landing(root, "child-off", content, url, gw,
+                                     device, f"{P2P_HOST}:{sched_off}", env,
+                                     False)
+        split["landing_off"] = time.perf_counter() - t0
+        out.update(on=on, off=off)
+        return out
+    finally:
+        from dragonfly2_tpu_torch.pkg import tracing
+
+        t0 = time.perf_counter()
+        tracing.exporter().set_otlp("")
+        out["role_exit"] = {name: stop_role(p) for name, p in
+                            reversed(list(roles.items()))}
+        collector.close()
+        split["stop"] = time.perf_counter() - t0
+
+
+def phase_observe(content: np.ndarray, device: torch.device,
+                  origin: dict) -> dict:
+    """The observe path (``_observe``) over the ``cli`` path's origin.
+    Checks, for the landing with everything on: every byte of the child's
+    buffer and every piece landed, K2 once a batch and K1 twice in the
+    gate, ``device_verified`` and ``p2p``, the origin read once (by the
+    seed); the plugin evaluator called for the child and the handout its
+    order's head; the scheduler's ``/debug/pod/<task>/timeline`` with rows
+    for the seed and the child, each with a clock sample, the child's row
+    with every piece and its device landings (the ``ici`` phase the
+    flight folds ``hbm_start`` -> ``hbm_landed`` into); ``dfget --pod``'s
+    text that report's ``render_timeline`` (its alignment bounds masked:
+    they age between the two reads); ``/debug/slo`` over at least two
+    completions; the child's ``/debug/prof`` naming a ``df-device-sink``
+    thread, ``/debug/prof/runtime`` with the daemon loop's lag histogram
+    and the GC counts, ``/debug/flight/<task>`` with the device-landing
+    events; one trace at the collector from ``dfget.download`` through
+    the child's ``rpc.Daemon.Download``, the scheduler's
+    ``rpc.Scheduler.AnnouncePeer`` and the seed's
+    ``rpc.Peer.TriggerDownloadTask`` to the seed's ``upload.serve``, each
+    upload span a child of the child's download span. For the landing
+    with everything off: the same bytes, launches and origin reads, and
+    no observatory. Every role's exit code 0."""
+    from dragonfly2_tpu_torch.pkg.podlens import render_timeline
+
+    t_phase = time.perf_counter()
+    out = asyncio.run(_observe(os.path.join(origin["tmp"], "observe"),
+                               content, origin["url"], origin["gw"],
+                               device))
+    n_pieces = compute_piece_count(content.size,
+                                   compute_piece_size(content.size))
+    k2 = -(-n_pieces // BATCH_PIECES)
+    on, off = out["on"], out["off"]
+    # Every check runs; the failures are raised together.
+    failed = []
+    for which, run in (("on", on), ("off", off)):
+        gate = run["gate"]
+        if not gate["equal"] or gate["pieces_landed"] != n_pieces:
+            failed.append(f"observe {which}: the buffer {gate}")
+        if (run["summary"].get("p2p"), run["summary"].get(
+                "device_verified")) != ("True", "True"):
+            failed.append(f"observe {which}: dfget {run['summary']}")
+        if run["origin"] != seed_origin_reads(content.size):
+            failed.append(f"observe {which}: origin saw {run['origin']}")
+        if _on_card(device) and run["launches"] != {
+                "chunk_checksums": 2, "land_and_checksum": k2,
+                "gear_candidates": 0}:
+            failed.append(f"observe {which}: launches {run['launches']}, "
+                          f"want K1 2, K2 {k2}")
+        if run["observatory"] != (which == "on"):
+            failed.append(f"observe {which}: observatory "
+                          f"{run['observatory']}")
+    calls = [c["order"] for c in on["plugin_calls"]
+             if c["host"] == on["host_id"]]
+    handout = on["handouts"][0] if on["handouts"] else []
+    if not handout or not any(o[:len(handout)] == handout for o in calls):
+        failed.append(f"observe: the plugin's calls {calls}, the handout "
+                      f"{on['handouts']}")
+    # A shipped digest carries at most flight.digest's max_pieces rows.
+    rows_cap = inspect.signature(flight.digest).parameters[
+        "max_pieces"].default
+    rows = {h["host"]: h for h in on["timeline"]["hosts"]}
+    child_row = rows.get(on["host_id"], {})
+    if (not {on["seed_host"], on["host_id"]} <= set(rows)
+            or any(rows[h]["clock_samples"] < 1
+                   for h in (on["seed_host"], on["host_id"]))
+            or child_row["pieces"] != min(n_pieces, rows_cap)
+            or child_row["phases"]["ici"] <= 0
+            or not any(seg[2] == "ici" for seg in child_row["segments"])):
+        failed.append(f"observe: the timeline {on['timeline']}")
+    if _masked(on["pod_text"]) != _masked(render_timeline(on["timeline"])):
+        failed.append(f"observe: dfget --pod printed\n{on['pod_text']}\n"
+                      f"the scheduler serves\n"
+                      f"{render_timeline(on['timeline'])}")
+    if on["slo"]["completions_total"] < 2:
+        failed.append(f"observe: /debug/slo {on['slo']}")
+    runtime = on["runtime"]
+    loops = {p["name"]: p for p in runtime["loops"]}
+    if (not _sink_profile(on["prof"])
+            or sum(loops.get("daemon", {}).get("histogram", {}).get(
+                "counts", [])) < 1
+            or len(runtime["gc"]["collections"]) != 3):
+        failed.append(f"observe: /debug/prof threads "
+                      f"{sorted(on['prof']['threads'])}, runtime {runtime}")
+    counts = on["flight"]["event_counts"]
+    if (counts.get("hbm_start", 0) < 1
+            or counts.get("hbm_landed", 0) != counts.get("hbm_start", 0)):
+        failed.append(f"observe: /debug/flight {counts}")
+    tr = on["trace"]
+    child_dl = [i for i, n in tr["by_id"].items()
+                if n == f"{OBSERVE_SERVICES['child']} rpc.Daemon.Download"]
+    uploads = [i for i, n in tr["by_id"].items()
+               if n == f"{OBSERVE_SERVICES['seed']} upload.serve"]
+    if not child_dl or any(tr["parents"][u] not in child_dl
+                           for u in uploads):
+        failed.append(f"observe: the trace {tr['spans']}")
+    if out["seed_on_exit"] or any(out["role_exit"].values()):
+        failed.append(f"observe: the roles exited {out['seed_on_exit']}, "
+                      f"{out['role_exit']}")
+    if failed:
+        raise AssertionError("\n".join(failed))
+    for run in (on, off):
+        run.pop("pod_text", None)
+    on["trace"] = {"trace_id": tr["trace_id"], "spans": tr["spans"]}
+    on["flight"] = {k: on["flight"][k] for k in (
+        "state", "wall_s", "phases", "dominant_phase", "event_counts",
+        "runtime")}
+    on["plugin_calls"] = len(on["plugin_calls"])
+    on["prof"] = {"samples": on["prof"]["samples"],
+                  "sink": _sink_profile(on["prof"])}
+    return {**out, "want_k2": k2, "pieces": n_pieces,
+            "phase_s": time.perf_counter() - t_phase}
+
+
+def observe_line(o: dict) -> str:
+    """The observe path's printed line: the pair and what was read."""
+    on, off = o["on"], o["off"]
+    g_on, g_off = on["gate"], off["gate"]
+    sink = ", ".join(
+        f"{name} {t['samples']} samples: " + "; ".join(
+            f"{f['frame']} {f['frac'] * 100:.1f}%" for f in t["top_self"])
+        for name, t in on["prof"]["sink"].items())
+    return (
+        f"observe: dfget --device tpu --pod on a child in this process, "
+        f"the plugin evaluator ({on['plugin_calls']} calls) at a "
+        f"scheduler with the pod lens, SLO engine and observatory on; "
+        f"land_s on {g_on['land_s']:.4f} s / off {g_off['land_s']:.4f} s "
+        f"= {g_on['land_s'] / g_off['land_s']:.3f}; the sink's worker busy "
+        f"{g_on['sink_busy_s']:.4f} / {g_off['sink_busy_s']:.4f} s (host "
+        f"checksum {g_on['host_checksum_s']:.4f} / "
+        f"{g_off['host_checksum_s']:.4f} s, staging "
+        f"{g_on['stage_s']:.4f} / {g_off['stage_s']:.4f} s); dfget wall "
+        f"{on['dfget_wall_s']:.3f} / {off['dfget_wall_s']:.3f} s; register "
+        f"to normal_task {on['register_to_normal_task_s'] * 1e3:.2f} / "
+        f"{off['register_to_normal_task_s'] * 1e3:.2f} ms; K2 "
+        f"{on['launches']['land_and_checksum']} / "
+        f"{off['launches']['land_and_checksum']}, K1 "
+        f"{on['launches']['chunk_checksums']} / "
+        f"{off['launches']['chunk_checksums']}; the timeline "
+        f"{on['timeline']['hosts_total']} hosts, span "
+        f"{on['timeline']['span_s']:.3f} s, align_err <= "
+        f"{on['timeline']['align_err_max_s'] * 1e3:.1f} ms; /debug/slo "
+        f"{on['slo']['completions_total']} completions; one trace of "
+        f"{sum(on['trace']['spans'].values())} spans "
+        f"({', '.join(f'{k} {v}' for k, v in on['trace']['spans'].items())})"
+        f"; the sampler {on['prof']['samples']} passes, the sink worker: "
+        f"{sink}; the phase {o['phase_s']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in o["split"].items()) + ")")
 
 
 # --------------------------------------------------------------------- #
@@ -5980,7 +6531,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
                    want_k2_pex: int, want_k2_seed: int,
                    want_k2_dfdaemon: int, want_k2_dfdaemon_epoch: int,
                    want_k2_proxy: int, want_k2_swarm: int,
-                   want_k2_manager_preheat: int, want_k2_cli: int) -> None:
+                   want_k2_manager_preheat: int, want_k2_cli: int,
+                   want_k2_observe: int) -> None:
     """Each path's launches, counted from 0 just before it: K2 once per
     flushed batch of the main path, once per feed batch (the token feed's
     and the webdataset epoch's) and once per batch of each ``entry()``
@@ -6016,7 +6568,10 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
     batch as the job's seed lands the shard, K1 twice in the gate after
     the take. The cli path: K2 once per batch as the child (in this
     process) lands the shard for ``dfget --device tpu``, K1 twice in the
-    gate after the take (the cold host lands in a process of its own)."""
+    gate after the take (the cold host lands in a process of its own).
+    The observe path: the same as the cli path's child, for the landing
+    with the observability plane on; observe_off the same for its pair,
+    the landing with it off."""
     def k(k1, k2, k3=0):
         return {"chunk_checksums": k1, "land_and_checksum": k2,
                 "gear_candidates": k3}
@@ -6039,7 +6594,8 @@ def check_launches(paths: dict, want_k2_main: int, want_k2_feed: int,
             "p2p_qos": k(2, want_k2_proxy), "proxy": k(2, want_k2_proxy),
             "swarm": k(8, want_k2_swarm),
             "manager_preheat": k(2, want_k2_manager_preheat),
-            "cli": k(2, want_k2_cli)}
+            "cli": k(2, want_k2_cli), "observe": k(2, want_k2_observe),
+            "observe_off": k(2, want_k2_observe)}
     if paths != want:
         raise AssertionError(f"launches by path {paths}, want {want}")
 
@@ -6410,10 +6966,16 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     print("manager preheat:", json.dumps(mpre))
     print(f"{manager_preheat_line(mpre, cold['wall_s'])} on {smi}")
-    clip = phase_cli(content, device)
-    torch.cuda.empty_cache()
-    print("cli:", json.dumps(clip))
-    print(f"{cli_line(clip)} on {smi}")
+    with cli_origin(content) as origin:
+        clip = phase_cli(content, device, origin)
+        torch.cuda.empty_cache()
+        print("cli:", json.dumps(clip))
+        print(f"{cli_line(clip)} on {smi}")
+        obs = phase_observe(content, device, origin)
+        torch.cuda.empty_cache()
+    obs["split"]["origin_cleanup"] = origin["cleanup_s"]
+    print("observe:", json.dumps(obs))
+    print(f"{observe_line(obs)} on {smi}")
 
     swap, gen2, _ = phase_hot_swap(content, spans, layout, taken,
                                    piece_size, gen, device)
@@ -6705,14 +7267,16 @@ def main(argv=None) -> int:
              "dfdaemon_epoch": dfd["epoch"]["launches"],
              "p2p_qos": p2p["gated"]["launches"],
              "proxy": prx["launches"], "swarm": swm["launches"],
-             "manager_preheat": mpre["launches"], "cli": clip["launches"]}
+             "manager_preheat": mpre["launches"], "cli": clip["launches"],
+             "observe": obs["on"]["launches"],
+             "observe_off": obs["off"]["launches"]}
     check_launches(paths, -(-n_pieces // BATCH_PIECES), feed["batches"],
                    chunker["planned_k3"], planned_k3(span_sizes(shard_bytes)),
                    wds["batches"], gwm["planned_k3"],
                    sum(dmn["want_k2"].values()), p2p["want_k2"],
                    pex["want_k2"], seed["want_k2"], dfd["want_k2"],
                    DFD_EPOCH_BATCHES, prx["want_k2"], swm["want_k2"],
-                   mpre["want_k2"], clip["want_k2"])
+                   mpre["want_k2"], clip["want_k2"], obs["want_k2"])
     kernels = []
     timed_keys = ("max_abs_err", "ms", "call_us", "plain_ms", "bound_ms",
                   "copy_ms", "register_path_ms", "plan", "l2_rotation_sets",

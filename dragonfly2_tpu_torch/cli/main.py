@@ -24,6 +24,10 @@ Port-only and divergent flags:
   the JAX CLI waits 15 s: the port's daemon imports ``torch`` and binds
   the card on its first start, 11.4 s on an H100 machine against the 15 s
   limit (``PERF.md``).
+- ``dfget`` flushes its OTLP exporter (``pkg/tracing``, with
+  ``DF_TRACE_OTLP_ENDPOINT`` set) before it exits, so its
+  ``dfget.download`` span reaches the collector; the JAX CLI exits with
+  the span still queued on the exporter's daemon thread.
 
 ``daemon_config(args)`` is the one mapping of ``daemon`` flags onto a
 ``DaemonConfig``; ``dfget_config(args)`` the one of ``dfget`` flags onto
@@ -190,9 +194,13 @@ def _run_dfget(args: argparse.Namespace) -> int:
         finally:
             # One-shot process: close the source fallback's pooled
             # connections instead of leaking them to interpreter exit.
+            from dragonfly2_tpu_torch.pkg import tracing
             from dragonfly2_tpu_torch.source import default_registry
 
             await default_registry().close_all()
+            otlp = tracing.exporter().otlp
+            if otlp is not None:
+                await asyncio.to_thread(otlp.flush)
         elapsed = time.monotonic() - start
         size = result.get("completed_length", 0)
         rate = size / elapsed if elapsed > 0 else 0

@@ -9,11 +9,10 @@ reached falls back to a direct fetch from the origin (the port's
 ``source`` clients, the digest checked after), except for a device
 request: a direct fetch cannot land in the daemon's device sink, so that
 error is raised. ``recursive`` walks the origin's listing and downloads
-each file. ``device`` keeps the JAX wire value ``"tpu"``.
-
-One divergence: the JAX ``download`` opens a ``dfget.download`` tracing
-span; the port has no ``pkg/tracing`` (ROADMAP A7.4 item 5) and opens
-none.
+each file. ``device`` keeps the JAX wire value ``"tpu"``. The download
+runs inside a ``dfget.download`` span (``pkg/tracing``, attributes
+``url`` and ``task_id``), whose context rides ``Daemon.Download``'s
+metadata to the daemon, as in JAX.
 """
 
 from __future__ import annotations
@@ -22,7 +21,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Callable
 
-from dragonfly2_tpu_torch.pkg import dflog
+from dragonfly2_tpu_torch.pkg import dflog, tracing
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.types import NetAddr
 from dragonfly2_tpu_torch.proto.common import UrlMeta
@@ -57,16 +56,20 @@ class DfgetConfig:
 async def download(cfg: DfgetConfig,
                    on_progress: Callable[[dict], None] | None = None) -> dict:
     """One download through the daemon; returns the final progress frame."""
-    if cfg.recursive:
-        return await _download_recursive(cfg, on_progress)
-    try:
-        return await _daemon_download(cfg, on_progress)
-    except DfError as e:
-        if (e.code == Code.ClientConnectionError and cfg.allow_source_fallback
-                and not cfg.device):
-            log.warning("daemon unreachable; falling back to direct source download")
-            return await _download_from_source(cfg)
-        raise
+    with tracing.span("dfget.download", url=cfg.url) as sp:
+        if cfg.recursive:
+            return await _download_recursive(cfg, on_progress)
+        try:
+            result = await _daemon_download(cfg, on_progress)
+            sp.set_attr("task_id", result.get("task_id", ""))
+            return result
+        except DfError as e:
+            if (e.code == Code.ClientConnectionError
+                    and cfg.allow_source_fallback and not cfg.device):
+                log.warning("daemon unreachable; falling back to direct "
+                            "source download")
+                return await _download_from_source(cfg)
+            raise
 
 
 async def _daemon_download(cfg: DfgetConfig, on_progress) -> dict:

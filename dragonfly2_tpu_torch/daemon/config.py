@@ -11,8 +11,8 @@ config that names ``host.ip`` never looks up the local address.
 and any other file as YAML, importing ``yaml`` only then; without it the
 load raises ``ImportError`` naming PyYAML.
 
-The ``prof`` block keeps the JAX keys in a dataclass of the port's own;
-the daemon accepts it and installs no runtime observatory (not ported).
+The ``prof`` block is ``pkg/prof.ProfConfig``, the runtime observatory's
+knobs (on by default, as in JAX).
 ``tpu_sink`` keeps its name: the wire value for a device landing is still
 ``"tpu"``.
 """
@@ -25,6 +25,7 @@ import socket
 from dataclasses import dataclass, field
 
 from dragonfly2_tpu_torch.pkg.dfpath import Dfpath
+from dragonfly2_tpu_torch.pkg.prof import ProfConfig
 from dragonfly2_tpu_torch.pkg.types import HostType, parse_size
 
 
@@ -150,21 +151,6 @@ class TPUSinkOption:
     mesh_shape: list[int] = field(default_factory=list)
     batch_pieces: int = 8       # pieces staged per device dispatch
     max_tasks: int = 4          # concurrent device-resident tasks
-
-
-@dataclass
-class ProfConfig:
-    """The JAX daemon's runtime-observatory keys (``prof:``). The port's
-    daemon accepts them and installs no observatory."""
-
-    enabled: bool = True
-    hz: float = 19.0
-    max_nodes: int = 8192
-    max_depth: int = 48
-    lag_interval_s: float = 0.25
-    lag_slow_s: float = 0.25
-    gc_slow_s: float = 0.05
-    lag_ring: int = 4096
 
 
 @dataclass

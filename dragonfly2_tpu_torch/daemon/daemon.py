@@ -39,14 +39,22 @@ static ``scheduler.addrs`` as fallback, refreshed every 10 s: a
 scheduler that registers later is picked up then, and the announcer
 starts late; the seed peers of ``Manager.ListSeedPeers`` are where the
 gateway replicates a PUT), the traffic shaper's loop, the flight recorder's
-``dump_dir``, ``keep_bundles`` and ``clock_offset_s``, ``/metrics`` on
-loopback at ``metrics_port`` (-1: none), the download service on
+``dump_dir``, ``keep_bundles`` and ``clock_offset_s``, with
+``prof.enabled`` (the default) the runtime observatory (``pkg/prof``:
+the sampler, a lag probe on the daemon's loop, the GC observatory; slow
+ticks and pauses stamped into running flights, its snapshot in
+post-mortem bundles) and a runtime-only SLO engine of ``RUNTIME_SLOS``
+(``loop_lag`` at ``prof.lag_slow_s``), the metrics server on loopback at
+``metrics_port`` (-1: none: ``/metrics`` and the ``/debug/*`` routes with
+the flight recorder, the observatory and that engine), the download
+service on
 ``unix_sock``, the peer service on ``download.peer_port`` (-1: none), the
 upload server, the proxy on ``proxy.port`` and, with ``sni_enabled``, its
 SNI listener on ``sni_port``, the gateway, PEX when enabled (gossiping
 every completed store), the announcer when there is a scheduler, and the
 GC loop.
-``stop()``: the GC loop, the shaper, PEX, ``/metrics``, the dynconfig,
+``stop()``: the GC loop, the shaper, PEX, the metrics server, the
+observatory (released), the dynconfig,
 the announcer (its ``leave_host``), the scheduler client, the proxy, the gateway, the
 upload server, the drpc services, the sink worker (waited for), the origin
 clients' pooled connections, then the stores.
@@ -59,8 +67,7 @@ path always records each piece's CRC-32C, fused into the store write.
 
 Refused at construction with ``ValueError`` naming the ``ROADMAP.md``
 item, since the port does not have it yet: an object-storage backend
-other than ``fs``. ``prof.enabled`` (true by default) is accepted and no
-runtime observatory is installed: ``pkg/prof`` is not ported.
+other than ``fs``.
 """
 
 from __future__ import annotations
@@ -212,7 +219,10 @@ class Daemon:
         self.announcer: Announcer | None = None
         self.dynconfig = None  # the manager-fed scheduler resolution
         self.pex = None        # gossip peer exchange (started in start())
-        self.metrics = None    # the /metrics server
+        self.metrics = None    # the metrics and /debug server
+        self.prof_obs = None   # the runtime observatory (pkg/prof)
+        self._prof_probe = None
+        self._runtime_slo = None
         self._source_registry = None
         self._started = False
         self._peer_port = 0
@@ -354,10 +364,30 @@ class Daemon:
         recorder.keep_bundles = self.config.flight_keep_bundles
         if self.config.clock_offset_s:
             recorder.wall_offset = self.config.clock_offset_s
+        if self.config.prof.enabled:
+            # The runtime observatory: slow ticks and pauses stamp typed
+            # events into every running flight; the loop probe feeds a
+            # daemon-side loop_lag SLO engine at /debug/slo.
+            from dataclasses import replace as _dc_replace
+
+            from dragonfly2_tpu_torch.pkg import prof as proflib
+            from dragonfly2_tpu_torch.pkg import slo as slolib
+
+            self.prof_obs = proflib.install(self.config.prof,
+                                            recorder=recorder)
+            self._prof_probe = self.prof_obs.arm_loop("daemon")
+            recorder.runtime = self.prof_obs
+            self._runtime_slo = slolib.SLOEngine(
+                specs=tuple(
+                    _dc_replace(s, threshold=self.config.prof.lag_slow_s)
+                    for s in slolib.RUNTIME_SLOS),
+                probes=self.prof_obs.slo_probes())
         if self.config.metrics_port >= 0:
             from dragonfly2_tpu_torch.pkg.metrics_server import MetricsServer
 
-            self.metrics = MetricsServer()
+            # Loopback only: /debug exposes live stacks.
+            self.metrics = MetricsServer(flight=recorder, prof=self.prof_obs,
+                                         slo=self._runtime_slo)
             await self.metrics.serve("127.0.0.1", self.config.metrics_port)
         await self.rpc.serve_download(NetAddr.unix(self.config.unix_sock))
         if self.config.download.peer_port >= 0:
@@ -416,6 +446,16 @@ class Daemon:
             await self.pex.stop()
         if self.metrics is not None:
             await self.metrics.close()
+        if self.prof_obs is not None:
+            from dragonfly2_tpu_torch.pkg import prof as proflib
+
+            if self._prof_probe is not None:
+                self._prof_probe.disarm()
+                self.prof_obs.probes.pop(self._prof_probe.name, None)
+                self._prof_probe = None
+            self.task_manager.flight.runtime = None
+            proflib.release(self.prof_obs)
+            self.prof_obs = None
         if self.dynconfig is not None:
             await self.dynconfig.stop()
         if self.announcer is not None:

@@ -51,9 +51,8 @@ closes the body iterator on the loop, which releases its store pin.
 Metric families: ``objectstorage_requests_total{method,result}`` and
 ``objectstorage_bytes_total{direction}``, in the port's registry.
 
-Intended divergence: the JAX gateway adopts a caller's ``traceparent``
-into its trace (``pkg/tracing``); the port has no tracing yet and ignores
-the header.
+A GET adopts the caller's ``traceparent`` (``pkg/tracing``): the
+``gateway.get_object`` span joins the caller's trace, as in JAX.
 """
 
 from __future__ import annotations
@@ -73,7 +72,7 @@ from dragonfly2_tpu_torch.daemon.peer.task_manager import (
     FileTaskRequest,
 )
 from dragonfly2_tpu_torch.daemon.transport import P2PTransport
-from dragonfly2_tpu_torch.pkg import dflog, idgen, metrics
+from dragonfly2_tpu_torch.pkg import dflog, idgen, metrics, tracing
 from dragonfly2_tpu_torch.pkg import digest as pkgdigest
 from dragonfly2_tpu_torch.pkg.errors import DfError
 from dragonfly2_tpu_torch.pkg.httpserver import ThreadedServer
@@ -590,7 +589,15 @@ class ObjectStorageService:
 
     async def _get_object(self, headers, query, bucket: str, key: str):
         """A GET through the P2P fabric: a stream task, served by sendfile
-        off its store when the window allows, else streamed."""
+        off its store when the window allows, else streamed. The caller's
+        trace context is adopted: the gateway hop joins its trace."""
+        tp = headers.get(tracing.TRACEPARENT, "")
+        with tracing.extract({tracing.TRACEPARENT: tp} if tp else None,
+                             "gateway.get_object", bucket=bucket):
+            return await self._get_object_inner(headers, query, bucket, key)
+
+    async def _get_object_inner(self, headers, query, bucket: str,
+                                key: str):
         url = self.backend.object_url(bucket, key)
         fetch_headers = {"X-Dragonfly-Tag": bucket}
         rng_header = headers.get("Range", "")

@@ -38,9 +38,14 @@ process-wide recorder, as in JAX): ``EV_REQUEST`` when it is asked for,
 pair on its per-piece path only (its span is a native fetch); the port's
 span writes each piece through the store too, and stamps it likewise.
 
+Each piece GET carries the caller's trace context as a ``traceparent``
+header (``pkg/tracing.inject``, read on the loop before the fetch goes to
+its thread), so the parent's ``upload.serve`` span joins the child's
+trace.
+
 Not ported: the native route (``NativeConnPool``, the native branch of
-``download_piece_to_store`` and the span's native fetch), trace context
-and the chaos hooks.
+``download_piece_to_store`` and the span's native fetch) and the chaos
+hooks.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from urllib.parse import urlencode
 
 from dragonfly2_tpu_torch.pkg import digest as pkgdigest
 from dragonfly2_tpu_torch.pkg import flight as flightlib
+from dragonfly2_tpu_torch.pkg import tracing
 from dragonfly2_tpu_torch.pkg.bufpool import WorkerCall, await_worker
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError, describe
 
@@ -277,14 +283,15 @@ class PieceDownloader:
     # -- one piece ---------------------------------------------------------
 
     def _fetch_piece(self, call: WorkerCall, key, path: str, piece_num: int,
-                     expected_size: int, expected_digest: str, ft):
+                     expected_size: int, expected_digest: str, ft,
+                     trace: dict):
         parent = f"{key[0]}:{key[1]}"
         asm = _Assembly(expected_size, expected_digest)
         t0 = time.monotonic()
         deadline = t0 + TIMEOUT
         try:
             ex = self._exchange(call, key, path,
-                                {"Accept-Encoding": "identity"})
+                                {"Accept-Encoding": "identity", **trace})
             status_err = _upload_status_error(ex.resp.status, parent,
                                               f"piece {piece_num}")
             if status_err is not None:
@@ -319,10 +326,12 @@ class PieceDownloader:
         ft.record(flightlib.EV_REQUEST, piece_num, 0.0,
                   f"{parent_ip}:{parent_upload_port}")
         start = time.monotonic()
+        # The trace context is read here, on the loop, and handed to the
+        # fetching thread: the parent's upload span joins this trace.
         chunks, size, digest_str = await self._run(
             self._fetch_piece, (parent_ip, parent_upload_port),
             self._path(task_id, query), piece_num, expected_size,
-            expected_digest, ft)
+            expected_digest, ft, tracing.inject())
         return chunks, size, int((time.monotonic() - start) * 1000), \
             digest_str
 
@@ -388,7 +397,7 @@ class PieceDownloader:
         if tenant:
             query["tenant"] = tenant
         headers = {"Range": f"bytes={start}-{start + total - 1}",
-                   "Accept-Encoding": "identity"}
+                   "Accept-Encoding": "identity", **tracing.inject()}
 
         async def fail_all(err: DfError) -> bool:
             for a in run:

@@ -32,7 +32,10 @@ Routes, queries, statuses and headers are the JAX server's:
 
 Each payload served stamps the task's flight on this daemon
 (``pkg/flight.for_task``): ``EV_UPLOAD_SERVE`` with the piece number (-1
-for a range) and the bytes.
+for a range) and the bytes. A download request is served inside an
+``upload.serve`` span (attributes ``task``, ``bytes``) that adopts the
+requester's ``traceparent`` header (``pkg/tracing``), so the serving hop
+joins the child's trace, as in JAX.
 
 HTTP/1.1 with keep-alive on ``pkg/httpserver.py``: one ``df-upload``
 thread a connection, and ``close`` waits for them. Not ported: the native
@@ -46,7 +49,7 @@ import threading
 from http.server import BaseHTTPRequestHandler
 from urllib.parse import parse_qs, urlsplit
 
-from dragonfly2_tpu_torch.pkg import dflog, metrics
+from dragonfly2_tpu_torch.pkg import dflog, metrics, tracing
 from dragonfly2_tpu_torch.pkg import flight as flightlib
 from dragonfly2_tpu_torch.pkg.httpserver import ThreadedServer
 from dragonfly2_tpu_torch.pkg.piece import Range
@@ -99,7 +102,13 @@ class _Handler(BaseHTTPRequestHandler):
                 body, ctype = metrics.render()
                 self._send(200, body, ctype.split(";")[0])
             elif len(route) == 4 and route[1] == "download" and route[3]:
-                mgr._serve(self, route[3], parse_qs(parts.query))
+                # The requester's trace context (the piece downloader
+                # injects it): this serving span joins the same trace.
+                tp = self.headers.get(tracing.TRACEPARENT, "")
+                with tracing.extract(
+                        {tracing.TRACEPARENT: tp} if tp else None,
+                        "upload.serve") as sp:
+                    mgr._serve(self, route[3], parse_qs(parts.query), sp)
             else:
                 raise _Reply(404, "404: Not Found")
         except _Reply as r:
@@ -181,7 +190,8 @@ class UploadManager:
             raise _Reply(416, "416: Range Not Satisfiable")
         return rng.start, rng.length
 
-    def _serve(self, h: _Handler, task_id: str, query: dict) -> None:
+    def _serve(self, h: _Handler, task_id: str, query: dict, sp) -> None:
+        sp.set_attr("task", task_id[:16])
         store = self.storage.try_get(task_id)
         if store is None:
             UPLOAD_REQUESTS.labels("not_found").inc()
@@ -202,6 +212,7 @@ class UploadManager:
                 if length <= 0 or start >= size:
                     raise _Reply(416, "416: Range Not Satisfiable")
                 length = min(length, size - start)
+                sp.set_attr("bytes", length)
                 total = store.metadata.content_length
                 UPLOAD_REQUESTS.labels("ok").inc()
                 piece_num = query.get("pieceNum", [None])[-1]

@@ -3,17 +3,16 @@
 ``from_dict`` rules (a nested block builds its dataclass from its keys;
 an unknown key there raises ``TypeError``).
 
-``cluster`` (the control tower's bounds) and ``prof`` (the runtime
-observatory, the port's copy from ``daemon/config.py``) are accepted
-and install nothing: the port builds no cluster tower and no
-observatory (``manager/server.py``).
+``prof`` is ``pkg/prof.ProfConfig``: the runtime observatory, on by
+default (``manager/server.py``). ``cluster`` (the control tower's bounds)
+is accepted and installs nothing: the port builds no cluster tower.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-from dragonfly2_tpu_torch.daemon.config import ProfConfig
+from dragonfly2_tpu_torch.pkg.prof import ProfConfig
 
 
 @dataclass

@@ -4,10 +4,11 @@
 ``ManagerServer`` starts the REST API (``manager/rest.py``), the drpc
 server with ``Manager.*`` (``manager/rpcserver.py``), the keepalive
 expiry on ``keepalive_gc_interval`` (``pkg/cache.GC``) and, with
-``metrics_port >= 0``, ``/metrics`` and ``/healthy`` on the port's
-``pkg/metrics_server.py``. Divergences, each intended: ``prof.enabled``
-installs nothing, and there is no ``/debug/cluster*`` or ``/debug/prof*``
-route (no cluster tower, no runtime observatory; ROADMAP A7.4).
+``metrics_port >= 0``, the port's ``pkg/metrics_server.py`` on loopback.
+With ``prof.enabled`` (the default) it installs the runtime observatory
+(``pkg/prof``), probes its loop and serves ``/debug/prof*``. Divergence,
+intended: no cluster control tower, so no ``/debug/cluster*`` route
+(ROADMAP A7.4 item 6).
 
 From Python::
 
@@ -30,6 +31,7 @@ from dragonfly2_tpu_torch.manager.rest import RestServer
 from dragonfly2_tpu_torch.manager.rpcserver import ManagerRpcServer
 from dragonfly2_tpu_torch.manager.service import ManagerService
 from dragonfly2_tpu_torch.pkg import dflog
+from dragonfly2_tpu_torch.pkg import prof as proflib
 from dragonfly2_tpu_torch.pkg.cache import GC, GCTask
 from dragonfly2_tpu_torch.pkg.metrics_server import MetricsServer
 from dragonfly2_tpu_torch.pkg.types import NetAddr
@@ -51,6 +53,8 @@ class ManagerServer:
         self.gc.add(GCTask("keepalive", self.config.keepalive_gc_interval, 10.0,
                            self._expire))
         self.metrics: MetricsServer | None = None
+        self.prof_obs = None    # the runtime observatory (pkg/prof)
+        self._prof_probe = None
         self._stopped = asyncio.Event()
 
     async def _expire(self) -> None:
@@ -62,9 +66,12 @@ class ManagerServer:
         await self.rest.serve(self.config.server.host, self.config.server.port)
         await self.rpc.serve(NetAddr.tcp(self.config.grpc.host,
                                          self.config.grpc.port))
+        if self.config.prof.enabled:
+            self.prof_obs = proflib.install(self.config.prof)
+            self._prof_probe = self.prof_obs.arm_loop("manager")
         if self.config.metrics_port >= 0:
             # Loopback only, as in the JAX server.
-            self.metrics = MetricsServer()
+            self.metrics = MetricsServer(prof=self.prof_obs)
             await self.metrics.serve("127.0.0.1", self.config.metrics_port)
         self.gc.serve()
         log.info("manager up", rest_port=self.rest.port,
@@ -88,6 +95,13 @@ class ManagerServer:
         self.gc.stop()
         if self.metrics is not None:
             await self.metrics.close()
+        if self.prof_obs is not None:
+            if self._prof_probe is not None:
+                self._prof_probe.disarm()
+                self.prof_obs.probes.pop(self._prof_probe.name, None)
+                self._prof_probe = None
+            proflib.release(self.prof_obs)
+            self.prof_obs = None
         await self.rest.close()
         await self.rpc.close()
         self.db.close()

@@ -8,8 +8,8 @@ admission from the schedulers' burn snapshots, and the dynconfig read
 paths behind a 10 s ``TTLCache``. Divergences, each intended: no cluster
 control tower is built (``pkg/cluster.py`` is ROADMAP A7.4 item 6), so a
 keepalive's fleet frame is dropped and ``note_admission_429`` records
-nothing; a ``searcher_plugin`` raises ``ValueError`` (the plugin registry
-is ROADMAP A7.4 item 2).
+nothing. A ``searcher_plugin`` names a searcher of the plugin registry
+(``pkg/dfplugin.py``).
 """
 
 from __future__ import annotations
@@ -41,13 +41,16 @@ class ManagerService:
     def __init__(self, db: Database | None = None, *,
                  searcher_plugin: str = "",
                  keepalive_timeout: float = KEEPALIVE_TIMEOUT):
-        if searcher_plugin:
-            raise ValueError(
-                f"searcher_plugin {searcher_plugin!r}: the plugin registry "
-                f"is not ported (ROADMAP A7.4)")
         self.db = db or Database()
         self.keepalive_timeout = keepalive_timeout
-        self.searcher = Searcher()
+        if searcher_plugin:
+            # A plugin-replaceable scheduler-cluster searcher.
+            from dragonfly2_tpu_torch.pkg import dfplugin
+
+            self.searcher = dfplugin.registry().create(
+                dfplugin.TYPE_SEARCHER, searcher_plugin)
+        else:
+            self.searcher = Searcher()
         self.jobs = jobqueue.JobQueue(self.db)
         self.signer = auth.TokenSigner()
         self.rbac = Enforcer(self.db)

@@ -23,8 +23,9 @@ Intended divergence: ``TaskFlight.record`` takes a lock. The port's piece
 downloader and upload server run on worker threads (``http.client``,
 ``http.server``), which stamp a task's ring beside the event loop; the
 JAX recorder is written from its loop only. ``FlightRecorder.stamp_running``
-is kept, with no caller in the port yet (its caller is the runtime
-profiler, ``pkg/prof``).
+is called by the runtime observatory (``pkg/prof``), which stamps slow
+loop ticks and GC pauses into the running flights, and a post-mortem
+bundle carries its ``runtime`` snapshot.
 """
 
 from __future__ import annotations

@@ -7,8 +7,10 @@ and coded errors translated from the wire.
 
 ``ssl_context`` (``pkg/security.client_ssl_context``) puts TLS under a
 TCP connection, mTLS when it presents a client certificate; a unix socket
-stays plaintext, and TLS over vsock is refused at connect. Not ported:
-the trace-context metadata and the chaos hooks.
+stays plaintext, and TLS over vsock is refused at connect. A call and a
+stream open carry the caller's trace context in the frame's metadata
+(``md``, ``pkg/tracing.inject``), as the JAX client sends it. Not
+ported: the chaos hooks.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import itertools
 import socket
 from typing import Any
 
-from dragonfly2_tpu_torch.pkg import dflog, retry
+from dragonfly2_tpu_torch.pkg import dflog, retry, tracing
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.types import NetAddr
 from dragonfly2_tpu_torch.rpc.framing import (
@@ -231,7 +233,8 @@ class Client:
         call_id = next(self._ids)
         fut: asyncio.Future = asyncio.get_running_loop().create_future()
         self._pending[call_id] = fut
-        await self._write(Frame(CALL, call_id, method=method, body=body), fw)
+        await self._write(Frame(CALL, call_id, method=method, body=body,
+                                md=tracing.inject() or None), fw)
         try:
             return await asyncio.wait_for(fut, timeout)
         except asyncio.TimeoutError:
@@ -246,7 +249,8 @@ class Client:
         call_id = next(self._ids)
         stream = ClientStream(call_id, fw)
         self._streams[call_id] = stream
-        await self._write(Frame(SOPEN, call_id, method=method, body=body), fw)
+        await self._write(Frame(SOPEN, call_id, method=method, body=body,
+                                md=tracing.inject() or None), fw)
         return stream
 
     async def ping(self, timeout: float = 3.0) -> bool:

@@ -7,7 +7,9 @@ ssl_context=)`` (``pkg/security.server_ssl_context``) puts TLS under a TCP
 listener, mTLS when it requires client certificates; a unix socket and
 vsock stay plaintext. A stream message that breaks its method's schema
 fails the stream both ways (an ERR frame to the client, a BadRequest
-close to the handler). Not ported: the trace spans around handlers.
+close to the handler). Each handler runs inside an ``rpc.<method>``
+span that adopts the caller's trace context from the frame's metadata
+(``pkg/tracing.extract``), as in JAX.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import socket
 from dataclasses import dataclass, field
 from typing import Any, Awaitable, Callable
 
-from dragonfly2_tpu_torch.pkg import dflog
+from dragonfly2_tpu_torch.pkg import dflog, tracing
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.types import NetAddr
 from dragonfly2_tpu_torch.proto import wire
@@ -245,7 +247,9 @@ class Server:
             return
         try:
             wire.validate_unary(frame.method, frame.body)
-            result = await handler(frame.body, ctx)
+            with tracing.extract(frame.md, f"rpc.{frame.method}",
+                                 peer=ctx.peer_addr):
+                result = await handler(frame.body, ctx)
             await fw.write(Frame(RESULT, frame.call_id, body=result))
         except wire.SchemaError as e:
             await fw.write(_err_frame(frame.call_id, Code.BadRequest, str(e)))
@@ -262,7 +266,10 @@ class Server:
                           ctx: RpcContext,
                           streams: dict[int, ServerStream]) -> None:
         try:
-            await handler(stream, ctx)
+            with tracing.extract(stream.md,
+                                 f"rpc.{stream.method or 'stream'}",
+                                 peer=ctx.peer_addr):
+                await handler(stream, ctx)
             await stream.close()
         except DfError as e:
             try:

@@ -3,7 +3,6 @@
 
 It picks every peer's parents, triggers the seed peer and decides
 back-to-source. It does no device work and takes no ``device``
-argument. ``server.SchedulerServer`` serves it; ``service`` refuses, at
-construction, an option that would change a handout or needs a service
-the port lacks (``service.refuse_unported``).
+argument. ``server.SchedulerServer`` serves it, with the pod lens, the
+SLO engine and the runtime observatory on by default, as in JAX.
 """

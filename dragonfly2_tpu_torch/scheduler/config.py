@@ -6,8 +6,7 @@ port's own merge (``daemon/config._merge_dataclass``: a nested block
 fills its dataclass, keys that name no field are ignored).
 ``SchedulerConfig.load`` reads a ``.json`` file with the standard library
 and any other file as YAML, importing ``yaml`` only then. ``prof`` is
-the port's copy of the runtime-observatory keys; the port's scheduler
-accepts them and installs nothing.
+``pkg/prof.ProfConfig``, the runtime observatory's knobs.
 """
 
 from __future__ import annotations
@@ -15,7 +14,8 @@ from __future__ import annotations
 import json
 from dataclasses import dataclass, field
 
-from dragonfly2_tpu_torch.daemon.config import ProfConfig, _merge_dataclass
+from dragonfly2_tpu_torch.daemon.config import _merge_dataclass
+from dragonfly2_tpu_torch.pkg.prof import ProfConfig
 
 SEED_PEER_CONCURRENT_UPLOAD_LIMIT = 2000
 PEER_CONCURRENT_UPLOAD_LIMIT = 200
@@ -89,8 +89,9 @@ class FleetConfig:
 
 @dataclass
 class PodLensConfig:
-    """The JAX pod lens and SLO engine's bounds. The port keeps the keys
-    and installs neither: they only observe."""
+    """Pod lens (``pkg/podlens``) and SLO engine (``pkg/slo``) bounds:
+    the merged cross-host timeline and the burn-rate engine. On by
+    default; ``enabled=False`` removes the digest-ingest hooks."""
 
     enabled: bool = True
     slo_enabled: bool = True

@@ -7,10 +7,10 @@ same-slice peers, filtered and scored) and hand them out, or fall back
 to the origin after the back-to-source limit. ``wire_qos`` narrows a
 burning tenant's handouts; ``wire_fleet`` (``pkg/fleet.py``) records each
 handout and throttle in the fleet's decision log and drops the hosts its
-scorecards flag as stragglers from the candidates.
-
-Not here: evaluator plugins (a ``scheduling.algorithm`` other than
-``"default"`` raises).
+scorecards flag as stragglers from the candidates. A
+``scheduling.algorithm`` other than ``"default"`` names an evaluator
+plugin of the plugin registry (``pkg/dfplugin.py``), created with the
+scheduling config; an unknown name raises ``LookupError``.
 """
 
 from __future__ import annotations
@@ -44,10 +44,12 @@ class Scheduling:
         if evaluator is None:
             algo = getattr(self.config, "algorithm", "default")
             if algo and algo != "default":
-                raise ValueError(
-                    f"scheduling.algorithm {algo!r}: evaluator plugins are "
-                    f"not ported (ROADMAP A7.4); use \"default\"")
-            evaluator = Evaluator(self.config)
+                from dragonfly2_tpu_torch.pkg import dfplugin
+
+                evaluator = dfplugin.registry().create(
+                    dfplugin.TYPE_EVALUATOR, algo, config=self.config)
+            else:
+                evaluator = Evaluator(self.config)
         self.evaluator = evaluator
         # Fleet observatory handle (pkg/fleet), wired by the service when
         # the advisory straggler filter is enabled: flagged hosts drop out

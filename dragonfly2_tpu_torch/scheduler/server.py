@@ -4,10 +4,14 @@
 ``SchedulerServer`` registers every ``Scheduler.*`` handler of the JAX
 server on the port's drpc, runs the resource GC and the HA snapshot
 flush on their intervals (``pkg/cache.GC``), flushes the snapshot once
-more at stop, and serves ``/metrics``, ``/healthy`` and, with the fleet
-observatory on, ``/debug/fleet*`` on the port's ``pkg/metrics_server.py``
-when ``metrics_port >= 0`` (no other ``/debug/*`` routes); ``prof``
-installs nothing. With ``manager_addr`` it registers
+more at stop. With ``prof.enabled`` (the default) it installs the
+runtime observatory (``pkg/prof``) and probes its loop, whose lag joins
+the SLO engine's ``loop_lag`` spec. With ``metrics_port >= 0`` it serves
+``pkg/metrics_server.py`` on loopback: ``/metrics``, ``/healthy``, the
+stacks, tasks, profile and heap routes, ``/debug/pod/<task>`` (the pod
+aggregator), ``/debug/pod/<task>/timeline`` (the pod lens), ``/debug/slo``,
+``/debug/prof*`` and, with the fleet observatory on, ``/debug/fleet*``.
+With ``manager_addr`` it registers
 with the manager (``scheduler/announcer.py``, the keepalive carrying
 ``service.manager_payload``), keeps the cluster's config and seed peers
 fresh (``scheduler/dynconfig.py``; each seed peer registered as a host)
@@ -29,6 +33,7 @@ from __future__ import annotations
 import asyncio
 
 from dragonfly2_tpu_torch.pkg import dflog
+from dragonfly2_tpu_torch.pkg import prof as proflib
 from dragonfly2_tpu_torch.pkg.cache import GC, GCTask
 from dragonfly2_tpu_torch.pkg.metrics_server import MetricsServer
 from dragonfly2_tpu_torch.pkg.types import HostType, NetAddr
@@ -63,6 +68,8 @@ class SchedulerServer:
         self.announcer: SchedulerAnnouncer | None = None
         self.dynconfig: SchedulerDynconfig | None = None
         self.job_worker: JobWorker | None = None
+        self.prof_obs = None    # the runtime observatory (pkg/prof)
+        self._prof_probe = None
         self._manager_retry: asyncio.Task | None = None
         self._stopped = asyncio.Event()
 
@@ -106,9 +113,21 @@ class SchedulerServer:
     async def start(self) -> None:
         await self.rpc.serve(NetAddr.tcp(self.config.server.host,
                                          self.config.server.port))
+        if self.config.prof.enabled:
+            self.prof_obs = proflib.install(self.config.prof)
+            self._prof_probe = self.prof_obs.arm_loop("scheduler")
+            if self.service.slo is not None:
+                # Scheduler wedge time burns against the same /debug/slo
+                # as the broadcast SLIs.
+                self.service.slo.probes.update(self.prof_obs.slo_probes())
         if self.config.metrics_port >= 0:
-            # Loopback only, as in the JAX server.
-            self.metrics = MetricsServer(fleet=self.service.fleet)
+            # Loopback only, as in the JAX server: /debug exposes stacks.
+            self.metrics = MetricsServer(
+                pod_flight=self.service.pod_flight,
+                fleet=self.service.fleet,
+                slo=self.service.slo,
+                pod_timeline=self.service.pod_timeline_report,
+                prof=self.prof_obs)
             await self.metrics.serve("127.0.0.1", self.config.metrics_port)
         self.gc.serve()
         if self.config.manager_addr:
@@ -191,5 +210,14 @@ class SchedulerServer:
         await self.service.seed_clients.close()
         if self.metrics is not None:
             await self.metrics.close()
+        if self.prof_obs is not None:
+            if self._prof_probe is not None:
+                self._prof_probe.disarm()
+                self.prof_obs.probes.pop(self._prof_probe.name, None)
+                self._prof_probe = None
+            if self.service.slo is not None:
+                self.service.slo.probes.pop("loop_lag", None)
+            proflib.release(self.prof_obs)
+            self.prof_obs = None
         await self.rpc.close()
         self._stopped.set()

@@ -18,20 +18,24 @@ does: registrations, announces, piece batches, typed failures,
 quarantines, back-to-source and stripe handouts, failed schedules and
 admission transitions; ``fleet.straggler_filter`` wires it into the
 scheduling core (handout records, the advisory straggler filter).
-``refuse_unported`` raises ``ValueError`` at construction for a
-``scheduling.algorithm`` other than ``"default"`` (the evaluator plugins
-are not ported). ``manager_addr`` is served (``scheduler/server.py``:
-the announcer, dynconfig and job worker); ``manager_payload`` is what
-its keepalive carries: the tenant burn snapshot, and no fleet frame (the
-manager has no cluster tower).
-Observe-only options are accepted and install nothing:
-``podlens.enabled`` and ``podlens.slo_enabled`` (no pod lens, no SLO
-engine; ``Scheduler.PodTimeline`` answers as the JAX scheduler does with
-the pod lens off) and ``prof.enabled``. The tiny task's direct piece is
-fetched with ``http.client`` on a worker thread, with the JAX fetch's
-URL, timeout and digest check. One divergence: each task's candidate
-sample draws from a ``random.Random`` of its own, not the global
-generator (``pkg/dag.py``).
+With ``podlens.enabled`` (the default) it builds the pod lens
+(``pkg/podlens.py``): each announce's clock sample feeds its per-host
+offset estimate, each terminal announce's flight digest is stored, and
+``pod_timeline_report`` merges them, pulling up to
+``podlens.pull_missing`` digests of participants that shipped none over
+``Daemon.FlightReport`` (``Scheduler.PodTimeline``, ``/debug/pod/<task>/
+timeline``). ``podlens.slo_enabled`` (the default) adds the SLO engine
+(``pkg/slo.py``) over the fleet series and the shipped completions. A
+``scheduling.algorithm`` other than ``"default"`` is an evaluator plugin
+(``pkg/dfplugin.py``). ``manager_addr`` is served
+(``scheduler/server.py``: the announcer, dynconfig and job worker);
+``manager_payload`` is what its keepalive carries: the tenant burn
+snapshot, and no fleet frame (the manager has no cluster tower). The
+tiny task's direct piece is fetched with ``http.client`` on a worker
+thread, with the JAX fetch's URL, timeout and digest check. One
+divergence: each task's candidate sample draws from a
+``random.Random`` of its own, not the global generator
+(``pkg/dag.py``).
 """
 
 from __future__ import annotations
@@ -44,6 +48,8 @@ from dragonfly2_tpu_torch.pkg import aio, dflog
 from dragonfly2_tpu_torch.pkg import digest as dfdigest
 from dragonfly2_tpu_torch.pkg import fleet as fleetlib
 from dragonfly2_tpu_torch.pkg import flight as flightlib
+from dragonfly2_tpu_torch.pkg import podlens as podlenslib
+from dragonfly2_tpu_torch.pkg import slo as slolib
 from dragonfly2_tpu_torch.pkg.errors import Code, DfError
 from dragonfly2_tpu_torch.pkg.fsm import TransitionError
 from dragonfly2_tpu_torch.pkg.piece import PieceInfo, SizeScope
@@ -118,43 +124,9 @@ STATE_REBUILT_COUNT = metrics.counter(
     "failover/restart, and durable-snapshot restores at boot",
     ("source",))
 
-def refuse_unported(config: SchedulerConfig) -> None:
-    """Raise ValueError for an enabled option that would change a handout
-    or needs a service the port does not have yet; nothing goes on
-    without it."""
-    unported = []
-    if config.scheduling.algorithm not in ("", "default"):
-        unported.append(f"scheduling.algorithm "
-                        f"{config.scheduling.algorithm!r}: the evaluator "
-                        f"plugin registry (ROADMAP A7.4)")
-    if unported:
-        raise ValueError("the port's scheduler cannot run this config: "
-                         + "; ".join(unported))
-
-
-def completion_stats(d: dict) -> "tuple[float, float, float]":
-    """(makespan_s, ttfb_s, stall_frac) of one shipped flight digest: the
-    port's copy of ``dragonfly2_tpu/pkg/podlens.completion_stats``. The
-    TTFB is the earliest first-byte (or landed) mark of a piece row
-    (``t_first_byte`` at 3, ``t_landed`` at 4), -1 with no rows."""
-    wall = float(d.get("wall_s") or 0.0)
-    phases = d.get("phases") or {}
-    stall_frac = (phases.get("stall", 0.0) / wall) if wall > 0 else 0.0
-    ttfb = -1.0
-    for row in d.get("pieces") or ():
-        try:
-            t = row[3] if row[3] >= 0 else row[4]
-        except (TypeError, IndexError):
-            continue
-        if t >= 0 and (ttfb < 0 or t < ttfb):
-            ttfb = t
-    return wall, ttfb, stall_frac
-
-
 class SchedulerService:
     def __init__(self, config: SchedulerConfig | None = None):
         self.config = config or SchedulerConfig()
-        refuse_unported(self.config)
         gc = self.config.gc
         self.hosts = HostManager(ttl=gc.host_ttl)
         self.tasks = TaskManager(ttl=gc.task_ttl)
@@ -198,6 +170,23 @@ class SchedulerService:
                 })
             if fc.straggler_filter:
                 self.scheduling.wire_fleet(self.fleet)
+        # Pod lens (pkg/podlens): per-host clock alignment from announce
+        # round-trip samples + the bounded store of shipped flight
+        # digests, merged on demand into /debug/pod/<task>/timeline.
+        plc = self.config.podlens
+        self.pod_lens: "podlenslib.PodLens | None" = None
+        if plc.enabled:
+            self.pod_lens = podlenslib.PodLens(
+                max_tasks=plc.max_tasks,
+                clock_estimator=podlenslib.ClockEstimator(
+                    max_hosts=plc.clock_hosts))
+        # SLO engine (pkg/slo): continuous burn rates over the fleet
+        # time-series + pod completions, served at /debug/slo.
+        self.slo: "slolib.SLOEngine | None" = None
+        if plc.enabled and plc.slo_enabled:
+            self.slo = slolib.SLOEngine(
+                series=self.fleet.series if self.fleet else None,
+                max_completions=plc.max_completions)
         # The tenant QoS plane: the per-tenant burn book, fed from
         # shipped flights. Always on, as in the JAX scheduler: a
         # breaching tenant's handouts narrow.
@@ -1180,18 +1169,26 @@ class SchedulerService:
     def _note_shipped_flight(self, msg: dict, task: Task,
                              peer: Peer) -> None:
         """Flight shipping ingest: the terminal announce message carries
-        the daemon's bounded flight digest (pkg/flight.digest). The
-        tenant burn book books its completion SLIs; the JAX pod lens and
-        SLO engine, which also read it, are not ported."""
+        the daemon's bounded flight digest (pkg/flight.digest). The pod
+        lens stores it (and its clock samples) for the merged timeline;
+        the SLO engine and the tenant burn book book its completion
+        SLIs."""
         fl = msg.get("flight")
         if not isinstance(fl, dict):
             return
+        if self.pod_lens is not None:
+            self.pod_lens.note_flight(task.id, peer.host.id, fl,
+                                      peer_id=peer.id)
         if fl.get("state") != "failed" \
                 and msg.get("type", "download_finished") \
                 != "download_failed":
-            makespan, ttfb, stall_frac = completion_stats(fl)
+            makespan, ttfb, stall_frac = podlenslib.completion_stats(fl)
             if makespan > 0:
-                # The completion, attributed to the task's tenant.
+                if self.slo is not None:
+                    self.slo.note_completion(peer.host.id, makespan,
+                                             ttfb_s=ttfb,
+                                             stall_frac=stall_frac)
+                # The same completion, attributed to the task's tenant.
                 self.tenant_burn.note_completion(task.tenant, makespan,
                                                 ttfb_s=ttfb,
                                                 stall_frac=stall_frac)
@@ -1295,8 +1292,14 @@ class SchedulerService:
         host.upload_port = h.get("upload_port", host.upload_port)
         if self.fleet is not None:
             self.fleet.note_announce()
-        # The announce's clock sample feeds the JAX pod lens's offset
-        # estimate; the port has no pod lens and reads it nowhere.
+        # Clock alignment: the previous announce's round-trip sample
+        # (daemon t0/t1 bracketing our echoed sched_wall) feeds the pod
+        # lens's per-host offset estimate.
+        clock = h.get("clock")
+        if self.pod_lens is not None and isinstance(clock, dict):
+            self.pod_lens.clock.add_sample(
+                host.id, float(clock.get("t0", 0.0)),
+                float(clock.get("t1", 0.0)), float(clock.get("echo", 0.0)))
         tel = h.get("telemetry") or {}
         for k, v in tel.items():
             if hasattr(host.telemetry, k):
@@ -1585,14 +1588,40 @@ class SchedulerService:
     # pod lens: merged cross-host timeline
     # ------------------------------------------------------------------ #
 
+    async def pod_timeline_report(self, task_id: str) -> "dict | None":
+        """The merged cross-host timeline: the digests daemons shipped
+        on completion, topped up with bounded on-demand
+        ``Daemon.FlightReport`` pulls for task participants that never
+        shipped one. Pulled digests merge but are not retained."""
+        if self.pod_lens is None:
+            return None
+        extra: dict = {}
+        task = self.tasks.load(task_id)
+        budget = self.config.podlens.pull_missing
+        if task is not None and budget > 0:
+            shipped = self.pod_lens.shipped_hosts(task_id)
+            missing: dict = {}
+            for p in task.peers():
+                h = p.host
+                if h.id not in shipped and h.id not in missing and h.port > 0:
+                    missing[h.id] = h
+            for host_id, host in list(missing.items())[:budget]:
+                d = await self.seed_clients.flight_digest(host, task_id)
+                if isinstance(d, dict):
+                    extra[host_id] = d
+        return self.pod_lens.timeline(task_id, extra=extra)
+
     async def pod_timeline(self, body: dict, ctx: RpcContext) -> dict:
-        """The merged cross-host timeline (``dfget --pod``, through the
-        daemon's ``Daemon.PodTimeline``) is the JAX pod lens's, which the
-        port does not have: this answers as the JAX scheduler does with
-        ``podlens.enabled=False``."""
+        """Unary surface for ``dfget --pod`` (``Daemon.PodTimeline``
+        proxies here): the merged timeline and its text waterfall, the
+        renderer ``/debug/pod/<task_id>/timeline?format=text`` uses."""
         task_id = (body or {}).get("task_id", "")
-        raise DfError(Code.PeerTaskNotFound,
-                      f"no shipped flight digests for task {task_id}")
+        report = await self.pod_timeline_report(task_id)
+        if report is None:
+            raise DfError(Code.PeerTaskNotFound,
+                          f"no shipped flight digests for task {task_id}")
+        return {"report": report,
+                "text": podlenslib.render_timeline(report)}
 
     # ------------------------------------------------------------------ #
     # GC

@@ -5,9 +5,11 @@ A ``ResourceClient`` opens a content stream (honouring a ``Range``
 header), answers the content length and range support (``probe``, in as
 few round trips as its protocol allows) and, optionally, lists a
 directory. The registry maps URL schemes to clients; the port registers
-``file`` and ``http``/``https`` (``source/clients/``). The other schemes
-and the plugin lookup of unknown ones are not ported yet: an unknown
-scheme raises ``SourceError(UnsupportedProtocol)``.
+``file`` and ``http``/``https`` (``source/clients/``). A scheme it does
+not hold is looked up in the plugin registry (``pkg/dfplugin.py``, type
+``source``) and the client cached; with no plugin either it raises
+``SourceError(UnsupportedProtocol)``. The JAX registry's chaos wrap and
+its other built-in schemes are not ported.
 """
 
 from __future__ import annotations
@@ -148,8 +150,22 @@ class Registry:
             scheme = urlsplit(url_or_scheme).scheme
         client = self._clients.get(scheme.lower())
         if client is None:
+            client = self._try_plugin(scheme.lower())
+        if client is None:
             raise SourceError(f"no source client for scheme {scheme!r}",
                               Code.UnsupportedProtocol)
+        return client
+
+    def _try_plugin(self, scheme: str) -> ResourceClient | None:
+        """An unknown scheme: ask the plugin registry and cache the
+        instance."""
+        from dragonfly2_tpu_torch.pkg import dfplugin
+
+        factory = dfplugin.registry().get(dfplugin.TYPE_SOURCE, scheme)
+        if factory is None:
+            return None
+        client = factory() if callable(factory) else factory
+        self._clients[scheme] = client
         return client
 
     async def close_all(self) -> None:

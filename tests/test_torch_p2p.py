@@ -1310,7 +1310,11 @@ def test_a_port_child_negotiates_packed_reports_with_the_jax_scheduler(
             hosts = {p.host.hostname: p.host.id for p in task.peers()}
             rollup = svc.pod_flight.report(pr.task_id)
             # Daemon.PodTimeline: each daemon proxies the scheduler's merged
-            # timeline (the digests both children shipped).
+            # timeline (the digests both children shipped). The clock
+            # estimator ages its bounds with the scheduler's clock: one
+            # instant for both reads, so the two answers are comparable.
+            frozen = svc.pod_lens.clock._clock()
+            svc.pod_lens.clock._clock = lambda: frozen
             body_ = {"task_id": pr.task_id}
             timelines = (await jchild.rpc._pod_timeline(body_, None),
                          await child.rpc._pod_timeline(body_, None))

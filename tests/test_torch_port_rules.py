@@ -213,14 +213,16 @@ def test_the_p2p_half_imports_without_msgpack_or_aiohttp():
 
 def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
     """The daemon and its services (config, announcer, transport, the
-    object gateway and its ``fs`` backend, ``/metrics``, the proxy, the
-    CA, TLS and the QoS plane) import none of the JAX side, ``aiohttp``,
+    object gateway and its ``fs`` backend, the metrics server, the proxy,
+    the CA, TLS, the QoS plane, the plugin registry, the runtime
+    observatory, the SLO engine and tracing) import none of the JAX side, ``aiohttp``,
     ``msgpack`` or ``cryptography`` (the card machine has none of them),
     nor ``yaml`` or ``psutil`` (not known to be there: the config reads
     YAML through a lazy import, the announcer's telemetry comes from the
     standard library); and with none of those five importable a daemon
     with the proxy (its HTTPS hijack and SNI listener) and the QoS plane
-    on still builds, starts with its gateway and stops."""
+    on still builds, starts with its gateway and runtime observatory and
+    stops."""
     code = ("import asyncio, json, sys, tempfile\n"
             "import dragonfly2_tpu_torch.daemon.daemon\n"
             "import dragonfly2_tpu_torch.daemon.objectstorage\n"
@@ -229,6 +231,10 @@ def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
             "import dragonfly2_tpu_torch.pkg.security\n"
             "import dragonfly2_tpu_torch.pkg.metrics_server\n"
             "import dragonfly2_tpu_torch.pkg.objectstorage.fs\n"
+            "import dragonfly2_tpu_torch.pkg.dfplugin\n"
+            "import dragonfly2_tpu_torch.pkg.prof\n"
+            "import dragonfly2_tpu_torch.pkg.slo\n"
+            "import dragonfly2_tpu_torch.pkg.tracing\n"
             "import dragonfly2_tpu_torch.qos\n"
             "loaded = sorted(sys.modules)\n"
             "for m in ('aiohttp', 'msgpack', 'cryptography', 'yaml',\n"
@@ -248,6 +254,7 @@ def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
             "    d = Daemon(cfg, device='cpu')\n"
             "    await d.start()\n"
             "    assert d.proxy.port and d.proxy._sni_port and d.qos_gate\n"
+            "    assert d.prof_obs is not None and d.metrics.port\n"
             "    d.proxy.ca.server_context('registry.local')\n"
             "    await d.stop()\n"
             "asyncio.run(main())\n"
@@ -261,19 +268,24 @@ def test_the_daemon_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
             "dragonfly2_tpu_torch.daemon.config",
             "dragonfly2_tpu_torch.daemon.transport",
             "dragonfly2_tpu_torch.qos.wfq",
-            "dragonfly2_tpu_torch.pkg.httpserver"} <= set(loaded)
+            "dragonfly2_tpu_torch.pkg.httpserver",
+            "dragonfly2_tpu_torch.pkg.dfplugin",
+            "dragonfly2_tpu_torch.pkg.prof",
+            "dragonfly2_tpu_torch.pkg.tracing"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
         "aiohttp", "msgpack", "cryptography", "yaml", "psutil")] == []
 
 
 def test_the_scheduler_imports_none_of_jax_aiohttp_msgpack_yaml():
-    """The scheduler and its support copies (``pkg/{fsm,dag,slo}.py``,
-    ``qos/admission.py``, the ``Scheduler.*`` schemas) import none of the
+    """The scheduler and its support copies (``pkg/{fsm,dag,slo,podlens,
+    prof,tracing,dfplugin}.py``, ``qos/admission.py``, the ``Scheduler.*``
+    schemas) import none of the
     JAX side, ``aiohttp``, ``msgpack`` or ``yaml`` (the JAX scheduler's
     drpc needs ``msgpack``, its config imports ``yaml`` at module top and
-    its tiny-task fetch uses ``aiohttp``); with none of the three
-    importable it loads a JSON config, serves, answers a unary call over
-    drpc and stops."""
+    its tiny-task fetch uses ``aiohttp``, its pod lens ``msgpack``); with
+    none of the three importable it loads a JSON config, serves with the
+    pod lens, the SLO engine and the runtime observatory on, answers a
+    unary call over drpc and stops."""
     code = ("import asyncio, json, os, sys, tempfile\n"
             "for m in ('aiohttp', 'msgpack', 'yaml'):\n"
             "    sys.modules[m] = None\n"
@@ -282,6 +294,10 @@ def test_the_scheduler_imports_none_of_jax_aiohttp_msgpack_yaml():
             "import dragonfly2_tpu_torch.scheduler.resource.snapshot\n"
             "import dragonfly2_tpu_torch.scheduler.resource.persistentcache\n"
             "import dragonfly2_tpu_torch.pkg.dag\n"
+            "import dragonfly2_tpu_torch.pkg.dfplugin\n"
+            "import dragonfly2_tpu_torch.pkg.podlens\n"
+            "import dragonfly2_tpu_torch.pkg.prof\n"
+            "import dragonfly2_tpu_torch.pkg.tracing\n"
             "import dragonfly2_tpu_torch.qos.admission\n"
             "from dragonfly2_tpu_torch.rpc import Client\n"
             "from dragonfly2_tpu_torch.pkg.types import NetAddr\n"
@@ -296,6 +312,7 @@ def test_the_scheduler_imports_none_of_jax_aiohttp_msgpack_yaml():
             "async def main():\n"
             "    s = SchedulerServer(SchedulerConfig.load(path))\n"
             "    await s.start()\n"
+            "    assert s.service.pod_lens and s.service.slo and s.prof_obs\n"
             "    cli = Client(NetAddr.tcp('127.0.0.1', s.port()))\n"
             "    assert (await cli.call('Scheduler.ListHosts', {})) == "
             "{'hosts': []}\n"
@@ -315,7 +332,11 @@ def test_the_scheduler_imports_none_of_jax_aiohttp_msgpack_yaml():
             "dragonfly2_tpu_torch.scheduler.scheduling.stripe",
             "dragonfly2_tpu_torch.scheduler.seed_client",
             "dragonfly2_tpu_torch.pkg.fsm",
-            "dragonfly2_tpu_torch.pkg.slo"} <= set(loaded)
+            "dragonfly2_tpu_torch.pkg.slo",
+            "dragonfly2_tpu_torch.pkg.podlens",
+            "dragonfly2_tpu_torch.pkg.prof",
+            "dragonfly2_tpu_torch.pkg.tracing",
+            "dragonfly2_tpu_torch.pkg.dfplugin"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
         "aiohttp", "msgpack", "yaml")] == []
 
@@ -409,14 +430,17 @@ def test_the_daemons_http_servers_name_their_threads(run_async, tmp_path):
 
 
 def test_the_intended_divergences_of_the_daemon(run_async, tmp_path):
-    """What the daemon slice leaves out, pinned: the gateway adopts no
-    ``traceparent`` (no tracing in the port); ``/metrics`` has no
-    ``/debug`` routes; ``prof.enabled`` (the default) installs no runtime
-    observatory; ``fs`` is the only object-storage backend; the
-    announcer's telemetry is the JAX keys from the standard library; the
-    transport has the JAX proxy half (rules, default tag,
-    ``should_use_p2p``), which the proxy calls; the GC runner has no
-    ``run``, which nothing calls."""
+    """What the daemon slice has as JAX does, and leaves out, pinned: the
+    gateway adopts a caller's ``traceparent`` (``gateway.get_object`` in
+    its trace); the metrics server serves the JAX ``/debug/*`` routes
+    (stacks, flights, the runtime-only ``/debug/slo``, ``/debug/prof*``)
+    but the cluster family; ``prof.enabled`` (the default) installs the
+    runtime observatory (a ``daemon`` loop probe, the recorder's
+    ``runtime``) and ``prof.enabled=False`` installs none; ``fs`` is the
+    only object-storage backend; the announcer's telemetry is the JAX
+    keys from the standard library; the transport has the JAX proxy half
+    (rules, default tag, ``should_use_p2p``), which the proxy calls; the
+    GC runner has no ``run``, which nothing calls."""
     import asyncio
     import http.client
     import inspect
@@ -433,14 +457,14 @@ def test_the_intended_divergences_of_the_daemon(run_async, tmp_path):
     from dragonfly2_tpu_torch.daemon.config import DaemonConfig
     from dragonfly2_tpu_torch.daemon.daemon import Daemon
     from dragonfly2_tpu_torch.pkg import metrics_server as pms
+    from dragonfly2_tpu_torch.pkg import prof as pprof
+    from dragonfly2_tpu_torch.pkg import tracing as ptracing
     from dragonfly2_tpu_torch.pkg.objectstorage import NOT_PORTED
 
-    assert hasattr(jgateway, "tracing") and not hasattr(pgateway, "tracing")
-    with open(pgateway.__file__) as f:
-        assert "tracing." not in f.read()
-    assert jms.MetricsServer.debug_routes()
-    assert pms.MetricsServer.ROUTES == ("/metrics", "/healthy")
-    assert not hasattr(pms.MetricsServer, "debug_routes")
+    assert hasattr(jgateway, "tracing") and hasattr(pgateway, "tracing")
+    assert pms.MetricsServer.debug_routes() == [
+        r for r in jms.MetricsServer.debug_routes()
+        if not r.startswith("/debug/cluster")]
     assert NOT_PORTED == ("s3", "gcs", "oss", "obs")
     import importlib.util
     for name in NOT_PORTED:
@@ -460,7 +484,7 @@ def test_the_intended_divergences_of_the_daemon(run_async, tmp_path):
         inspect.signature(ptransport.P2PTransport).parameters)
     assert hasattr(jcache.GC, "run") and not hasattr(pcache.GC, "run")
 
-    def get(port: int, path: str) -> int:
+    def get(port: int, path: str):
         c = http.client.HTTPConnection("127.0.0.1", port, timeout=10)
         try:
             c.request("GET", path, headers={
@@ -471,33 +495,55 @@ def test_the_intended_divergences_of_the_daemon(run_async, tmp_path):
         finally:
             c.close()
 
-    async def run():
+    async def run(prof: bool):
         cfg = DaemonConfig.from_dict({
-            "work_home": str(tmp_path), "metrics_port": 0,
+            "work_home": str(tmp_path / str(prof)), "metrics_port": 0,
             "host": {"hostname": "h", "ip": "127.0.0.1"},
+            "prof": {"enabled": prof},
             "object_storage": {"enabled": True, "backend_options": {
                 "root": str(tmp_path / "b")}}})
-        assert cfg.prof.enabled
         d = Daemon(cfg, device="cpu")
         await d.start()
         loop = asyncio.get_running_loop()
+        got = {}
         try:
-            assert not hasattr(d, "prof_obs")
-            assert d.task_manager.flight.runtime is None
-            assert await loop.run_in_executor(
-                None, get, d.metrics.port, "/debug/stacks") == (404, None)
-            assert await loop.run_in_executor(
-                None, get, d.object_storage.port, "/healthy") == (200, None)
+            got["observatory"] = (d.prof_obs is not None,
+                                  d.prof_obs is pprof.observatory(),
+                                  d.task_manager.flight.runtime is not None)
+            if prof:
+                assert set(d.prof_obs.probes) >= {"daemon"}
+            for path in ("/debug/stacks", "/debug/flight", "/debug/slo",
+                         "/debug/prof", "/debug/prof/runtime",
+                         "/debug/cluster", "/debug/fleet"):
+                got[path] = (await loop.run_in_executor(
+                    None, get, d.metrics.port, path))[0]
+            ptracing.exporter().clear()
+            got["gateway"] = await loop.run_in_executor(
+                None, get, d.object_storage.port, "/healthy")
         finally:
             await d.stop()
-        jd = jannouncer.Announcer.host_wire.__code__.co_names
-        assert "_telemetry" in jd
-        keys = set(pannouncer.Announcer(cfg, None, peer_port=1,
-                                        upload_port=2)._telemetry())
-        assert keys == set(jannouncer.Announcer._telemetry()) == {
-            "cpu_percent", "mem_percent", "disk_free"}
+        got["released"] = (d.prof_obs, pprof.observatory() is held)
+        return got
 
-    run_async(run())
+    held = pprof.observatory()   # one another test left installed, if any
+    on = run_async(run(True))
+    assert on == {
+        "observatory": (True, True, True), "/debug/stacks": 200,
+        "/debug/flight": 200, "/debug/slo": 200, "/debug/prof": 200,
+        "/debug/prof/runtime": 200, "/debug/cluster": 404,
+        "/debug/fleet": 404, "gateway": (200, None),
+        "released": (None, True)}
+    off = run_async(run(False))
+    assert off["observatory"] == (False, held is None, False)
+    assert (off["/debug/slo"], off["/debug/prof"],
+            off["/debug/stacks"]) == (404, 404, 200)
+    jd = jannouncer.Announcer.host_wire.__code__.co_names
+    assert "_telemetry" in jd
+    cfg = DaemonConfig.from_dict({"work_home": str(tmp_path / "t")})
+    keys = set(pannouncer.Announcer(cfg, None, peer_port=1,
+                                    upload_port=2)._telemetry())
+    assert keys == set(jannouncer.Announcer._telemetry()) == {
+        "cpu_percent", "mem_percent", "disk_free"}
 
 
 @pytest.mark.parametrize("path", _port_sources(),
@@ -517,8 +563,9 @@ def test_sources_import_no_msgpack(path):
 def test_the_intended_divergences_of_the_p2p_half():
     """What the P2P half leaves out, pinned: no native piece fetch, no
     native upload server and no native report decoder
-    (``report_backend()`` is ``"numpy"``); ``stamp_running`` kept with no
-    caller. What it has as the JAX half does: the conductor's parameters,
+    (``report_backend()`` is ``"numpy"``). ``stamp_running``'s one caller
+    is the runtime observatory (``pkg/prof``), as in JAX. What it has as
+    the JAX half does: the conductor's parameters,
     its QoS gate among them (its worker count and report batch come from
     the daemon's config, the old constants their defaults); TLS on the
     drpc client and server and the upload server; the flight recorder
@@ -594,15 +641,16 @@ def test_the_intended_divergences_of_the_p2p_half():
                  "REPORT_BACKEND_ACTIVE"):
         assert not hasattr(pcodec, name)
     assert pcodec.report_backend() == "numpy"
-    # stamp_running stays; its caller (the runtime profiler) is not ported.
+    # stamp_running's caller is the runtime observatory, as in JAX.
     assert hasattr(pflight.FlightRecorder, "stamp_running")
     callers = []
     for path in _port_sources():
         if os.path.basename(path) != "flight.py":
             with open(path) as f:
                 if "stamp_running(" in f.read():
-                    callers.append(path)
-    assert callers == []
+                    callers.append(os.path.relpath(path, REPO))
+    assert callers == [os.path.join("dragonfly2_tpu_torch", "pkg",
+                                    "prof.py")]
     for have in (params(jupload.UploadManager), params(pupload.UploadManager),
                  params(JClient), params(Client), params(JServer.serve),
                  params(Server.serve)):
@@ -674,30 +722,37 @@ def test_the_intended_divergences_of_the_p2p_half():
         jwire.STREAM_MSGS["Scheduler.AnnouncePeer"])
 
 
-def test_the_intended_divergences_of_the_scheduler(run_async):
-    """What the port's scheduler refuses and what it only observes,
-    pinned. Refused at construction, by name and ``ROADMAP.md`` item: an
-    an evaluator plugin. Since the fleet observatory is ported, a default
-    ``SchedulerConfig()`` (``fleet.enabled`` on, as in JAX) starts, with
-    ``Scheduling.wire_fleet`` wired and ``/debug/fleet`` served.
-    ``manager_addr`` is served: the scheduler constructs, registers with
-    the port's manager and keeps alive there, its keepalive carrying the
-    tenant burn snapshot and no fleet frame (no cluster tower: no
-    ``frame_builder``). Accepted and installing nothing:
-    ``podlens.enabled``, ``podlens.slo_enabled`` and ``prof.enabled``
-    (the JAX service builds a pod lens for the first).
-    ``Scheduler.PodTimeline`` answers as the JAX scheduler does with
-    ``podlens.enabled=False``; ``/metrics`` has no ``/debug/*`` route but
-    the fleet's; the tiny task's fetch is ``http.client``."""
+def test_the_intended_divergences_of_the_scheduler(run_async, tmp_path,
+                                                   monkeypatch):
+    """What the port's scheduler does as JAX does, and leaves out, pinned.
+    A ``scheduling.algorithm`` other than ``"default"`` names an evaluator
+    plugin (``pkg/dfplugin``): an unknown one raises the JAX
+    ``LookupError``, one in ``DRAGONFLY_PLUGIN_DIR`` is built. A default
+    ``SchedulerConfig()`` builds the fleet (``Scheduling.wire_fleet``
+    wired), the pod lens and the SLO engine over the fleet's series, as
+    the JAX service does; ``podlens.enabled=False`` builds neither and
+    ``Scheduler.PodTimeline`` answers as the JAX scheduler's then. The
+    server installs the runtime observatory (a ``scheduler`` loop probe
+    whose ``loop_lag`` joins the SLO engine, released at stop) and serves
+    ``/debug/pod/<task>/timeline``, ``/debug/slo`` and ``/debug/prof*``
+    beside the fleet's routes. ``manager_addr`` is served: the scheduler
+    registers with the port's manager and keeps alive there, its
+    keepalive carrying the tenant burn snapshot and no fleet frame (no
+    cluster tower: no ``frame_builder``). The tiny task's fetch is
+    ``http.client``."""
     import asyncio
     import inspect
+    import textwrap
     import urllib.error
     import urllib.request
 
+    import dragonfly2_tpu.pkg.dfplugin as jplugin
+    import dragonfly2_tpu_torch.pkg.dfplugin as pplugin
     from dragonfly2_tpu.pkg.errors import DfError as JDfError
     from dragonfly2_tpu.scheduler.config import SchedulerConfig as JConfig
     from dragonfly2_tpu.scheduler.scheduling import Scheduling as JScheduling
     from dragonfly2_tpu.scheduler.service import SchedulerService as JService
+    from dragonfly2_tpu_torch.pkg import prof as pprof
     from dragonfly2_tpu_torch.pkg.errors import DfError
     from dragonfly2_tpu_torch.scheduler import service as psvc
     from dragonfly2_tpu_torch.scheduler.config import (
@@ -707,16 +762,42 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
     from dragonfly2_tpu_torch.scheduler.scheduling import Scheduling
     from dragonfly2_tpu_torch.scheduler.server import SchedulerServer
 
+    (tmp_path / "df_plugin_ev.py").write_text(textwrap.dedent("""
+        PLUGIN_TYPE = "evaluator"
+        PLUGIN_NAME = "pinned"
+
+        class Pinned:
+            def __init__(self, config):
+                self.config = config
+
+        def create(config=None):
+            return Pinned(config)
+    """))
+    monkeypatch.setenv("DRAGONFLY_PLUGIN_DIR", str(tmp_path))
+    for mod in (jplugin, pplugin):
+        monkeypatch.setattr(mod, "_default", mod.PluginRegistry())
     off = {"fleet": {"enabled": False}}
-    for over, name, item in (
-            ({"scheduling": {"algorithm": "plugin"}},
-             "scheduling.algorithm", "A7.4"),):
-        with pytest.raises(ValueError) as e:
-            psvc.SchedulerService(SchedulerConfig.from_dict(over))
-        assert name in str(e.value) and f"ROADMAP {item}" in str(e.value)
+    jcfg = JConfig()
+    jcfg.scheduling.algorithm = "absent"
+    msgs = []
+    for make in (lambda: JService(jcfg), lambda: psvc.SchedulerService(
+            SchedulerConfig.from_dict({"scheduling": {
+                "algorithm": "absent"}}))):
+        with pytest.raises(LookupError) as e:
+            make()
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] == "no evaluator plugin named 'absent'"
+    plugged = Scheduling(SchedulingConfig(algorithm="pinned"))
+    assert type(plugged.evaluator).__name__ == "Pinned"
+    assert plugged.evaluator.config.algorithm == "pinned"
+    assert not hasattr(psvc, "refuse_unported")
     default = psvc.SchedulerService(SchedulerConfig())
     assert default.fleet is not None
     assert default.scheduling.fleet is default.fleet
+    assert default.pod_lens is not None
+    assert default.slo is not None and default.slo.series is \
+        default.fleet.series
+    assert not hasattr(default, "frame_builder")
 
     async def registers():
         from dragonfly2_tpu_torch.manager import ManagerConfig, ManagerServer
@@ -746,20 +827,14 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
 
     assert run_async(registers(), timeout=30) == (
         "active", True, {"tenant_burn": {}}, True)
-    with pytest.raises(ValueError, match="plugins are not ported"):
-        Scheduling(SchedulingConfig(algorithm="plugin"))
     assert hasattr(JScheduling, "wire_fleet")
     assert hasattr(Scheduling, "wire_fleet")
 
-    on = {**off, "podlens": {"enabled": True, "slo_enabled": True},
-          "prof": {"enabled": True}}
-    svc = psvc.SchedulerService(SchedulerConfig.from_dict(on))
-    for name in ("pod_lens", "slo", "frame_builder"):
-        assert not hasattr(svc, name)
-    assert svc.fleet is None
+    lens_off = {**off, "podlens": {"enabled": False}}
+    svc = psvc.SchedulerService(SchedulerConfig.from_dict(lens_off))
+    assert (svc.pod_lens, svc.slo, svc.fleet) == (None, None, None)
     jcfg = JConfig()
     jcfg.fleet.enabled = False
-    assert JService(jcfg).pod_lens is not None
     jcfg.podlens.enabled = False
     jsvc = JService(jcfg)
 
@@ -774,13 +849,19 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
     j, p = run_async(timelines())
     assert j == p
 
+    held = pprof.observatory()   # one another test left installed, if any
+
     async def metrics(over):
         server = SchedulerServer(SchedulerConfig.from_dict(
             {**over, "server": {"port": 0}, "metrics_port": 0}))
         await server.start()
         base = f"http://127.0.0.1:{server.metrics.port}"
         try:
-            got = {}
+            got = {"probe": (
+                server.prof_obs is not None and "scheduler" in
+                server.prof_obs.probes,
+                server.service.slo is not None and
+                "loop_lag" in server.service.slo.probes)}
 
             def status(path: str) -> int:
                 try:
@@ -791,19 +872,23 @@ def test_the_intended_divergences_of_the_scheduler(run_async):
                     return e.code
 
             for path in ("/metrics", "/healthy", "/debug/fleet",
-                         "/debug/pod/t/timeline", "/debug/slo"):
-                # Off the loop: the fleet is read on the scheduler's loop.
+                         "/debug/pod/t/timeline", "/debug/slo",
+                         "/debug/prof", "/debug/pod/t"):
                 got[path] = await asyncio.to_thread(status, path)
             return got
         finally:
             await server.stop()
+            assert server.prof_obs is None
+            assert pprof.observatory() is held
 
-    assert run_async(metrics(off)) == {
-        "/metrics": 200, "/healthy": 200, "/debug/fleet": 404,
-        "/debug/pod/t/timeline": 404, "/debug/slo": 404}
+    assert run_async(metrics({**lens_off, "prof": {"enabled": False}})) == {
+        "probe": (False, False), "/metrics": 200, "/healthy": 200,
+        "/debug/fleet": 404, "/debug/pod/t/timeline": 404,
+        "/debug/slo": 404, "/debug/prof": 404, "/debug/pod/t": 404}
     assert run_async(metrics({})) == {
-        "/metrics": 200, "/healthy": 200, "/debug/fleet": 200,
-        "/debug/pod/t/timeline": 404, "/debug/slo": 404}
+        "probe": (True, True), "/metrics": 200, "/healthy": 200,
+        "/debug/fleet": 200, "/debug/pod/t/timeline": 404,
+        "/debug/slo": 200, "/debug/prof": 200, "/debug/pod/t": 404}
     fetch = inspect.getsource(psvc.SchedulerService._fetch_direct_piece)
     assert "_http_get" in fetch and "aiohttp" not in fetch
     assert "http.client.HTTPConnection" in inspect.getsource(psvc._http_get)
@@ -823,6 +908,7 @@ def test_the_manager_imports_none_of_jax_aiohttp_msgpack_yaml():
             "import dragonfly2_tpu_torch.manager.__main__\n"
             "import dragonfly2_tpu_torch.manager.console\n"
             "import dragonfly2_tpu_torch.pkg.dynconfig\n"
+            "import dragonfly2_tpu_torch.pkg.prof\n"
             "import dragonfly2_tpu_torch.scheduler.job\n"
             "from dragonfly2_tpu_torch.manager import ManagerConfig, "
             "ManagerServer\n"
@@ -868,7 +954,8 @@ def test_the_manager_imports_none_of_jax_aiohttp_msgpack_yaml():
             "dragonfly2_tpu_torch.scheduler.announcer",
             "dragonfly2_tpu_torch.scheduler.dynconfig",
             "dragonfly2_tpu_torch.scheduler.job",
-            "dragonfly2_tpu_torch.pkg.dynconfig"} <= set(loaded)
+            "dragonfly2_tpu_torch.pkg.dynconfig",
+            "dragonfly2_tpu_torch.pkg.prof"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m) or m.split(".")[0] in (
         "aiohttp", "msgpack", "yaml", "cryptography")] == []
 
@@ -889,6 +976,7 @@ def test_the_cli_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
             "import dragonfly2_tpu_torch.client.dfcache\n"
             "import dragonfly2_tpu_torch.daemon.dynconfig\n"
             "import dragonfly2_tpu_torch.pkg.fleet\n"
+            "import dragonfly2_tpu_torch.pkg.tracing\n"
             "for argv in (['dfget', 'http://o/x', '-O', 'o'], ['daemon'],\n"
             "             ['scheduler'], ['manager'], ['dfcache', 'stat',\n"
             "             'c'], ['dfstore', 'ls']):\n"
@@ -903,7 +991,8 @@ def test_the_cli_imports_none_of_jax_aiohttp_msgpack_yaml_psutil():
     assert {"dragonfly2_tpu_torch.cli.extra",
             "dragonfly2_tpu_torch.client.dfget",
             "dragonfly2_tpu_torch.daemon.dynconfig",
-            "dragonfly2_tpu_torch.pkg.fleet"} <= set(loaded)
+            "dragonfly2_tpu_torch.pkg.fleet",
+            "dragonfly2_tpu_torch.pkg.tracing"} <= set(loaded)
     assert [m for m in loaded if _forbidden(m)] == []
 
 
@@ -917,8 +1006,9 @@ def test_the_intended_divergences_of_the_cli(capsys):
     - ``dfget --device cuda``, an alias sent on the wire as ``"tpu"``;
     - ``dfget --cluster`` refused with exit code 2 naming ROADMAP A7.4
       item 6 (no ``Manager.ClusterView``), before anything is fetched;
-    - ``client/dfget.download`` opens no tracing span (no
-      ``pkg/tracing``, ROADMAP A7.4 item 5);
+    - ``client/dfget.download`` opens the JAX ``dfget.download`` span,
+      and ``dfget`` flushes the OTLP exporter before it exits (the JAX
+      CLI does not: its span may die queued);
     - ``dfget`` waits 30 s for the daemon it spawns, not 15 s: the port's
       daemon imports torch and binds the card on its first start."""
     import argparse
@@ -969,9 +1059,12 @@ def test_the_intended_divergences_of_the_cli(capsys):
     err = capsys.readouterr().err
     assert "ROADMAP A7.4 item 6" in err and "--cluster" in err
 
-    assert hasattr(jdfget, "tracing") and not hasattr(pdfget, "tracing")
-    with open(pdfget.__file__) as f:
-        assert "tracing." not in f.read()
+    assert hasattr(jdfget, "tracing") and hasattr(pdfget, "tracing")
+    for mod in (jdfget, pdfget):
+        assert 'tracing.span("dfget.download", url=cfg.url)' in \
+            inspect.getsource(mod.download)
+    assert "otlp.flush" in inspect.getsource(pmain._run_dfget)
+    assert "otlp" not in inspect.getsource(jmain._run_dfget)
     wait = inspect.signature(jmain._wait_daemon).parameters["timeout"]
     assert wait.default == 15.0
     assert inspect.signature(pmain._wait_daemon).parameters[
@@ -981,14 +1074,18 @@ def test_the_intended_divergences_of_the_cli(capsys):
     assert "dragonfly2_tpu_torch.cli.main" in spawn
 
 
-def test_the_intended_divergences_of_the_manager(run_async):
+def test_the_intended_divergences_of_the_manager(run_async, tmp_path,
+                                                 monkeypatch):
     """What the manager slice leaves out, pinned: no cluster control
     tower (no ``service.cluster``, no ``Manager.ClusterView``, a
     keepalive's fleet frame dropped, ``note_admission_429`` recording
-    nothing) and no ``/debug/*`` route on the REST API or the metrics
-    server; ``prof.enabled`` installs nothing; a ``searcher_plugin`` is
-    refused with its ``ROADMAP.md`` item; the image preheat's manifest
-    fetch and the OAuth exchange run on ``http.client`` off the loop."""
+    nothing, no ``/debug/cluster*`` route); no ``/debug/*`` route on the
+    REST API. As in JAX: ``prof.enabled`` (the default) installs the
+    runtime observatory (a ``manager`` loop probe, released at stop) and
+    the metrics server serves ``/debug/prof*``; a ``searcher_plugin``
+    names a searcher of the plugin registry (an unknown one raises the
+    JAX ``LookupError``). The image preheat's manifest fetch and the
+    OAuth exchange run on ``http.client`` off the loop."""
     import asyncio
     import http.client
     import inspect
@@ -1021,8 +1118,30 @@ def test_the_intended_divergences_of_the_manager(run_async):
     prpc.ManagerRpcServer(psvc).register(pm)
     assert set(jm._unary) - set(pm._unary) == {"Manager.ClusterView"}
     assert set(jm._stream) == set(pm._stream) == {"Manager.KeepAlive"}
-    with pytest.raises(ValueError, match="ROADMAP A7.4"):
-        ManagerService(searcher_plugin="my-searcher")
+    import textwrap
+
+    import dragonfly2_tpu.pkg.dfplugin as jplugin
+    import dragonfly2_tpu_torch.pkg.dfplugin as pplugin
+    from dragonfly2_tpu_torch.pkg import prof as pprof
+
+    (tmp_path / "df_plugin_s.py").write_text(textwrap.dedent("""
+        PLUGIN_TYPE = "searcher"
+        PLUGIN_NAME = "mine"
+
+        def create():
+            return "searcher-instance"
+    """))
+    monkeypatch.setenv("DRAGONFLY_PLUGIN_DIR", str(tmp_path))
+    for mod in (jplugin, pplugin):
+        monkeypatch.setattr(mod, "_default", mod.PluginRegistry())
+    msgs = []
+    for cls in (JService, ManagerService):
+        with pytest.raises(LookupError) as e:
+            cls(searcher_plugin="my-searcher")
+        msgs.append(str(e.value))
+    assert msgs[0] == msgs[1] == "no searcher plugin named 'my-searcher'"
+    assert ManagerService(searcher_plugin="mine").searcher == \
+        "searcher-instance"
     assert "aiohttp." not in inspect.getsource(preheat)
     assert "http.client.HTTPConnection" in inspect.getsource(
         preheat._http_get_json)
@@ -1041,12 +1160,15 @@ def test_the_intended_divergences_of_the_manager(run_async):
         finally:
             c.close()
 
+    held = pprof.observatory()   # one another test left installed, if any
+
     async def run():
         server = ManagerServer(ManagerConfig.from_dict(
             {"prof": {"enabled": True}, "metrics_port": 0}))
         await server.start()
         try:
-            assert not hasattr(server, "prof_obs")
+            assert server.prof_obs is pprof.observatory() is not None
+            assert "manager" in server.prof_obs.probes
             token = psvc.signer.sign(1, "root", ["root"])
             server.service.signer = psvc.signer
             got = {}
@@ -1071,10 +1193,12 @@ def test_the_intended_divergences_of_the_manager(run_async):
             return got
         finally:
             await server.stop()
+            assert server.prof_obs is None
+            assert pprof.observatory() is held
 
     assert run_async(run(), timeout=30) == {
         "rest /debug/cluster": 404, "metrics /debug/cluster": 404,
-        "rest /debug/prof": 404, "metrics /debug/prof": 404,
+        "rest /debug/prof": 404, "metrics /debug/prof": 200,
         "rest /metrics": 200, "metrics /metrics": 200, "state": "active"}
     jserver = JServer()
     assert hasattr(jserver, "prof_obs")
